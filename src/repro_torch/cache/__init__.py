@@ -1,0 +1,39 @@
+"""Unified semantic-cache API of the port: lookup / admit / evict behind one
+facade, on the hand-written CUDA kernels.
+
+Quick start::
+
+    from repro_torch.cache import SemanticCache, CacheConfig
+
+    cache = SemanticCache(CacheConfig(capacity=1024, dim=768, tau_hit=0.85))
+    res = cache.lookup(query_emb, cid=content_id)      # never admits
+    if not res.hit:
+        cache.admit(content_id, query_emb, payload=response)
+
+    results = cache.lookup_batch(embs, cids=cids)      # one kernel launch
+    state = cache.checkpoint()             # deep snapshot...
+    cache.restore(state)                   # ...restored exactly
+
+``CacheConfig`` defaults to ``policy="RAC"`` on the ``"kernel"`` backend
+with ``device="cuda"``: the slab, the RAC policy table and the topic
+representatives live on the card, and every lookup, fused decision pass
+and eviction scoring runs through the CUDA kernels in
+:mod:`repro_torch.kernels`.  ``device="cpu"`` runs the same backend on the
+kernels' plain PyTorch versions; ``backend="numpy"`` is the host oracle.
+Both backends make identical hit/admit/evict decisions.
+
+``load_reference_state`` fills a RAC cache from plain arrays, so a cache
+warmed elsewhere can be continued here.
+"""
+from .backends import KernelBackend, LookupBackend, NumpyBackend, get_backend
+from .facade import SemanticCache, load_reference_state
+from .tiers import GhostTier
+from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
+                    CacheMiss, CacheResult, DecisionBatch, TierConfig)
+
+__all__ = [
+    "SemanticCache", "CacheConfig", "CacheHit", "CacheMiss", "CacheResult",
+    "CacheEvent", "CacheMetrics", "DecisionBatch", "LookupBackend",
+    "NumpyBackend", "KernelBackend", "get_backend", "load_reference_state",
+    "GhostTier", "TierConfig",
+]
