@@ -13,14 +13,33 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                per call, from a CUDA graph of many calls; ``eager_ms`` is
                the kernel's time per eager call, host issue included),
                printed as one JSON line {"kernels": [...]}.
+               The Top-K kernels are checked too: fp32 Top-K at the routing
+               shape (Q in {1, 512} x 4,096 topics x D+1 = 769, k = 3) and
+               over the slab (Q = 8, k in {1, 8, 16, 257}), int8 Top-K over
+               the slab (Q in {1, 512}, k = 8, scores bit-equal), and Top-1
+               with a count read on the card (the fused rescore's shapes).
   4. parity  - the first 8,000 requests of the trace at D=768, capacity
                4,096, replayed on the kernel backend on the card and on the
                port's NumpyBackend host oracle: hit, admit and eviction
                sequences must be identical.
-  5. main    - run_policy_batched(RAC, backend="kernel", device="cuda") over
-               the whole OASST-style trace at D=768, capacity 65,536 (a
-               65,537 x 768 fp32 slab on the card), chunk 512; every kernel
-               must have launched.
+  5. approx  - the same 8,000 requests replayed request by request through
+               lookup/admit with the quantized, the pruned (2 probes), the
+               composed (fused) and the composed staged (fused=False)
+               lookups, on the card and on the host oracle: every event
+               sequence must equal the exact path's on the card.  The nine
+               replays are independent and host-bound, so each runs in a
+               worker process of its own.
+  6. main    - the batched replay (RAC, backend="kernel", device="cuda") of
+               the OASST-style trace's first 71,000 requests at D=768,
+               capacity 65,536 (a 65,537 x 768 fp32 slab on the card),
+               chunk 512, on a cache the smoke keeps; B1-B3 must have
+               launched.
+  7. approx main - that warmed cache is checkpointed and restored into an
+               exact and a quantized+pruned (defaults) cache, which replay
+               the trace's last 1,000 requests one by one (the fused path
+               at b = 1) and then peek 512 queries at once (the staged
+               path): identical events and hit cids; B4, B5 and B1 with a
+               count on the card must have launched.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -41,15 +60,27 @@ import torch  # noqa: E402
 DIM = 768                  # GPTCache's default ONNX embedder width
 CAPACITY = 65_536
 TRACE_LEN = 72_000
+CONT_LEN = 1_000           # the approximate continuation after the main run
 CHUNK = 512
+PEEK = 512                 # one staged peek_batch of this many queries
 PARITY_LEN, PARITY_CAP = 8_000, 4_096
 N_TOPICS = 4_096           # routing-table rows for the kernel check
 ALPHA = 0.001
+TAU_HIT = 0.85             # CacheConfig's default hit threshold
 DEVICE = "cuda"
+# the approximate lookups the parity phase holds against the exact path
+APPROX = {
+    "quantized": dict(quantized_lookup=True),
+    "pruned": dict(pruned_lookup={"probes": 2}),
+    "both": dict(quantized_lookup=True, pruned_lookup=True),
+    "both_staged": dict(quantized_lookup={"fused": False},
+                        pruned_lookup={"fused": False}),
+}
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, int8 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 SIM_TOL = 1e-5             # fp32 dot products summed in another order
@@ -131,8 +162,9 @@ def timings(kernel, plain, library, reps: int) -> dict:
             "library_ms": None if library is None else graph_ms(library, reps)}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FP32
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_FP32) -> tuple[float, str]:
+    t_b, t_f = nbytes / PEAK_BYTES, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -168,6 +200,117 @@ def check_sim_top1(q, c, n_valid, reps):
                   lambda: ref.sim_top1_ref(q, c, n_valid),
                   lambda: torch.mm(q, c.T), reps),
     }
+
+
+def _clear_ranks(pv: torch.Tensor) -> torch.Tensor:
+    """Ranks whose score is 1e-4 clear of both neighbours: there the index
+    is pinned down whatever order the sums were taken in."""
+    pad = torch.full_like(pv[:, :1], float("-inf"))
+    nxt = torch.cat([pv[:, 1:], pad], dim=1)
+    prv = torch.cat([-pad, pv[:, :-1]], dim=1)
+    return torch.isfinite(pv) & (pv - nxt > 1e-4) & (prv - pv > 1e-4)
+
+
+def check_topk(label: str, run, plain, library, nbytes: float, ops_: float,
+               peak: float, exact: bool, reps: int) -> dict:
+    """A Top-K kernel against its plain version: the same -inf tail, then
+    values bit-equal with equal indices (int8, ``exact``) or within
+    SIM_TOL with equal indices at clear ranks (fp32)."""
+    v, i = run()
+    pv, pi = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isneginf(v), torch.isneginf(pv)):
+        raise AssertionError(f"{label}: -inf tails differ")
+    fin = torch.isfinite(pv)
+    err = float((v - pv)[fin].abs().max()) if bool(fin.any()) else 0.0
+    if exact:
+        if err != 0.0 or not torch.equal(i[fin], pi[fin]):
+            raise AssertionError(f"{label}: not bit-equal (max |err| {err})")
+    else:
+        if not err <= SIM_TOL:
+            raise AssertionError(f"{label}: max |err| {err} > {SIM_TOL}")
+        clear = _clear_ranks(pv)
+        if not torch.equal(i[clear], pi[clear]):
+            raise AssertionError(f"{label}: index disagreements")
+    nb, op = bound(nbytes, ops_, peak)
+    return {"shape": label, "max_abs_err": err, "bound_ms": nb,
+            "bound_by": op, **timings(run, plain, library, reps)}
+
+
+def phase_topk(chunk, slab, reps_aug, q_aug):
+    """B4 at the routing and slab shapes, B5 over the slab, and B1 with a
+    count read on the card at the fused rescore's shapes."""
+    from repro_torch.kernels import ref, similarity_topk
+    from repro_torch.kernels.quant import quantize_rows_int8
+    dev = slab.device
+    n, d = slab.shape
+    t = reps_aug.shape[0]
+    b4 = []
+    for nq in (1, 512):
+        q = q_aug[:nq].contiguous()
+        b4.append(check_topk(
+            f"route Q={nq} T={t} D+1={d + 1} k=3",
+            lambda q=q: similarity_topk.sim_topk(q, reps_aug, t, 3),
+            lambda q=q: ref.sim_topk_ref(q, reps_aug, t, 3),
+            lambda q=q: torch.topk(torch.mm(q, reps_aug.T), 3, dim=1),
+            (nq * (d + 1) + t * (d + 1)) * 4 + nq * 3 * 8,
+            2.0 * nq * t * (d + 1), PEAK_FP32, False, 50))
+    q8rows = chunk[:8].contiguous()
+    for k in (1, 8, 16, 257):
+        b4.append(check_topk(
+            f"slab Q=8 N={n} D={d} k={k}",
+            lambda k=k: similarity_topk.sim_topk(q8rows, slab, n, k),
+            lambda k=k: ref.sim_topk_ref(q8rows, slab, n, k),
+            lambda k=k: torch.topk(torch.mm(q8rows, slab.T), k, dim=1),
+            (8 * d + n * d) * 4 + 8 * k * 8, 2.0 * 8 * n * d, PEAK_FP32,
+            False, 20))
+
+    c8n, csn, _ = quantize_rows_int8(slab.cpu().numpy())
+    c8, cs = torch.from_numpy(c8n).to(dev), torch.from_numpy(csn).to(dev)
+    # cuBLASLt's int8 product wants at least 17 rows and widths in 8s:
+    # the yardstick takes the queries padded to 32 rows (at Q = 1) and the
+    # slab's first 65,536 rows
+    c8t = c8[: n - n % 8].T
+    b5 = []
+    for nq in (1, 512):
+        q8n, qsn, _ = quantize_rows_int8(chunk[:nq].cpu().numpy())
+        q8, qs = torch.from_numpy(q8n).to(dev), torch.from_numpy(qsn).to(dev)
+        q8p = torch.cat([q8, q8.new_zeros((max(0, 32 - nq), d))])
+
+        def library(q8p=q8p):
+            return torch._int_mm(q8p, c8t)
+        b5.append(check_topk(
+            f"slab Q={nq} N={n} D={d} k=8",
+            lambda q8=q8, qs=qs: similarity_topk.sim_topk_q8(
+                q8, qs, c8, cs, n, 8),
+            lambda q8=q8, qs=qs: ref.sim_topk_q8_ref(q8, qs, c8, cs, n, 8),
+            library, nq * (d + 4) + n * (d + 4) + nq * 8 * 8,
+            2.0 * nq * n * d, PEAK_INT8, True, 20))
+
+    b1d = []
+    for nq, nu in ((1, 8), (16, 128)):
+        q = chunk[:nq].contiguous()
+        blk = slab[:nu].contiguous()
+        nv = torch.tensor([nu], dtype=torch.int32, device=dev)
+        v, i = similarity_topk.sim_top1(q, blk, nv)
+        hv, hi = similarity_topk.sim_top1(q, blk, nu)
+        pv, pi = ref.sim_top1_ref(q, blk, nv)
+        torch.cuda.synchronize()
+        if not (torch.equal(v, hv) and torch.equal(i, hi)):
+            raise AssertionError("sim_top1: a count on the card differs "
+                                 "from the same count from the host")
+        err = float((v - pv).abs().max())
+        if not err <= SIM_TOL:
+            raise AssertionError(f"sim_top1 (device n_valid): {err}")
+        nb, op = bound((nq * d + nu * d) * 4 + nq * 8, 2.0 * nq * nu * d)
+        b1d.append({
+            "shape": f"union Q={nq} N={nu} D={d}", "max_abs_err": err,
+            "bound_ms": nb, "bound_by": op,
+            **timings(lambda q=q, blk=blk, nv=nv: similarity_topk.sim_top1(
+                q, blk, nv),
+                lambda q=q, blk=blk, nv=nv: ref.sim_top1_ref(q, blk, nv),
+                lambda q=q, blk=blk: torch.mm(q, blk.T), 200)})
+    return b4, b5, b1d
 
 
 def check_values(rng, n: int, t: int, reps: int):
@@ -243,7 +386,12 @@ def phase_kernels(trace):
     if int(i.abs().sum()) != 0:
         raise AssertionError("ties must go to the lower index")
     values = check_values(rng, CAPACITY + 1, N_TOPICS, 200)
-    return sim, values
+    # the routing matrix [rep | spread] and norm-augmented queries
+    spread = torch.from_numpy(rng.uniform(0.05, 0.6, (N_TOPICS, 1)).astype(
+        np.float32)).to(dev)
+    q_aug = torch.cat([chunk, chunk.norm(dim=1, keepdim=True)], dim=1)
+    topk = phase_topk(chunk, slab, torch.cat([reps, spread], dim=1), q_aug)
+    return sim, values, topk
 
 
 def recording(factory, log_: list):
@@ -301,38 +449,263 @@ def phase_parity(trace):
     log(f"parity: {len(ek)} hit/admit/evict events identical")
 
 
+def record(cache) -> list:
+    """Subscribe to the facade's events: (kind, cid, t) in order."""
+    log_: list = []
+    for kind in ("hit", "miss", "admit", "evict"):
+        cache.subscribe(kind, lambda ev, _l=log_: _l.append(
+            (ev.kind, int(ev.cid), int(ev.t))))
+    return log_
+
+
+def replay(cache, requests) -> None:
+    """``run_policy``'s loop: one lookup per request, admit on a miss."""
+    for req in requests:
+        if not cache.lookup(req.emb, cid=req.cid, t=req.t, req=req).hit:
+            cache.admit(req.cid, req.emb, t=req.t, req=req)
+
+
+def first_diff(a: list, b: list) -> str:
+    j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return (f"event {j} differs: {a[j] if j < len(a) else None} vs "
+            f"{b[j] if j < len(b) else None} ({len(a)} vs {len(b)} events)")
+
+
+def _approx_replay(task):
+    """One approximate-parity replay, in a worker process of its own."""
+    name, backend, device, kw, cap, dim, reqs = task
+    torch.set_num_threads(1)
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.core import make_rac
+    cache = SemanticCache(CacheConfig(capacity=cap, dim=dim, backend=backend,
+                                      device=device, **kw),
+                          policy_factory=make_rac())
+    ev = record(cache)
+    t0 = time.perf_counter()
+    replay(cache, reqs)
+    wall = time.perf_counter() - t0
+    snap = cache.metrics_snapshot()
+    return (name, backend, ev, wall, cache.metrics.hits,
+            cache.metrics.evictions,
+            {k: snap.get(k) for k in ("quant", "prune", "sync")})
+
+
+def phase_approx_parity(trace):
+    """The exact path on the card and the four approximate configurations
+    on the card and on the host oracle, each replay in its own process
+    (they are independent and host-bound), all held to the exact events."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    reqs = trace.requests[:PARITY_LEN]
+    tasks = [("exact", "kernel", DEVICE, {}, PARITY_CAP, DIM, reqs)] + [
+        (name, backend, device, kw, PARITY_CAP, DIM, reqs)
+        for name, kw in APPROX.items()
+        for backend, device in (("kernel", DEVICE), ("numpy", "cpu"))]
+    # one BLAS thread per worker: the workers share the host's cores
+    threads = {k: os.environ.get(k) for k in
+               ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    os.environ.update({k: "1" for k in threads})
+    try:
+        with ProcessPoolExecutor(
+                max_workers=len(tasks),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            results = list(pool.map(_approx_replay, tasks))
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _, _, exact, wall, hits, evictions, _ = results[0]
+    log(f"approx parity exact/kernel: hits={hits} evictions={evictions} "
+        f"events={len(exact)} wall={wall:.2f}s")
+    if hits == 0 or evictions == 0:
+        raise AssertionError("approx parity prefix made no hits or evictions")
+    for name, backend, ev, wall, _, _, snap in results[1:]:
+        if ev != exact:
+            raise AssertionError(f"approx parity {name}/{backend}: "
+                                 + first_diff(ev, exact))
+        log(f"approx parity {name}/{backend}: {len(ev)} events identical "
+            f"wall={wall:.2f}s quant={json.dumps(snap['quant'])} "
+            f"prune={json.dumps(snap['prune'])} "
+            f"sync={json.dumps(snap['sync'])}")
+
+
 def phase_main(trace):
-    from repro_torch.core import make_rac, run_policy_batched
+    """The batched replay of all but the trace's last CONT_LEN requests,
+    on a cache the smoke keeps for the approximate continuation."""
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.core import make_rac, replay_batched
     from repro_torch.kernels import decision, ops, rac_value, similarity_topk
     wrappers = {"sim_top1": similarity_topk, "victim_value": decision,
                 "rac_value": rac_value}
+    reqs = trace.requests[:len(trace.requests) - CONT_LEN]
+    cache = SemanticCache(CacheConfig(capacity=CAPACITY, dim=DIM,
+                                      device=DEVICE),
+                          policy_factory=make_rac())
     for mod in wrappers.values():
         mod.launches = 0
     before = dict(ops.dispatch_stats)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    st = run_policy_batched(trace, CAPACITY, make_rac(), hit_mode="semantic",
-                            backend="kernel", device=DEVICE, chunk=CHUNK)
+    replay_batched(cache, reqs, chunk=CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: m.launches for k, m in wrappers.items()}
     disp = {k: ops.dispatch_stats[k] - before[k] for k in before}
-    n = len(trace.requests)
-    log(f"main: requests={n} hits={st.hits} misses={st.misses} "
-        f"evictions={st.evictions} hit_ratio={st.hit_ratio:.4f} "
+    n = len(reqs)
+    m = cache.metrics
+    log(f"main: requests={n} hits={m.hits} misses={m.misses} "
+        f"evictions={m.evictions} hit_ratio={m.hit_ratio:.4f} "
         f"wall={wall:.2f}s ({n / wall:.1f} req/s)")
     log(f"main: dispatch={json.dumps(disp)} kernel_launches="
         f"{json.dumps(launches)} kernel_share_of_wall="
         f"{disp['kernel_s'] / wall:.4f} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
-    if st.hits + st.misses != n:
+    if m.hits + m.misses != n:
         raise AssertionError("main: hits + misses != requests")
-    if st.evictions <= 0 or st.hits <= 0:
+    if m.evictions <= 0 or m.hits <= 0:
         raise AssertionError("main: the replay made no evictions or no hits")
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
         raise AssertionError(f"main: kernels never launched: {missing}")
-    return launches
+    return launches, cache
+
+
+def device_kernels(fn) -> int | None:
+    """CUDA kernels one call of ``fn`` launches, from torch.profiler (None
+    when the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower())
+    return n or None
+
+
+def timed(targets):
+    """Patch each ``(owner, attribute)`` callable so it adds its wall time
+    to a total; returns ``(totals, restore)``.  Nested calls count in each
+    of their callers too."""
+    totals, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        key = f"{owner.__name__.split('.')[-1]}.{name}"
+        totals[key] = 0.0
+
+        def wrap(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                totals[_key] += time.perf_counter() - t0
+        setattr(owner, name, wrap)
+        saved.append((owner, name, fn))
+
+    def restore():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return totals, restore
+
+
+def phase_approx_main(trace, warm):
+    """Checkpoint the warmed full-width cache, restore it into an exact and
+    a quantized+pruned cache, and continue both request by request, then
+    with one staged peek of PEEK queries."""
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.cache.backends import KernelBackend
+    from repro_torch.cache.pruned import TopicBucketIndex
+    from repro_torch.core.rac import RACPolicy
+    from repro_torch.kernels import fused, ops, similarity_topk as st
+    # where the host time of a request goes
+    spans = ((RACPolicy, "on_admit"), (RACPolicy, "victim"),
+             (KernelBackend, "top1_batch"),
+             (KernelBackend, "_top1_batch_exact"),
+             (TopicBucketIndex, "sync"), (TopicBucketIndex, "csr"),
+             (fused, "fused_pruned_lookup"), (ops, "to_host_tuple"))
+    t0 = time.perf_counter()
+    state = warm.checkpoint()
+    log(f"approx main: checkpoint of {len(warm)} entries "
+        f"{time.perf_counter() - t0:.1f}s")
+    cont = trace.requests[len(trace.requests) - CONT_LEN:]
+    peek = np.stack([r.emb for r in cont[:PEEK]]).astype(np.float32)
+    counters = ("topk_launches", "topk_q8_launches", "launches",
+                "dev_n_valid_launches")
+    runs = {}
+    for name, kw in (("exact", {}),
+                     ("approx", dict(quantized_lookup=True,
+                                     pruned_lookup=True))):
+        cache = SemanticCache(CacheConfig(capacity=CAPACITY, dim=DIM,
+                                          device=DEVICE, **kw))
+        cache.restore(state)
+        ev = record(cache)
+        # the first lookup builds the int8 mirror, the bucket index and
+        # their device copies from the journals: set-up, not timed
+        cache.peek_batch(peek[:1])
+        for c in counters:
+            setattr(st, c, 0)
+        d0 = dict(ops.dispatch_stats)
+        prune0 = dict(cache.metrics_snapshot()["prune"])
+        totals, restore = timed(spans)
+        t0 = time.perf_counter()
+        try:
+            replay(cache, cont)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        disp = {k: ops.dispatch_stats[k] - d0[k] for k in d0}
+        t1 = time.perf_counter()
+        pc, ps = cache.peek_batch(peek)
+        peek_s = time.perf_counter() - t1
+        kl = {c: getattr(st, c) for c in counters}
+        snap = cache.metrics_snapshot()
+        prune = {k: snap["prune"][k] - prune0[k] for k in prune0}
+        runs[name] = dict(ev=ev, pc=pc, ps=ps, cache=cache, launches=kl)
+        rows = (prune["scanned_rows"] / max(1, prune["queries"])
+                if name == "approx" else float(cache.store.hwm))
+        log(f"approx main {name}: {CONT_LEN} requests in {wall:.2f}s "
+            f"({CONT_LEN / wall:.1f} req/s), rows scanned per query "
+            f"{rows:.1f} of {cache.store.hwm}, launches per lookup "
+            f"{disp['launches'] / CONT_LEN:.2f}, host syncs per lookup "
+            f"{disp['host_syncs'] / CONT_LEN:.2f}, peek of {PEEK} "
+            f"{peek_s:.2f}s, kernel launches {json.dumps(kl)}")
+        log(f"approx main {name}: host seconds by function (nested "
+            f"calls count in their callers too): "
+            f"{json.dumps({k: round(v, 3) for k, v in totals.items()})}")
+        log(f"approx main {name}: quant={json.dumps(snap['quant'])} "
+            f"prune={json.dumps(snap['prune'])} "
+            f"sync={json.dumps(snap.get('sync'))}")
+    ex, ap = runs["exact"], runs["approx"]
+    if ap["ev"] != ex["ev"]:
+        raise AssertionError("approx main: " + first_diff(ap["ev"], ex["ev"]))
+    hit = ex["ps"] >= TAU_HIT
+    if not (np.array_equal(ap["ps"] >= TAU_HIT, hit)
+            and np.array_equal(ap["pc"][hit], ex["pc"][hit])):
+        raise AssertionError("approx main: peek hit cids differ")
+    log(f"approx main: {len(ex['ev'])} events and {int(hit.sum())} peek hit "
+        "cids identical")
+    kl = ap["launches"]
+    need = {"topk_launches": "sim_topk", "topk_q8_launches": "sim_topk_q8",
+            "dev_n_valid_launches": "sim_top1 (device n_valid)"}
+    missing = [v for k, v in need.items() if kl[k] < 1]
+    if missing:
+        raise AssertionError(f"approx main: kernels never launched: "
+                             f"{missing}")
+    # kernels and host syncs of one fused lookup at b = 1
+    cache = ap["cache"]
+    q = cont[-1].emb[None, :].astype(np.float32)
+    s0 = ops.dispatch_stats["host_syncs"]
+    n_kern = device_kernels(lambda: cache.backend.top1_batch(cache.store, q))
+    log(f"approx main: one fused lookup = {n_kern} CUDA kernels, "
+        f"{ops.dispatch_stats['host_syncs'] - s0} host sync(s)")
+    return kl
 
 
 def main():
@@ -346,31 +719,45 @@ def main():
     log(f"trace: {len(trace.requests)} requests, "
         f"{len({r.cid for r in trace.requests})} unique, D={DIM} "
         f"({time.perf_counter() - t0:.1f}s)")
-    sim, values = phase_kernels(trace)
+    sim, values, (b4, b5, b1d) = phase_kernels(trace)
+    log(f"kernels: {time.perf_counter() - t_start:.1f}s")
     phase_parity(trace)
-    launches = phase_main(trace)
+    log(f"parity: {time.perf_counter() - t_start:.1f}s")
+    phase_approx_parity(trace)
+    log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
+    launches, warm = phase_main(trace)
+    log(f"main: {time.perf_counter() - t_start:.1f}s")
+    approx = phase_approx_main(trace, warm)
 
     src = "src/repro_torch/csrc/"
-    rows = [{"name": "sim_top1", "route": "cuda",
-             "source": src + "sim_top1.cu",
-             "replaces": "src/repro/kernels/similarity_topk.py:67",
-             "launches": launches["sim_top1"],
-             **{k: sim[0][k] for k in ("ms", "eager_ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")},
-             "max_abs_err": max(s["max_abs_err"] for s in sim),
-             "library_call": "torch.mm (product only, IEEE fp32)",
-             "shapes": sim}]
+    keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def row(name, source, replaces, n_launch, shapes, library_call):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": "src/repro/kernels/" + replaces,
+                "launches": n_launch, **{k: shapes[0][k] for k in keys},
+                "max_abs_err": max(x["max_abs_err"] for x in shapes),
+                "library_call": library_call, "shapes": shapes}
+
+    rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
+                launches["sim_top1"], sim,
+                "torch.mm (product only, IEEE fp32)")]
     for name, replaces in (("victim_value", "decision.py:50"),
                            ("rac_value", "rac_value.py:31")):
-        v = values[name]
-        rows.append({"name": name, "route": "cuda",
-                     "source": src + name + ".cu",
-                     "replaces": "src/repro/kernels/" + replaces,
-                     "launches": launches[name],
-                     **{k: v[k] for k in ("max_abs_err", "ms", "eager_ms",
-                                          "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")},
-                     "shapes": [v]})
+        rows.append(row(name, name + ".cu", replaces, launches[name],
+                        [values[name]], None))
+    rows += [
+        row("sim_topk", "sim_topk.cu", "similarity_topk.py:170",
+            approx["topk_launches"], b4,
+            "torch.mm + torch.topk (IEEE fp32)"),
+        row("sim_topk_q8", "sim_topk.cu", "similarity_topk.py:197",
+            approx["topk_q8_launches"], b5,
+            "torch._int_mm (product only; Q padded to 32 rows at Q=1, "
+            "the slab's first 65,536 rows)"),
+        row("sim_top1 (device n_valid)", "sim_top1.cu",
+            "similarity_topk.py:67", approx["dev_n_valid_launches"], b1d,
+            "torch.mm (product only, IEEE fp32)")]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

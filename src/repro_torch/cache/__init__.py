@@ -22,11 +22,22 @@ and eviction scoring runs through the CUDA kernels in
 kernels' plain PyTorch versions; ``backend="numpy"`` is the host oracle.
 Both backends make identical hit/admit/evict decisions.
 
+Two approximate lookups cut the bytes a lookup scans while keeping the
+exact scan's decisions: ``CacheConfig(quantized_lookup=True)`` scans an
+int8 mirror of the slab and rescores the survivors in fp32, and
+``CacheConfig(pruned_lookup=True)`` routes each query to a few topic
+buckets of the RAC policy and scans only those.  Both take a dict or a
+:class:`QuantizedLookupConfig` / :class:`PrunedLookupConfig` too, and they
+compose; lookups of at most ``fused_max_batch`` queries run the fused
+pipeline (one host sync), wider ones the staged driver.
+
 ``load_reference_state`` fills a RAC cache from plain arrays, so a cache
 warmed elsewhere can be continued here.
 """
 from .backends import KernelBackend, LookupBackend, NumpyBackend, get_backend
 from .facade import SemanticCache, load_reference_state
+from .pruned import PrunedLookupConfig
+from .quantized import QuantizedLookupConfig
 from .tiers import GhostTier
 from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
                     CacheMiss, CacheResult, DecisionBatch, TierConfig)
@@ -35,5 +46,5 @@ __all__ = [
     "SemanticCache", "CacheConfig", "CacheHit", "CacheMiss", "CacheResult",
     "CacheEvent", "CacheMetrics", "DecisionBatch", "LookupBackend",
     "NumpyBackend", "KernelBackend", "get_backend", "load_reference_state",
-    "GhostTier", "TierConfig",
+    "GhostTier", "TierConfig", "QuantizedLookupConfig", "PrunedLookupConfig",
 ]

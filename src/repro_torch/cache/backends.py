@@ -36,9 +36,21 @@ owners' globally-unique mutation versions, kept fresh by copying only the
 rows the :class:`~repro_torch.core.store.MutationJournal` reports dirty (a
 full re-upload only on a journal miss, a shape change, or bulk churn).
 
-The quantized and topic-pruned lookups, the policy-stacked arena surface,
-Top-K row scans and the sharded backend are not ported yet; asking for
-them raises ``NotImplementedError`` (see ``ROADMAP.md``).
+Both backends take the two approximate lookups of the reference:
+``quantized`` (an int8 candidate scan, then an fp32 rescore of the
+survivors, :mod:`repro_torch.cache.quantized`) and ``pruned`` (topic
+routing, then a scan of the probed buckets only,
+:mod:`repro_torch.cache.pruned`), alone or composed.  The numpy backend is
+their host oracle; the kernel backend runs them on the ``sim_topk`` /
+``sim_topk_q8`` / ``sim_top1`` kernels, staged (several launches and syncs)
+for wide batches and fused (:mod:`repro_torch.kernels.fused`, one sync)
+for lookups of at most ``fused_max_batch`` queries.  Decisions are those
+of the exact scan by construction: every approximate result is certified
+or rescanned exactly.
+
+The policy-stacked arena surface (``top1_multi``) and the sharded backend
+are not ported yet; asking for them raises ``NotImplementedError`` (see
+``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -49,9 +61,15 @@ import torch
 
 from repro_torch.core.policy_table import PolicyTable
 from repro_torch.core.store import ResidentStore
-from repro_torch.kernels import ops
+from repro_torch.kernels import fused, ops
+from repro_torch.kernels.quant import (int8_scores, quantize_rows_int8,
+                                       scan_margin)
 from repro_torch.telemetry.tracing import annotate
 
+from .pruned import (TopicBucketIndex, account_prune, as_pruned_config,
+                     new_prune_stats, pruned_top1_batch, route_topics_host)
+from .quantized import (QuantizedSlabMirror, account_scan,
+                        as_quantized_config, new_quant_stats, resolve_topk)
 from .types import DecisionBatch
 
 
@@ -92,6 +110,15 @@ class LookupBackend(Protocol):
         """Eq. 1 with a validity mask: invalid entries score ``+inf``."""
         ...
 
+    def topk_rows(self, store: ResidentStore, queries: np.ndarray,
+                  rows: np.ndarray, k: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        """Top-K restricted to the given store ``rows`` (slot indices):
+        ((B, K) cids, (B, K) sims) sorted descending per query, ties
+        toward the lower row position; ranks past the restriction size are
+        ``(-1, -inf)``."""
+        ...
+
     def decide_batch(self, store: ResidentStore,
                      table: Optional[PolicyTable], queries: np.ndarray, *,
                      alpha: float = 0.0, t_now: int = 0) -> DecisionBatch:
@@ -106,11 +133,18 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP.md, queue A item {item})")
 
 
-def _reject_approximate(quantized, pruned) -> None:
-    if quantized:
-        raise _not_ported("quantized lookup", "5")
-    if pruned:
-        raise _not_ported("pruned lookup", "6")
+def _miss(b: int) -> tuple[np.ndarray, np.ndarray]:
+    return (np.full(b, -1, dtype=np.int64),
+            np.full(b, -np.inf, dtype=np.float64))
+
+
+def _sorted_topk(scores: np.ndarray, k: int) -> tuple[np.ndarray,
+                                                        np.ndarray]:
+    """Host Top-K: a stable descending sort keeps equal scores in
+    ascending column order, the kernels' lower-index tie rule."""
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(scores, order, axis=1).astype(np.float64),
+            order)
 
 
 def small_delta(n_dirty: int, n_rows: int) -> bool:
@@ -178,31 +212,150 @@ class _DeviceMirror:
 
 class NumpyBackend:
     """Host-side slab scan (the historical ``ResidentStore.nearest`` path)
-    — the oracle every device path is held against."""
+    — the oracle every device path is held against.
+
+    With ``quantized`` set (a :class:`~repro_torch.cache.quantized.
+    QuantizedLookupConfig`, or ``True``/a dict spec) this is the quantized
+    path's host oracle: the same per-row int8 mirror, an exact int8 gemm
+    (``kernels.quant.int8_scores``) instead of the kernel scan, and the
+    shared rescore/certify driver — survivor scores bit-equal to the
+    kernel's.  With ``pruned`` set it routes on the host and scans the
+    gathered candidate rows (int8 when ``quantized`` is also set)."""
 
     name = "numpy"
 
     def __init__(self, quantized=None, pruned=None):
-        _reject_approximate(quantized, pruned)
+        self.quantized = as_quantized_config(quantized)
+        self.quant_stats = new_quant_stats()
+        self._qhost = QuantizedSlabMirror()
+        # topic-pruned two-stage scan: the facade wires route_table and
+        # route_store when the acting policy exposes a PolicyTable
+        self.pruned = as_pruned_config(pruned)
+        self.prune_stats = new_prune_stats()
+        self._pidx = TopicBucketIndex()
+        self.route_table = None
+        self.route_store = None
 
     def __deepcopy__(self, memo):
-        return self                   # stateless: checkpoints share it
+        # checkpoints share the backend: its mirrors and index are keyed
+        # by journal versions, never by object identity
+        return self
 
     def top1(self, store: ResidentStore, query: np.ndarray) -> tuple[int, float]:
+        if self.quantized is not None or self.pruned is not None:
+            cids, sims = self.top1_batch(store, np.asarray(query)[None, :])
+            return int(cids[0]), float(sims[0])
         return store.nearest(query)
 
     def top1_batch(self, store: ResidentStore,
                    queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         queries = np.asarray(queries, dtype=np.float32)
+        if not store.slot_of:
+            return _miss(queries.shape[0])
+        if self.pruned is not None:
+            out = self._top1_batch_pruned(store, queries)
+            if out is not None:
+                return out
+        if self.quantized is not None:
+            return self._top1_batch_quantized(store, queries)
+        return self._top1_batch_exact(store, queries)
+
+    def _top1_batch_exact(self, store: ResidentStore,
+                          queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         b = queries.shape[0]
         if not store.slot_of:
-            return (np.full(b, -1, dtype=np.int64),
-                    np.full(b, -np.inf, dtype=np.float64))
+            return _miss(b)
         sims = queries @ store.emb.T                      # (B, n_slots)
         sims[:, ~store.occ] = -np.inf
         idx = np.argmax(sims, axis=1)
         return (store.cid[idx].copy(),
                 sims[np.arange(b), idx].astype(np.float64))
+
+    def _top1_batch_quantized(self, store: ResidentStore, queries: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """int8-gemm candidate scan over the host mirror + fp32 rescore.
+        Scans slots up to the high-water mark (free rows are zeros — a
+        certified free-row winner means every real score was negative,
+        the same miss decision the masked exact scan makes)."""
+        b = queries.shape[0]
+        hwm, dim = store.hwm, store.emb.shape[1]
+        qm = self._qhost.sync(store.version, store.dirty_since, store.emb)
+        q8, qs, ql1 = quantize_rows_int8(queries)
+        scores = (int8_scores(q8, qm.q8[:hwm])
+                  * qs[:, None]) * qm.scale[None, :hwm]
+        vals, order = _sorted_topk(scores, min(self.quantized.k, hwm))
+        eps = scan_margin(qs, ql1, qm.scale, qm.l1, dim)
+        cids, sims, n_fb, n_union = resolve_topk(
+            vals, order, eps, self.quantized.k >= hwm,
+            self.quantized.tau_hit,
+            lambda rows: self.top1_rows(store, queries, rows),
+            lambda sel: self._top1_batch_exact(store, queries[sel]))
+        account_scan(self.quant_stats, n_valid=hwm, dim=dim, batch=b,
+                     n_union=n_union, n_fallback=n_fb)
+        return cids, sims
+
+    def _top1_batch_pruned(self, store: ResidentStore, queries: np.ndarray
+                           ) -> Optional[tuple]:
+        """Topic-pruned two-stage scan, host oracle: host routing matmul,
+        gathered-rows candidate scans (int8 when ``quantized`` is also
+        set), and the shared certify-or-fallback driver.  Returns ``None``
+        when the routing surface isn't wired for this store (table-less
+        policies, foreign stores) so the caller falls through to the
+        quantized/exact paths."""
+        table = self.route_table
+        if table is None or store is not self.route_store:
+            return None
+        dim = store.emb.shape[1]
+        probes = self.pruned.probes
+
+        if self.quantized is not None:
+            scan = self._make_pruned_q8_scan_host(store, queries)
+        else:
+            def scan(sel, rows):
+                c, s = self.top1_rows(store, queries[sel], rows)
+                return c, s, rows.size * dim * 4
+
+        return pruned_top1_batch(
+            store, table, queries, self.pruned, self._pidx,
+            self.prune_stats,
+            route_fn=lambda qs, aug, nt: route_topics_host(qs, aug, nt,
+                                                           probes),
+            scan_fn=scan,
+            exact_fn=lambda sel: self._top1_batch_exact(store, queries[sel]))
+
+    def _make_pruned_q8_scan_host(self, store: ResidentStore,
+                                  queries: np.ndarray):
+        """Stage-2 scan composing ``quantized_lookup``: the gathered
+        candidate block is scanned over the int8 host mirror and certified
+        by the inner ``resolve_topk`` predicate *within the candidate
+        set* (its fallback leg re-scans only the candidates — outer
+        certification against unprobed topics still happens in the pruned
+        driver).  Gathered int8 + rescore bytes land in the prune ledger;
+        the quant ledger is untouched on this path."""
+        dim = store.emb.shape[1]
+        qm = self._qhost.sync(store.version, store.dirty_since, store.emb)
+        k_cfg = self.quantized.k
+        tau = self.quantized.tau_hit
+
+        def scan(sel, rows):
+            qs_q = queries[sel]
+            q8, qsc, ql1 = quantize_rows_int8(qs_q)
+            scores = (int8_scores(q8, qm.q8[rows])
+                      * qsc[:, None]) * qm.scale[rows][None, :]
+            vals, order = _sorted_topk(scores, min(k_cfg, rows.size))
+            eps = scan_margin(qsc, ql1, qm.scale[rows], qm.l1[rows], dim)
+            # local shortlist indices are ascending positions into the
+            # ascending ``rows``, so the rescore keeps the lower-slot tie
+            # contract within the candidate set
+            cids, sims, n_fb, n_union = resolve_topk(
+                vals, order, eps, k_cfg >= rows.size, tau,
+                lambda lr: self.top1_rows(store, qs_q, rows[lr]),
+                lambda ss: self.top1_rows(store, qs_q[ss], rows))
+            nbytes = (rows.size * (dim + 4) + n_union * dim * 4
+                      + (rows.size * dim * 4 if n_fb else 0))
+            return cids, sims, nbytes
+
+        return scan
 
     def top1_rows(self, store: ResidentStore, queries: np.ndarray,
                   rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -213,6 +366,25 @@ class NumpyBackend:
         b = np.arange(queries.shape[0])
         return (store.cid[rows[best]].copy(),
                 sims[b, best].astype(np.float64))
+
+    def topk_rows(self, store: ResidentStore, queries: np.ndarray,
+                  rows: np.ndarray, k: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        queries = np.asarray(queries, dtype=np.float32)
+        rows = np.asarray(rows, dtype=np.int64)
+        b = queries.shape[0]
+        cids = np.full((b, k), -1, dtype=np.int64)
+        sims = np.full((b, k), -np.inf, dtype=np.float64)
+        if rows.size == 0:
+            return cids, sims
+        vals, order = _sorted_topk(queries @ store.emb[rows].T, k)
+        kk = order.shape[1]
+        cids[:, :kk] = store.cid[rows[order]]
+        sims[:, :kk] = vals
+        return cids, sims
+
+    def top1_multi(self, arena, queries):
+        raise _not_ported("the policy-stacked arena (top1_multi)", "8")
 
     def rac_value(self, tsi, tids, tp_last, t_last, alpha, t_now):
         decay = 0.5 ** (alpha * (t_now - t_last[tids]))
@@ -251,25 +423,27 @@ class NumpyBackend:
 
 class KernelBackend:
     """Device path: batched Top-1 via the ``sim_top1`` CUDA kernel, the
-    fused decision pass via ``ops.fused_decide`` and eviction scoring via
-    the ``rac_value`` kernel.
+    fused decision pass via ``ops.fused_decide``, eviction scoring via the
+    ``rac_value`` kernel, and the approximate lookups on the ``sim_topk`` /
+    ``sim_topk_q8`` kernels.
 
     ``device="cuda"`` (the default) needs a card and raises without one;
     ``device="cpu"`` runs every kernel wrapper's plain PyTorch version.
 
-    The whole scoring state is device-resident: three
-    :class:`_DeviceMirror`\\ s hold the embedding slab + occupancy (synced
-    against the store's mutation journal), the policy table's slot slabs
-    (tsi/topic, its slot journal), and its topic tables (TP state +
-    representatives, its topic journal).  Steady-state replay therefore
-    moves O(mutated rows) per chunk, not O(capacity), and lookups read the
-    slab from its mirror instead of uploading it.
+    The whole scoring state is device-resident: :class:`_DeviceMirror`\\ s
+    hold the embedding slab + occupancy (synced against the store's
+    mutation journal), the policy table's slot slabs (tsi/topic, its slot
+    journal), its topic tables (TP state + representatives, its topic
+    journal), and for the approximate lookups the int8 slab mirror, the
+    (T, D+1) routing matrix and the topic-bucket CSR.  Steady-state replay
+    therefore moves O(mutated rows) per chunk, not O(capacity), and every
+    scan — full slab, gathered candidates, rescored union — reads its rows
+    from a mirror instead of uploading them.
     """
 
     name = "kernel"
 
     def __init__(self, device: str = "cuda", quantized=None, pruned=None):
-        _reject_approximate(quantized, pruned)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -277,13 +451,36 @@ class KernelBackend:
                 "available; pass device='cpu' to run the plain versions")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
+        self.quantized = as_quantized_config(quantized)
+        self.quant_stats = new_quant_stats()
+        # topic-pruned two-stage scan: the facade wires route_table and
+        # route_store when the acting policy exposes a PolicyTable
+        self.pruned = as_pruned_config(pruned)
+        self.prune_stats = new_prune_stats()
+        self._pidx = TopicBucketIndex()
+        self.route_table = None
+        self.route_store = None
+        dev = self.device
         self._store_mirror = _DeviceMirror({"emb": np.float32,
-                                            "occ": np.int32}, self.device)
+                                            "occ": np.int32}, dev)
         self._slot_mirror = _DeviceMirror({"tsi": np.float32,
-                                           "tid": np.int32}, self.device)
+                                           "tid": np.int32}, dev)
         self._topic_mirror = _DeviceMirror({"rep": np.float32,
                                             "tp": np.float32,
-                                            "tl": np.int32}, self.device)
+                                            "tl": np.int32}, dev)
+        # the (T, D+1) augmented routing matrix [rep | spread], mirrored
+        # against the bucket index's own journal
+        self._route_mirror = _DeviceMirror({"aug": np.float32}, dev)
+        # host int8 requantizer + its device mirror, keyed on the store's
+        # journal like the fp32 slab
+        self._qhost = QuantizedSlabMirror()
+        self._q8_mirror = _DeviceMirror({"q8": np.int8, "scale": np.float32,
+                                         "l1": np.float32}, dev)
+        # fused pipeline: device CSR copy of the topic-bucket index, keyed
+        # on the index's (store, table) journal triple — NOT its aug
+        # version (unassigned-only churn doesn't move the aug journal)
+        self._csr_mirror = _DeviceMirror({"indptr": np.int32,
+                                          "slots": np.int32}, dev)
         self._tracker = None                # telemetry sink (observation-only)
         self._sync_seen: dict[str, int] = {}   # last sync_stats flushed to it
 
@@ -314,7 +511,8 @@ class KernelBackend:
     def sync_stats(self) -> dict:
         """Aggregate mirror observability: full uploads vs dirty-row
         copies, total rows copied, and host→device bytes moved."""
-        mirrors = (self._store_mirror, self._slot_mirror, self._topic_mirror)
+        mirrors = (self._store_mirror, self._slot_mirror, self._topic_mirror,
+                   self._route_mirror, self._q8_mirror, self._csr_mirror)
         return {k: sum(m.stats[k] for m in mirrors)
                 for k in ("full", "incremental", "rows", "bytes")}
 
@@ -330,6 +528,14 @@ class KernelBackend:
             store.version, store.dirty_since,
             lambda: {"emb": store.emb, "occ": store.occ})
 
+    def _q8(self, store: ResidentStore):
+        """The host int8 mirror and its device copy, both freshened."""
+        qm = self._qhost.sync(store.version, store.dirty_since, store.emb)
+        dev = self._q8_mirror.sync(
+            store.version, store.dirty_since,
+            lambda: {"q8": qm.q8, "scale": qm.scale, "l1": qm.l1})
+        return qm, dev
+
     def _tensor(self, x, dtype) -> torch.Tensor:
         """Host array ``x`` as a contiguous ``dtype`` tensor on the device."""
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
@@ -342,10 +548,20 @@ class KernelBackend:
     def top1_batch(self, store: ResidentStore,
                    queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         queries = np.asarray(queries, dtype=np.float32)
-        b = queries.shape[0]
         if not store.slot_of:
-            return (np.full(b, -1, dtype=np.int64),
-                    np.full(b, -np.inf, dtype=np.float64))
+            return _miss(queries.shape[0])
+        if self.pruned is not None:
+            out = self._top1_batch_pruned(store, queries)
+            if out is not None:
+                return out
+        if self.quantized is not None:
+            return self._top1_batch_quantized(store, queries)
+        return self._top1_batch_exact(store, queries)
+
+    def _top1_batch_exact(self, store: ResidentStore,
+                          queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        if not store.slot_of:
+            return _miss(queries.shape[0])
         slab = self._slab(store)
         qd = self._tensor(queries, np.float32)
         # runtime n_valid = the store's high-water mark: slots past it have
@@ -361,17 +577,290 @@ class KernelBackend:
         self._flush_sync()
         return cids, sims
 
+    def _top1_batch_quantized(self, store: ResidentStore,
+                              queries: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Quantized candidate scan: the card streams the int8 mirror (4×
+        fewer slab bytes) through ``sim_topk_q8``, then the ≤k survivors
+        are rescored in fp32 by :meth:`top1_rows` — the same
+        restricted-scan engine the admission rescans trust — and certified
+        by the shared safety predicate (exact full scan on failure)."""
+        b, dim = queries.shape
+        qm, dev = self._q8(store)
+        if self.quantized.fused and b <= self.quantized.fused_max_batch:
+            return self._top1_batch_quantized_fused(store, queries, dev)
+        q8, qs, ql1 = quantize_rows_int8(queries)
+        k = self.quantized.k
+        with annotate("rac/sim_topk_q8"):
+            vals, idx = ops.run_timed(
+                lambda: ops.sim_topk_q8(
+                    self._tensor(q8, np.int8), self._tensor(qs, np.float32),
+                    dev["q8"], dev["scale"], k, n_valid=store.hwm),
+                self._tracker, "sim_topk_q8")
+        vals, rows = ops.to_host_tuple((vals, idx))
+        eps = scan_margin(qs, ql1, qm.scale, qm.l1, dim)
+        cids, sims, n_fb, n_union = resolve_topk(
+            vals.astype(np.float64), rows, eps, k >= store.hwm,
+            self.quantized.tau_hit,
+            lambda r: self.top1_rows(store, queries, r),
+            lambda sel: self._top1_batch_exact(store, queries[sel]))
+        account_scan(self.quant_stats, n_valid=store.hwm, dim=dim, batch=b,
+                     n_union=n_union, n_fallback=n_fb)
+        self._flush_sync()
+        return cids, sims
+
+    def _top1_batch_pruned(self, store: ResidentStore, queries: np.ndarray
+                           ) -> Optional[tuple]:
+        """Topic-pruned two-stage scan: stage 1 routes over the mirrored
+        (T, D+1) augmented representative matrix (``ops.route_topics``,
+        T ≪ S), stage 2 scans only the probed buckets' rows, gathered on
+        the card (int8 when ``quantized`` is also set), and the shared
+        driver certifies each decision against the unprobed-topic bound —
+        uncertifiable queries take an exact full-scan fallback.  Returns
+        ``None`` when the routing surface isn't wired for this store
+        (table-less policies, foreign stores) so the caller falls through
+        to the quantized/exact paths."""
+        table = self.route_table
+        if table is None or store is not self.route_store:
+            return None
+        cfg = self.pruned
+        idx = self._pidx
+        dim = store.emb.shape[1]
+
+        if cfg.fused and queries.shape[0] <= cfg.fused_max_batch \
+                and cfg.probes >= 1 and table.rep.shape[0] >= 1 \
+                and store.hwm > 0:
+            idx.sync(store, table)
+            out = self._fused_pruned_batch(store, table, queries, cfg, idx)
+            self._flush_sync()
+            return out
+
+        def route(qs, aug, n_top):
+            # the driver synced ``idx`` already; freshen the device copy
+            # of the aug matrix against the index's own journal
+            dev = self._route_mirror.sync(idx.version, idx.dirty_since,
+                                          lambda: {"aug": idx.aug})
+            with annotate("rac/route_topics"):
+                vals, tids = ops.run_timed(
+                    lambda: ops.route_topics(
+                        self._tensor(qs, np.float32), dev["aug"],
+                        cfg.probes, n_valid=n_top),
+                    self._tracker, "route_topics")
+            return ops.to_host_tuple((vals, tids))
+
+        if self.quantized is not None:
+            scan = self._make_pruned_q8_scan(store, queries)
+        else:
+            def scan(sel, rows):
+                c, s = self.top1_rows(store, queries[sel], rows)
+                return c, s, rows.size * dim * 4
+
+        out = pruned_top1_batch(
+            store, table, queries, cfg, idx, self.prune_stats,
+            route_fn=route, scan_fn=scan,
+            exact_fn=lambda sel: self._top1_batch_exact(store, queries[sel]))
+        self._flush_sync()
+        return out
+
+    def _top1_batch_quantized_fused(self, store: ResidentStore,
+                                    queries: np.ndarray, dev
+                                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Fused quantized lookup (:mod:`repro_torch.kernels.fused`): the
+        int8 Top-K, the fp32 union rescore and the ``resolve_topk`` safety
+        arms run on the card with one host sync; the host maps winner
+        slots to cids and exact-rescans only the uncertified rows."""
+        b, dim = queries.shape
+        cfg = self.quantized
+        slab = self._slab(store)
+        # pow2 bucket, floor 1 (serving is b=1)
+        qp, q8q, qsc, ql1 = (
+            self._tensor(x, x.dtype)
+            for x in fused.prep_queries(queries, fused.pad_pow2(b, 1)))
+        n_slots = store.emb.shape[0]
+        with annotate("rac/fused_quant"):
+            out = ops.run_timed(
+                lambda: fused.fused_quant_lookup(
+                    qp, q8q, qsc, ql1, slab["emb"], dev["q8"], dev["scale"],
+                    dev["l1"], store.hwm, b, cfg.tau_hit,
+                    k=min(int(cfg.k), n_slots)),
+                self._tracker, "fused_quant")
+        win, rmax, cert, n_u = ops.to_host_tuple(out)
+        cids, sims, n_fb = self._fused_results(
+            store, queries, win[:b], rmax[:b], cert[:b],
+            lambda sel: self._top1_batch_exact(store, queries[sel]))
+        account_scan(self.quant_stats, n_valid=store.hwm, dim=dim, batch=b,
+                     n_union=int(n_u.reshape(-1)[0]), n_fallback=n_fb)
+        self._flush_sync()
+        return cids, sims
+
+    @staticmethod
+    def _fused_results(store, queries, win, rmax, cert, exact_fn):
+        """Map a fused call's winner slots to cids (the ``n_slots``
+        sentinel: no finite score) and exact-rescan the uncertified rows;
+        returns ``(cids, sims, n_fallback)``."""
+        n_slots = store.emb.shape[0]
+        win = win.astype(np.int64)
+        ok = win < n_slots
+        cids = np.where(ok, store.cid[np.minimum(win, n_slots - 1)], -1)
+        sims = np.where(cids >= 0, rmax.astype(np.float64), -np.inf)
+        certm = cert.astype(bool)
+        n_fb = int(certm.size - np.count_nonzero(certm))
+        if n_fb:
+            sel = np.flatnonzero(~certm)
+            f_c, f_s = exact_fn(sel)
+            cids[sel] = np.asarray(f_c, dtype=np.int64)
+            sims[sel] = np.asarray(f_s, dtype=np.float64)
+        fused.fused_stats["fallback_rows"] += n_fb
+        return cids, sims, n_fb
+
+    def _fused_pruned_batch(self, store: ResidentStore, table: PolicyTable,
+                            queries: np.ndarray, cfg, idx):
+        """Mirror-freshening wrapper of :meth:`_fused_pruned_call` (``idx``
+        must already be synced).  The int8 mirror is maintained even
+        without a composed quantized config — the fused candidate scan is
+        always int8."""
+        _, q8d = self._q8(store)
+        augd = self._route_mirror.sync(idx.version, idx.dirty_since,
+                                       lambda: {"aug": idx.aug})
+        return self._fused_pruned_call(
+            store, table, queries, cfg, idx, emb_dev=self._slab(store)["emb"],
+            q8_dev=q8d, aug_dev=augd["aug"])
+
+    def _fused_pruned_call(self, store, table, queries: np.ndarray, cfg,
+                           idx, *, emb_dev, q8_dev, aug_dev):
+        """Fused pruned driver: prep the static shape buckets, make ONE
+        fused call covering routing → probe cap → CSR gather → int8 scan →
+        fp32 union rescore → safety predicates with one host sync, then
+        map winners/fallbacks and ledger on the host."""
+        b, dim = queries.shape
+        probes = int(cfg.probes)
+        indptr_h, slot_ids, unassigned = idx.csr()
+        t_rows = idx.aug.shape[0]
+        budget = 1 << 30                           # uncapped
+        if cfg.max_scan_frac is not None:
+            budget = max(int(cfg.min_scan_rows),
+                         int(cfg.max_scan_frac * store.hwm))
+        cap_c = fused.candidate_cap(np.diff(indptr_h), unassigned.size,
+                                    probes, budget)
+        csr = self._csr_mirror.sync(
+            (idx.key, t_rows), lambda v: None,
+            lambda: dict(zip(("indptr", "slots"), fused.csr_device_arrays(
+                indptr_h, slot_ids, unassigned, t_rows))))
+        # pow2 bucket, floor 1: every padded row pays a full cap_c-row
+        # gather, and the serving path is b=1
+        qp, q8q, qsc, ql1 = (
+            self._tensor(x, x.dtype)
+            for x in fused.prep_queries(queries, fused.pad_pow2(b, 1)))
+        k = (int(self.quantized.k) if self.quantized is not None
+             else fused.DEFAULT_K)
+        with annotate("rac/fused_pruned"):
+            out = ops.run_timed(
+                lambda: fused.fused_pruned_lookup(
+                    qp, q8q, qsc, ql1, emb_dev, q8_dev["q8"],
+                    q8_dev["scale"], q8_dev["l1"], aug_dev, csr["indptr"],
+                    csr["slots"], int(table.topic_hwm), budget, b,
+                    cfg.tau_hit, probes=probes, cap_c=cap_c, k=k),
+                self._tracker, "fused_pruned")
+        win, rmax, ub, cert, total, probed, capped, n_u = \
+            ops.to_host_tuple(out)
+        cids, sims, n_fb = self._fused_results(
+            store, queries, win[:b], rmax[:b], cert[:b],
+            lambda sel: self._top1_batch_exact(store, queries[sel]))
+        tot = int(total[:b].sum())
+        ncap = int(capped[:b].sum())
+        # gathered int8 candidate bytes (codes + scale + l1) + the fp32
+        # union-rescore gather
+        slab_bytes = tot * (dim + 8) + int(n_u.reshape(-1)[0]) * dim * 4
+        account_prune(self.prune_stats, n_valid=int(store.hwm), dim=dim,
+                      n_topics=int(table.topic_hwm), batch=b,
+                      probes=int(probed[:b].sum()), scanned_rows=tot,
+                      slab_bytes=slab_bytes, n_fallback=n_fb,
+                      n_capped=ncap)
+        fused.fused_stats["capped_rows"] += ncap
+        return cids, sims
+
+    def _make_pruned_q8_scan(self, store: ResidentStore,
+                             queries: np.ndarray):
+        """Stage-2 scan composing ``quantized_lookup``: the gathered
+        candidate block (int8 rows and scales gathered on the card from the
+        mirror) is scanned through ``sim_topk_q8`` and certified by the
+        inner ``resolve_topk`` predicate *within the candidate set* (its
+        fallback leg re-scans only the candidates — outer certification
+        against unprobed topics still happens in the pruned driver).
+        Gathered int8 + rescore bytes land in the prune ledger; the quant
+        ledger is untouched on this path."""
+        dim = store.emb.shape[1]
+        qm, dev = self._q8(store)
+        k_cfg = self.quantized.k
+        tau = self.quantized.tau_hit
+
+        def scan(sel, rows):
+            qs_q = queries[sel]
+            q8, qsc, ql1 = quantize_rows_int8(qs_q)
+            n = rows.size
+            rows_d = self._tensor(rows, np.int64)
+            with annotate("rac/sim_topk_q8_pruned"):
+                vals, idx = ops.run_timed(
+                    lambda: ops.sim_topk_q8(
+                        self._tensor(q8, np.int8),
+                        self._tensor(qsc, np.float32),
+                        dev["q8"].index_select(0, rows_d),
+                        dev["scale"].index_select(0, rows_d),
+                        min(k_cfg, n), n_valid=n),
+                    self._tracker, "sim_topk_q8")
+            vals, lrows = ops.to_host_tuple((vals, idx))
+            eps = scan_margin(qsc, ql1, qm.scale[rows], qm.l1[rows], dim)
+            # local shortlist indices are ascending positions into the
+            # ascending ``rows``, so the rescore keeps the lower-slot tie
+            # contract within the candidate set
+            cids, sims, n_fb, n_union = resolve_topk(
+                vals.astype(np.float64), lrows, eps, k_cfg >= n, tau,
+                lambda lr: self.top1_rows(store, qs_q, rows[lr]),
+                lambda ss: self.top1_rows(store, qs_q[ss], rows))
+            nbytes = (n * (dim + 4) + n_union * dim * 4
+                      + (n * dim * 4 if n_fb else 0))
+            return cids, sims, nbytes
+
+        return scan
+
+    def _gathered(self, store: ResidentStore, rows: np.ndarray):
+        """The slab rows ``rows``, gathered on the card from the mirror."""
+        return self._slab(store)["emb"].index_select(
+            0, self._tensor(rows, np.int64))
+
     def top1_rows(self, store: ResidentStore, queries: np.ndarray,
                   rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         queries = np.asarray(queries, dtype=np.float32)
         rows = np.asarray(rows, dtype=np.int64)
-        # the restricted candidate block is gathered on the host and
-        # uploaded (it is a handful of recently admitted rows)
         vals, idx = ops.sim_top1(self._tensor(queries, np.float32),
-                                 self._tensor(store.emb[rows], np.float32),
+                                 self._gathered(store, rows),
                                  n_valid=rows.shape[0])
         vals, idx = ops.to_host_tuple((vals, idx))
         return store.cid[rows[idx]].copy(), vals.astype(np.float64)
+
+    def topk_rows(self, store: ResidentStore, queries: np.ndarray,
+                  rows: np.ndarray, k: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        queries = np.asarray(queries, dtype=np.float32)
+        rows = np.asarray(rows, dtype=np.int64)
+        b, n = queries.shape[0], rows.shape[0]
+        out_c = np.full((b, k), -1, dtype=np.int64)
+        out_s = np.full((b, k), -np.inf, dtype=np.float64)
+        if n == 0:
+            return out_c, out_s
+        # ranks past the restriction size stay (-1, -inf)
+        kk = min(k, n)
+        vals, idx = ops.sim_topk(self._tensor(queries, np.float32),
+                                 self._gathered(store, rows), kk, n_valid=n)
+        vals, idx = ops.to_host_tuple((vals, idx))
+        finite = np.isfinite(vals)
+        out_c[:, :kk] = np.where(
+            finite, store.cid[rows[np.minimum(idx, n - 1)]], -1)
+        out_s[:, :kk] = np.where(finite, vals, -np.inf)
+        return out_c, out_s
+
+    def top1_multi(self, arena, queries):
+        raise _not_ported("the policy-stacked arena (top1_multi)", "8")
 
     def _value_args(self, tsi, tids, tp_last, t_last, t_now):
         # shift timestamps so t_now is 0: the kernel sees
@@ -394,8 +883,8 @@ class KernelBackend:
             float(alpha), 0)
         return np.asarray(ops.to_host(out), dtype=np.float64)
 
-    def _device_state(self, store: ResidentStore, table: PolicyTable) -> dict:
-        """The mirrored decision state, freshened by dirty-row copies."""
+    def _table_state(self, table: PolicyTable) -> dict:
+        """The mirrored policy-table state, freshened by dirty-row copies."""
         slot = self._slot_mirror.sync(
             table.slot_version, table.dirty_slots_since,
             lambda: {"tsi": table.tsi, "tid": table.topic_of})
@@ -403,7 +892,7 @@ class KernelBackend:
             table.topic_version, table.dirty_topics_since,
             lambda: {"rep": table.rep, "tp": table.tp_last,
                      "tl": table.t_last})
-        return {**self._slab(store), **slot, **topic}
+        return {**slot, **topic}
 
     def decide_batch(self, store, table, queries, *, alpha=0.0, t_now=0):
         queries = np.asarray(queries, dtype=np.float32)
@@ -413,7 +902,10 @@ class KernelBackend:
             return DecisionBatch(hit_cid, hit_sim,
                                  np.full(b, -1, dtype=np.int64),
                                  np.full(b, -np.inf, dtype=np.float64), None)
-        dev = self._device_state(store, table)
+        if self.quantized is not None or self.pruned is not None:
+            return self._decide_batch_quantized(store, table, queries,
+                                                alpha=alpha, t_now=t_now)
+        dev = {**self._slab(store), **self._table_state(table)}
         qd = self._tensor(queries, np.float32)
         # ONE fused dispatch: hit Top-1 (runtime n_valid = store hwm) +
         # routing Top-1 (runtime n_topics = topic hwm) + masked Eq.1 victim
@@ -433,6 +925,31 @@ class KernelBackend:
         ri = np.where(np.isfinite(rv), ri.astype(np.int64), -1)
         self._flush_sync()
         return DecisionBatch(cids, sims, ri, rv, vv.astype(np.float64))
+
+    def _decide_batch_quantized(self, store, table, queries, *, alpha,
+                                t_now):
+        """Decision pass with a reduced-traffic hit leg: the hit Top-1
+        rides ``top1_batch`` — the topic-pruned and/or int8 scan, whichever
+        is configured — while routing and victim scoring run the same
+        ``sim_top1``/``victim_value`` kernels as the exact path's fused
+        dispatch (per-leg score independence keeps the decisions
+        identical), on the mirrored occupancy."""
+        hit_cid, hit_sim = self.top1_batch(store, queries)
+        dev = {**self._slab(store), **self._table_state(table)}
+        qd = self._tensor(queries, np.float32)
+        # ONE auxiliary dispatch (routing Top-1 + victim values together)
+        with annotate("rac/decide_aux"):
+            out = ops.run_timed(
+                lambda: ops.decide_aux(
+                    qd, dev["rep"], table.topic_hwm, dev["tsi"], dev["tid"],
+                    dev["occ"], dev["tp"], dev["tl"], t_now,
+                    alpha=float(alpha)),
+                self._tracker, "decide_aux")
+        rv, ri, vv = ops.to_host_tuple(out)
+        rv = rv.astype(np.float64)
+        ri = np.where(np.isfinite(rv), ri.astype(np.int64), -1)
+        self._flush_sync()
+        return DecisionBatch(hit_cid, hit_sim, ri, rv, vv.astype(np.float64))
 
 
 def _backends() -> dict:

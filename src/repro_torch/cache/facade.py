@@ -32,9 +32,18 @@ around ``decide_batch``.  The device backend gets a scoped child
 and event-subscriber failures are contained (counted as ``hook_errors``;
 ``cfg.debug_hooks`` re-raises).
 
+Approximate lookups: ``cfg.quantized_lookup`` (an int8 candidate scan
+with an fp32 rescore) and ``cfg.pruned_lookup`` (topic routing, then a
+scan of the probed topic buckets only), alone or together, make the
+backend's lookups cheaper with the same hit/miss/admit/evict decisions;
+their exact-scan fallbacks reach the tracker as the
+``cache.rescore_fallbacks`` and ``cache.prune_fallbacks`` counters, and
+``metrics_snapshot()`` always carries their ``quant`` and ``prune``
+ledgers (zeroed when the paths are off).
+
 Not ported yet (each raises ``NotImplementedError``, see ``ROADMAP.md``):
 asynchronous admission, the host/ghost tiers behind the facade, the
-quantized and pruned lookups, the baseline policies and ``"RadixRAC"``.
+baseline policies and ``"RadixRAC"``.
 
 :func:`load_reference_state` fills a cache from the plain-array state of
 another implementation's cache (the reference's, in the tests), so a
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import threading
 import time
 from typing import Any, Callable, Optional, Sequence
@@ -55,6 +65,8 @@ from repro_torch.core.types import Request
 from repro_torch.telemetry.tracker import make_tracker
 
 from .backends import LookupBackend, _not_ported, get_backend
+from .pruned import as_pruned_config, new_prune_stats
+from .quantized import as_quantized_config, new_quant_stats
 from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
                     CacheMiss, CacheResult, DecisionBatch)
 
@@ -97,22 +109,39 @@ class SemanticCache:
         if cfg.tiers is not None and (cfg.tiers.host_capacity > 0
                                       or cfg.tiers.ghost_capacity > 0):
             raise _not_ported("tiers", "4")
-        if cfg.quantized_lookup:
-            raise _not_ported("quantized_lookup", "5")
-        if cfg.pruned_lookup:
-            raise _not_ported("pruned_lookup", "6")
         if backend is not None:
             if cfg.backend_kwargs:
                 raise ValueError(
                     "backend_kwargs "
                     f"{sorted(cfg.backend_kwargs)} cannot apply to an "
                     "already-built backend instance")
+            for field, kwarg in (("quantized_lookup", "quantized"),
+                                 ("pruned_lookup", "pruned")):
+                if getattr(cfg, field):
+                    raise ValueError(
+                        f"{field} cannot apply to an already-built backend "
+                        f"instance — pass {kwarg}= to its constructor "
+                        "instead")
             self.backend = backend
         else:
             kw = dict(cfg.backend_kwargs)
             if cfg.backend == "kernel":
                 kw.setdefault("device", cfg.device)
+            # the approximate lookups' certain-miss arm needs the hit
+            # threshold: semantic mode fills it in from the facade's own
+            # (content mode never gates on sims, so only the margin arms
+            # certify there)
+            for field, kwarg, norm in (
+                    ("quantized_lookup", "quantized", as_quantized_config),
+                    ("pruned_lookup", "pruned", as_pruned_config)):
+                sub = norm(getattr(cfg, field))
+                if sub is None:
+                    continue
+                if sub.tau_hit is None and cfg.hit_mode == "semantic":
+                    sub = dataclasses.replace(sub, tau_hit=cfg.tau_hit)
+                kw.setdefault(kwarg, sub)
             self.backend = get_backend(cfg.backend, **kw)
+        self._fb_seen = {"quant": 0, "prune": 0}   # fallback delta bases
         self.store = ResidentStore(cfg.capacity, cfg.dim)
         self.policy = (policy_factory(cfg.capacity, self.store)
                        if policy_factory is not None
@@ -133,6 +162,14 @@ class SemanticCache:
         for attr, method in _VALUE_HOOKS:
             if hasattr(self.policy, attr):
                 setattr(self.policy, attr, getattr(self.backend, method))
+        if getattr(self.backend, "pruned", None) is not None:
+            # topic routing reads the policy's journaled PolicyTable (rep
+            # matrix + topic memberships) against this facade's store;
+            # restore() re-runs this, so store swaps stay wired.  A
+            # table-less policy leaves route_table None and the backend
+            # falls back to the exact scan (still decision-identical).
+            self.backend.route_table = getattr(self.policy, "table", None)
+            self.backend.route_store = self.store
 
     # ----------------------------------------------------------- events
     def subscribe(self, kind: str, fn: Callable[[CacheEvent], None]):
@@ -176,8 +213,10 @@ class SemanticCache:
     def metrics_snapshot(self) -> dict:
         """The consolidated observability surface: ONE dict merging the
         :class:`CacheMetrics` counters, the device backend's mirror-sync
-        stats (``sync``, when the backend keeps device mirrors), and the
-        launch/transfer ledger (``dispatch``, zeros for host backends)."""
+        stats (``sync``, when the backend keeps device mirrors), the
+        always-present approximate-lookup ledgers (``quant``/``prune``,
+        zeroed when the paths are off) and the launch/transfer ledger
+        (``dispatch``, zeros for host backends)."""
         with self._lock:
             snap = self.metrics.snapshot()
             snap["pending_admits"] = 0
@@ -185,11 +224,35 @@ class SemanticCache:
             sync = getattr(self.backend, "sync_stats", None)
             if sync:
                 snap["sync"] = dict(sync)
+            snap["quant"] = dict(getattr(self.backend, "quant_stats", None)
+                                 or new_quant_stats())
+            snap["prune"] = dict(getattr(self.backend, "prune_stats", None)
+                                 or new_prune_stats())
             dispatch = getattr(self.backend, "dispatch_stats", None)
             if dispatch is None:
                 dispatch = {"launches": 0, "host_syncs": 0, "kernel_s": 0.0}
             snap["dispatch"] = dict(dispatch)
             return snap
+
+    def _flush_fallbacks(self):
+        """Emit the since-last-flush deltas of the approximate lookups'
+        exact-scan fallbacks as the ``cache.rescore_fallbacks`` (quantized)
+        and ``cache.prune_fallbacks`` (pruned) counters (strictly
+        observation-only; call sites hold the lock)."""
+        trk = self._trk
+        if trk is None:
+            return
+        for key, cfg_attr, stats_attr, name in (
+                ("quant", "quantized", "quant_stats",
+                 "cache.rescore_fallbacks"),
+                ("prune", "pruned", "prune_stats", "cache.prune_fallbacks")):
+            if getattr(self.backend, cfg_attr, None) is None:
+                continue
+            fb = getattr(self.backend, stats_attr)["fallbacks"]
+            d = fb - self._fb_seen[key]
+            if d:
+                trk.count(name, d)
+                self._fb_seen[key] = fb
 
     def _tick(self, t: Optional[int]) -> int:
         if t is None:
@@ -249,6 +312,7 @@ class SemanticCache:
                 # windowed hit indicator over logical time -> the
                 # hit-ratio-over-time series every workload study wants
                 trk.observe("cache.hit", 1.0 if result.hit else 0.0, t)
+                self._flush_fallbacks()
         return result
 
     def peek_batch(self, embs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -256,7 +320,9 @@ class SemanticCache:
         no policy/metrics side effects.  Sims are against the store as of
         this call; pair with ``lookup(..., top1=...)`` to apply results."""
         with self._lock:
-            return self.backend.top1_batch(self.store, np.asarray(embs))
+            out = self.backend.top1_batch(self.store, np.asarray(embs))
+            self._flush_fallbacks()
+            return out
 
     def decide_batch(self, embs: np.ndarray, *,
                      t: Optional[int] = None) -> "DecisionBatch":
@@ -276,8 +342,10 @@ class SemanticCache:
             t_now = self.clock if t is None else t
             table = getattr(self.policy, "table", None)
             alpha = float(getattr(self.policy, "alpha", 0.0))
-            return self.backend.decide_batch(self.store, table, embs,
-                                             alpha=alpha, t_now=t_now)
+            dec = self.backend.decide_batch(self.store, table, embs,
+                                            alpha=alpha, t_now=t_now)
+            self._flush_fallbacks()
+            return dec
 
     def peek_rows(self, embs: np.ndarray, cids: Sequence[int]
                   ) -> tuple[np.ndarray, np.ndarray]:
@@ -439,7 +507,9 @@ def load_reference_state(cache: SemanticCache, state: dict) -> None:
     insertion-ordered ``{key: value}`` dicts, ``_next_tid``,
     ``_evictions``), ``clock`` and ``metrics`` (the :class:`CacheMetrics`
     fields).  Every array is copied and every journal restarts, so the
-    device mirrors take one full upload at the next launch."""
+    device mirrors take one full upload at the next launch, and the
+    approximate lookups rebuild their int8 mirror and topic-bucket index
+    from the journals at their first use."""
     from repro_torch.core.rac import RACPolicy, TopicState
     from repro_torch.core.store import MutationJournal
     pol = cache.policy

@@ -64,10 +64,16 @@ class CacheConfig:
     counter); with ``debug_hooks=True`` the exception propagates to the
     ``lookup``/``admit`` caller (the development mode).
 
-    ``async_admit``, ``tiers``, ``quantized_lookup`` and ``pruned_lookup``
-    keep the reference's fields so configurations carry over, but the port
-    has not reached them yet: setting any of them raises
-    ``NotImplementedError`` (see ``ROADMAP.md``).
+    ``quantized_lookup`` enables the int8 candidate scan with an fp32
+    rescore (:mod:`repro_torch.cache.quantized`) and ``pruned_lookup`` the
+    topic-pruned two-stage scan (:mod:`repro_torch.cache.pruned`); each is
+    ``False`` (off, the default), ``True`` (defaults), a dict of overrides
+    or a ready config object, and the two compose.  Decisions are those of
+    the exact scan either way.
+
+    ``async_admit`` and ``tiers`` keep the reference's fields so
+    configurations carry over, but the port has not reached them yet:
+    setting either raises ``NotImplementedError`` (see ``ROADMAP.md``).
     """
 
     capacity: int

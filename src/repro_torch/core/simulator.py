@@ -174,7 +174,15 @@ def run_policy_batched(trace: Trace, capacity: int, factory: PolicyFactory,
                                          factory.__name__),
                   capacity=capacity, requests=len(trace.requests))
     t0 = time.perf_counter()
-    reqs = trace.requests
+    replay_batched(cache, trace.requests, chunk=chunk, tau_hit=tau_hit)
+    return _finish(stats, cache, trace, t0)
+
+
+def replay_batched(cache: "SemanticCache", reqs, chunk: int = 512,
+                   tau_hit: float = 0.85) -> None:
+    """The loop of :func:`run_policy_batched` on a cache the caller holds
+    (semantic mode): replays ``reqs`` in chunks and leaves the warmed
+    cache to the caller, e.g. to checkpoint it."""
     step = max(1, chunk)
     for lo in range(0, len(reqs), step):
         block = reqs[lo:lo + step]
@@ -232,4 +240,3 @@ def run_policy_batched(trace: Trace, capacity: int, factory: PolicyFactory,
                     tail[upd] = sims[upd]
                     best_cid[i + 1:][upd] = req.cid
                     promoted[i + 1:][upd] = True
-    return _finish(stats, cache, trace, t0)

@@ -30,6 +30,11 @@
 //    padding rows).
 //  - Columns at or past n_valid (the free tail) and past N score -inf.  A
 //    row whose columns are all masked comes back as (-inf, 0).
+//  - n_valid comes either as a host int or, when n_valid_dev is not null,
+//    as one int32 on the card that the kernel reads itself (the TPU kernel
+//    reads its scalar-prefetched count the same way): the fused lookup's
+//    union rescore masks to a count it computed on the card, with no host
+//    sync in between.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -45,7 +50,8 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 template <int BQ, int BC, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
 sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
-                 int nq, int nc, int d, int n_valid, int tiles_per_split,
+                 int nq, int nc, int d, int n_valid,
+                 const int* __restrict__ n_valid_dev, int tiles_per_split,
                  float* __restrict__ part_val, int* __restrict__ part_idx) {
   constexpr int TXN = BC / TN;  // threads along the candidate axis
   static_assert(TXN * (BQ / TM) == kThreads, "tile does not match block");
@@ -64,7 +70,7 @@ sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
   const int ntiles = (nc + BC - 1) / BC;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, ntiles);
-  const int limit = min(n_valid, nc);
+  const int limit = min(n_valid_dev != nullptr ? *n_valid_dev : n_valid, nc);
 
   float best_v[TM];
   int best_i[TM];
@@ -174,8 +180,11 @@ __global__ void sim_top1_merge(const float* __restrict__ part_val,
 extern "C" {
 
 // part_val/part_idx hold nsplit * nq partials; the wrapper allocates them.
+// n_valid_dev, when not null, points at one int32 on the card that takes
+// the place of n_valid.
 int sim_top1_launch(const float* q, const float* c, int nq, int nc, int d,
-                    int n_valid, int small, int nsplit, int tiles_per_split,
+                    int n_valid, const int* n_valid_dev, int small,
+                    int nsplit, int tiles_per_split,
                     float* part_val, int* part_idx, float* out_val,
                     int* out_idx, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -183,11 +192,13 @@ int sim_top1_launch(const float* q, const float* c, int nq, int nc, int d,
   if (small) {
     dim3 grid((nq + 7) / 8, nsplit);
     sim_top1_partial<8, 128, 1, 4><<<grid, kThreads, 0, stream>>>(
-        q, c, nq, nc, d, n_valid, tiles_per_split, part_val, part_idx);
+        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
+        part_idx);
   } else {
     dim3 grid((nq + 63) / 64, nsplit);
     sim_top1_partial<64, 64, 4, 4><<<grid, kThreads, 0, stream>>>(
-        q, c, nq, nc, d, n_valid, tiles_per_split, part_val, part_idx);
+        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
+        part_idx);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

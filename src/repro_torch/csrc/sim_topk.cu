@@ -1,0 +1,427 @@
+// Top-K similarity: (Q, D) queries x (N, D) candidates -> per query the K
+// best scores sorted descending, ties toward the lower candidate index.
+// Two score types share everything but the tile product:
+//   fp32 - IEEE fp32 cosine dots (fmaf in ascending k, no TF32);
+//   int8 - exact int8 x int8 -> int32 dots (__dp4a), then the score
+//          (float(acc) * qscale[row]) * cscale[col] in that order.
+//
+// Replaces: repro/kernels/similarity_topk.py::sim_topk_pallas
+// (_make_sim_topk_kernel, _topk_fold) and ::sim_topk_q8_pallas
+// (_make_sim_topk_q8_kernel): the topic routing of the pruned lookup
+// (ops.route_topics over the (T, D+1) [rep | spread] matrix), the int8
+// candidate scan of the quantized lookup, and KernelBackend.topk_rows.
+//
+// What bounds it on an H100: the fp32 product is the same work as B1's,
+// 2*Q*N*D operations at 67 TFLOP/s outside the tensor cores, so wide query
+// blocks are compute-bound (routing 512 queries over 4,096 topics at
+// D+1 = 769: 3.2 GFLOP, 0.048 ms) and a few queries are memory-bound (the
+// 201 MB fp32 slab at 3.35 TB/s: 0.060 ms).  The int8 scan reads a quarter
+// of the bytes (50 MB for the 65,537 x 768 slab: 0.015 ms) and, at 512
+// queries, does 51.5 G int8 operations: 0.026 ms at the tensor cores'
+// 1,979 TOPS.  This kernel uses __dp4a on the CUDA cores, not the tensor
+// cores, so it stays well above that bound (IMMA is later work).
+//
+// Design:
+//  - The TPU kernel folds candidate tiles in order through a revisited
+//    output block.  Hopper blocks run in no order, so, as in B1, the
+//    candidate axis is split across blocks (grid.y).  Each block keeps a
+//    running sorted K-list per query over the tiles of its split and
+//    writes it as a partial list; a second pass merges the per-split
+//    lists by (value descending, split ascending), which is (value
+//    descending, index ascending) globally because splits cover ascending
+//    candidate ranges.
+//  - Per tile the block computes the (BQ x BC) score tile with a register
+//    micro-tile (B1's two tile shapes), parks it in shared memory, and
+//    then each warp folds whole rows into their lists: a ballot against
+//    the row's current K-th score finds the few columns that can enter,
+//    and each is inserted behind every entry with a score >= its own (the
+//    list holds only lower indices of this split, so equal scores stay
+//    ahead).  Columns are visited in ascending order, so the tie rule
+//    holds inside the block.
+//  - Any K up to N is served: the lists live in shared memory when
+//    BQ * K * 8 bytes fit in 16 KB, else in the partial output buffer in
+//    device memory (same code through a generic pointer).  The wrapper
+//    caps the split count so that each split has at least 2K candidates.
+//  - int8 rows are read 16 bytes per load when D is a multiple of 16 and
+//    the rows are 16-byte aligned; otherwise byte by byte.  Either way the
+//    ragged depth and row edges are masked with zeros, so no padding is
+//    needed.  int32 accumulation is exact for D * 127^2 < 2^31.
+//  - Columns at or past n_valid score -inf and never enter a list; a row
+//    with fewer than K live columns comes back with (-inf, 0) in its tail.
+//    No --use_fast_math: the two scale products are __fmul_rn, so the int8
+//    scores are bit-equal to the plain version's and the host gemm's.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <climits>
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlice = 16;  // 32-bit words of depth per shared-memory slice
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// One depth slice (kSlice floats) of rows [r0, r0 + ROWS) into the
+// k-major shared tile dst.
+template <int ROWS>
+__device__ __forceinline__ void load_f32(const float* __restrict__ src,
+                                         int r0, int n, int d, int k0,
+                                         float (*dst)[ROWS + 4]) {
+  for (int e = threadIdx.x; e < ROWS * kSlice; e += kThreads) {
+    const int r = e / kSlice, kk = e % kSlice;
+    const int gr = r0 + r, gk = k0 + kk;
+    dst[kk][r] = (gr < n && gk < d) ? __ldg(src + (size_t)gr * d + gk) : 0.f;
+  }
+}
+
+// One depth slice (kSlice words = 64 int8 values) of rows [r0, r0 + ROWS),
+// four values per word, lowest address in the low byte (what __dp4a and a
+// little-endian vector load both expect).
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void load_i8(const signed char* __restrict__ src,
+                                        int r0, int n, int d, int k0,
+                                        int (*dst)[ROWS + 4]) {
+  if (VEC) {
+    for (int e = threadIdx.x; e < ROWS * (kSlice / 4); e += kThreads) {
+      const int r = e / (kSlice / 4), part = e % (kSlice / 4);
+      const int gr = r0 + r, gk = k0 + part * 16;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (gr < n && gk < d)
+        v = __ldg(reinterpret_cast<const int4*>(src + (size_t)gr * d + gk));
+      dst[part * 4 + 0][r] = v.x;
+      dst[part * 4 + 1][r] = v.y;
+      dst[part * 4 + 2][r] = v.z;
+      dst[part * 4 + 3][r] = v.w;
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * kSlice; e += kThreads) {
+      const int r = e / kSlice, w = e % kSlice;
+      const int gr = r0 + r, gk = k0 + w * 4;
+      unsigned word = 0;
+      if (gr < n) {
+        const signed char* p = src + (size_t)gr * d;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (gk + b < d) word |= (unsigned)(unsigned char)p[gk + b] << (8 * b);
+      }
+      dst[w][r] = (int)word;
+    }
+  }
+}
+
+// Fold one row of the score tile into that row's sorted list (one warp).
+// lv/li: the list (shared or device memory), *cnt: its length.
+__device__ void fold_row(const float* srow, int c0, int bc, int limit, int k,
+                         float* lv, int* li, int* cnt, int lane) {
+  int n = *cnt;
+  float thr = n < k ? -CUDART_INF_F : lv[k - 1];
+  for (int base = 0; base < bc; base += 32) {
+    const int col = base + lane;
+    const float v = (col < bc && c0 + col < limit) ? srow[col] : -CUDART_INF_F;
+    unsigned m = __ballot_sync(kFull, v > thr);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(kFull, v, src);
+      if (!(cv > thr)) continue;  // the threshold rose since the ballot
+      // entries scoring >= cv have lower indices: they stay ahead
+      int p = 0;
+      for (int j = lane; j < n; j += 32) p += lv[j] >= cv;
+      p = warp_sum(p);
+      const int n_new = min(n + 1, k);
+      // shift [p, n_new - 1) one place back, 32 entries a step, from the end
+      for (int end = n_new; end > p + 1; end -= 32) {
+        const int j = end - 1 - lane;
+        float tv = 0.f;
+        int ti = 0;
+        if (j > p) {
+          tv = lv[j - 1];
+          ti = li[j - 1];
+        }
+        __syncwarp();
+        if (j > p) {
+          lv[j] = tv;
+          li[j] = ti;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        lv[p] = cv;
+        li[p] = c0 + base + src;
+      }
+      __syncwarp();
+      n = n_new;
+      thr = n < k ? -CUDART_INF_F : lv[k - 1];
+    }
+  }
+  __syncwarp();
+  if (lane == 0) *cnt = n;
+}
+
+template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
+                 const float* __restrict__ qscale,
+                 const float* __restrict__ cscale, int nq, int nc, int d,
+                 int n_valid, int k, int tiles_per_split, int list_in_smem,
+                 float* part_val, int* part_idx) {
+  using Word = typename std::conditional<Q8, int, float>::type;
+  constexpr int TXN = BC / TN;  // threads along the candidate axis
+  static_assert(TXN * (BQ / TM) == kThreads, "tile does not match block");
+  constexpr int kStep = Q8 ? kSlice * 4 : kSlice;  // depth per slice
+  __shared__ __align__(16) Word qs[kSlice][BQ + 4];
+  __shared__ __align__(16) Word cs[kSlice][BC + 4];
+  __shared__ float sc[BQ][BC + 1];
+  __shared__ int cnt[BQ];
+  extern __shared__ __align__(16) unsigned char dyn[];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TXN, ty = tid / TXN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BQ;
+  const int split = blockIdx.y;
+  const int limit = max(0, min(n_valid, nc));
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, (limit + BC - 1) / BC);
+
+  // row r's list: lv + r*k, li + r*k
+  float* lv;
+  int* li;
+  if (list_in_smem) {
+    lv = reinterpret_cast<float*>(dyn);
+    li = reinterpret_cast<int*>(dyn + (size_t)BQ * k * sizeof(float));
+  } else {
+    lv = part_val + ((size_t)split * nq + q0) * k;
+    li = part_idx + ((size_t)split * nq + q0) * k;
+  }
+  for (int r = tid; r < BQ; r += kThreads) cnt[r] = 0;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int c0 = t * BC;
+    Word acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+
+    for (int k0 = 0; k0 < d; k0 += kStep) {
+      if constexpr (Q8) {
+        load_i8<BQ, VEC>(static_cast<const signed char*>(qv), q0, nq, d, k0, qs);
+        load_i8<BC, VEC>(static_cast<const signed char*>(cv), c0, nc, d, k0, cs);
+      } else {
+        load_f32<BQ>(static_cast<const float*>(qv), q0, nq, d, k0, qs);
+        load_f32<BC>(static_cast<const float*>(cv), c0, nc, d, k0, cs);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kSlice; ++kk) {
+        Word a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = qs[kk][ty * TM + i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = cs[kk][tx * TN + j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            if constexpr (Q8)
+              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+            else
+              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = ty * TM + i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = tx * TN + j;
+        if constexpr (Q8) {
+          const int gq = q0 + row, gc = c0 + col;
+          const float qsc = gq < nq ? qscale[gq] : 0.f;
+          const float csc = gc < nc ? cscale[gc] : 0.f;
+          sc[row][col] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qsc), csc);
+        } else {
+          sc[row][col] = acc[i][j];
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < BQ; r += kWarps)
+      if (q0 + r < nq)
+        fold_row(sc[r], c0, BC, limit, k, lv + (size_t)r * k,
+                 li + (size_t)r * k, &cnt[r], lane);
+    __syncthreads();
+  }
+
+  __syncthreads();
+  // the partial list of each row, padded with (-inf, 0)
+  for (int r = warp; r < BQ; r += kWarps) {
+    if (q0 + r >= nq) continue;
+    const int n = cnt[r];
+    float* ov = part_val + ((size_t)split * nq + q0 + r) * k;
+    int* oi = part_idx + ((size_t)split * nq + q0 + r) * k;
+    for (int j = lane; j < k; j += 32) {
+      if (j >= n) {
+        ov[j] = -CUDART_INF_F;
+        oi[j] = 0;
+      } else if (list_in_smem) {
+        ov[j] = lv[(size_t)r * k + j];
+        oi[j] = li[(size_t)r * k + j];
+      }
+    }
+  }
+}
+
+// One block per query: K rounds, each taking the best head of the nsplit
+// sorted partial lists, by (value descending, split ascending).
+__global__ void sim_topk_merge(const float* __restrict__ part_val,
+                               const int* __restrict__ part_idx, int nsplit,
+                               int nq, int k, float* __restrict__ out_val,
+                               int* __restrict__ out_idx) {
+  extern __shared__ int head[];
+  __shared__ float wv[32];
+  __shared__ int ws[32];
+  __shared__ float win_v;
+  __shared__ int win_s;
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) / 32;
+  for (int s = threadIdx.x; s < nsplit; s += blockDim.x) head[s] = 0;
+  __syncthreads();
+  int j = 0;
+  for (; j < k; ++j) {
+    float bv = -CUDART_INF_F;
+    int bs = INT_MAX;
+    for (int s = threadIdx.x; s < nsplit; s += blockDim.x) {
+      const int h = head[s];
+      if (h < k) {
+        const float v = part_val[((size_t)s * nq + row) * k + h];
+        if (v > bv) {  // s ascends within a thread: ties keep the lower
+          bv = v;
+          bs = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int os = __shfl_xor_sync(kFull, bs, off);
+      if (ov > bv || (ov == bv && os < bs)) {
+        bv = ov;
+        bs = os;
+      }
+    }
+    if (lane == 0) {
+      wv[warp] = bv;
+      ws[warp] = bs;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bv = lane < nwarps ? wv[lane] : -CUDART_INF_F;
+      bs = lane < nwarps ? ws[lane] : INT_MAX;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, off);
+        const int os = __shfl_xor_sync(kFull, bs, off);
+        if (ov > bv || (ov == bv && os < bs)) {
+          bv = ov;
+          bs = os;
+        }
+      }
+      if (lane == 0) {
+        win_v = bv;
+        win_s = bs;
+      }
+    }
+    __syncthreads();
+    if (win_s == INT_MAX) break;  // every list is exhausted
+    if (threadIdx.x == 0) {
+      const int s = win_s;
+      out_val[(size_t)row * k + j] = win_v;
+      out_idx[(size_t)row * k + j] = part_idx[((size_t)s * nq + row) * k + head[s]];
+      head[s] += 1;
+    }
+    __syncthreads();
+  }
+  for (int t = j + threadIdx.x; t < k; t += blockDim.x) {
+    out_val[(size_t)row * k + t] = -CUDART_INF_F;
+    out_idx[(size_t)row * k + t] = 0;
+  }
+}
+
+template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
+cudaError_t launch_partial(const void* q, const void* c, const float* qs,
+                           const float* cs, int nq, int nc, int d, int n_valid,
+                           int k, int nsplit, int per, int list_in_smem,
+                           float* pv, int* pi, cudaStream_t stream) {
+  const size_t dyn = list_in_smem ? (size_t)BQ * k * 8 : 0;
+  dim3 grid((nq + BQ - 1) / BQ, nsplit);
+  sim_topk_partial<BQ, BC, TM, TN, Q8, VEC><<<grid, kThreads, dyn, stream>>>(
+      q, c, qs, cs, nq, nc, d, n_valid, k, per, list_in_smem, pv, pi);
+  return cudaGetLastError();
+}
+
+template <bool Q8, bool VEC>
+cudaError_t launch_shape(int small, const void* q, const void* c,
+                         const float* qs, const float* cs, int nq, int nc,
+                         int d, int n_valid, int k, int nsplit, int per,
+                         int list_in_smem, float* pv, int* pi,
+                         cudaStream_t stream) {
+  if (small)
+    return launch_partial<8, 128, 1, 4, Q8, VEC>(
+        q, c, qs, cs, nq, nc, d, n_valid, k, nsplit, per, list_in_smem, pv,
+        pi, stream);
+  return launch_partial<64, 64, 4, 4, Q8, VEC>(
+      q, c, qs, cs, nq, nc, d, n_valid, k, nsplit, per, list_in_smem, pv, pi,
+      stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q8 = 0: q/c are fp32 and qscale/cscale are unused (may be null).
+// q8 = 1: q/c are int8 with per-row fp32 scales; vec = 1 takes 16-byte
+// loads (d % 16 == 0 and 16-byte aligned rows, checked by the wrapper).
+// part_val/part_idx hold nsplit * nq * k partials; the wrapper allocates
+// them and chooses small (8 x 128 tiles), nsplit, tiles_per_split and
+// whether the lists fit in shared memory (8 * k * BQ <= 16384 bytes).
+int sim_topk_launch(const void* q, const void* c, const float* qscale,
+                    const float* cscale, int q8, int vec, int nq, int nc,
+                    int d, int n_valid, int k, int small, int nsplit,
+                    int tiles_per_split, int list_in_smem, float* part_val,
+                    int* part_idx, float* out_val, int* out_idx, int device,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!q8)
+    err = launch_shape<false, false>(small, q, c, qscale, cscale, nq, nc, d,
+                                     n_valid, k, nsplit, tiles_per_split,
+                                     list_in_smem, part_val, part_idx, stream);
+  else if (vec)
+    err = launch_shape<true, true>(small, q, c, qscale, cscale, nq, nc, d,
+                                   n_valid, k, nsplit, tiles_per_split,
+                                   list_in_smem, part_val, part_idx, stream);
+  else
+    err = launch_shape<true, false>(small, q, c, qscale, cscale, nq, nc, d,
+                                    n_valid, k, nsplit, tiles_per_split,
+                                    list_in_smem, part_val, part_idx, stream);
+  if (err != cudaSuccess) return (int)err;
+  sim_topk_merge<<<nq, 128, (size_t)nsplit * sizeof(int), stream>>>(
+      part_val, part_idx, nsplit, nq, k, out_val, out_idx);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources are compiled by ONE ``nvcc`` call for ``sm_90a`` into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+Each source is compiled for ``sm_90a`` by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
+library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use, into ``build/repro_torch/<hash>/`` at the root of
 the checkout, keyed on a hash of the sources and flags, so a fresh
 checkout builds itself and an edited source rebuilds.  Every pointer and the stream are passed as
@@ -22,9 +23,9 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("sim_top1.cu", "victim_value.cu", "rac_value.cu")
+SOURCES = ("sim_top1.cu", "sim_topk.cu", "victim_value.cu", "rac_value.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _LIB = None
@@ -37,8 +38,10 @@ build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                        _I, _P],
+    "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                        _P, _I, _P],
+    "sim_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P, _P, _P, _I, _P],
     "victim_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P],
     "rac_value_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _I, _P],
 }
@@ -78,16 +81,32 @@ def build() -> Path:
         build_seconds = 0.0
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".build-{os.getpid()}-{threading.get_ident()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in SOURCES)]
+    tag = f".build-{os.getpid()}-{threading.get_ident()}"
+    tmp = out_dir / f"{tag}.so"
+    objs = [out_dir / f"{tag}-{Path(s).stem}.o" for s in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one compiler per source, all at once; then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(_CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed = ["link"]
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
     os.replace(tmp, lib)
     return lib
 

@@ -26,6 +26,8 @@ import torch
 from .decision import victim_value as _victim_value
 from .rac_value import rac_value as _rac_value
 from .similarity_topk import sim_top1 as _sim_top1
+from .similarity_topk import sim_topk as _sim_topk
+from .similarity_topk import sim_topk_q8 as _sim_topk_q8
 
 dispatch_stats = {"launches": 0, "host_syncs": 0, "kernel_s": 0.0}
 
@@ -102,8 +104,39 @@ def _as(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _sim_top1_raw(queries, candidates, n_valid, dev):
     c = _as(candidates, torch.float32, dev)
-    n_valid = c.shape[0] if n_valid is None else int(n_valid)
+    if n_valid is None:
+        n_valid = c.shape[0]
+    elif not isinstance(n_valid, torch.Tensor):
+        n_valid = int(n_valid)
     return _sim_top1(_as(queries, torch.float32, dev), c, n_valid)
+
+
+def sim_topk_raw(queries, candidates, n_valid, k: int):
+    """Uncounted Top-K body, shared with :func:`route_topics` and the
+    fused lookup (the device is the candidates')."""
+    dev = _device_of(candidates, queries)
+    c = _as(candidates, torch.float32, dev)
+    n_valid = c.shape[0] if n_valid is None else int(n_valid)
+    return _sim_topk(_as(queries, torch.float32, dev), c, n_valid, int(k))
+
+
+def route_topics_raw(queries, reps_aug, n_valid, k: int):
+    """Uncounted routing body: augment each query with its L2 norm and
+    Top-K the (T, D+1) bound matrix ``[rep | spread]``, so the product is
+    ``q . rep_t + |q| * spread_t`` (see :mod:`repro_torch.cache.pruned`)."""
+    qf = _as(queries, torch.float32, _device_of(reps_aug, queries))
+    qn = torch.sqrt((qf * qf).sum(dim=1, keepdim=True))
+    return sim_topk_raw(torch.cat([qf, qn], dim=1), reps_aug, n_valid, k)
+
+
+def sim_topk_q8_raw(q8, qscale, c8, cscale, n_valid, k: int):
+    """Uncounted quantized Top-K body, shared with the fused lookup."""
+    dev = _device_of(c8, q8)
+    c = _as(c8, torch.int8, dev)
+    n_valid = c.shape[0] if n_valid is None else int(n_valid)
+    return _sim_topk_q8(_as(q8, torch.int8, dev),
+                        _as(qscale, torch.float32, dev), c,
+                        _as(cscale, torch.float32, dev), n_valid, int(k))
 
 
 def _victim_value_raw(tsi, tid, occ, tp_last, t_last, t_now, alpha, dev):
@@ -129,9 +162,45 @@ def sim_top1(queries, candidates, n_valid=None):
     """Top-1 cosine retrieval: (Q,D)x(N,D) -> (vals (Q,), idx (Q,)).
 
     ``n_valid`` (default: all of ``candidates``) is the runtime resident
-    count: rows at or past it score -inf."""
+    count: rows at or past it score -inf.  It may be a 1-element int32
+    tensor on the candidates' device, read by the kernel itself."""
     return _sim_top1_raw(queries, candidates, n_valid,
                          _device_of(candidates, queries))
+
+
+@_counted
+def sim_topk(queries, candidates, k: int, n_valid=None):
+    """Top-K cosine retrieval: (Q,D)x(N,D) -> (vals (Q,K), idx (Q,K)),
+    sorted descending with ties toward the lower candidate index (any
+    1 <= K <= N).  ``n_valid`` masks the free tail: rows at or past it come
+    back as (-inf, any index) — callers map them to (-inf, -1)."""
+    return sim_topk_raw(queries, candidates, n_valid, k)
+
+
+@_counted
+def route_topics(queries, reps_aug, probes: int, n_valid=None):
+    """Stage-1 routing of the pruned lookup: (Q,D)x(T,D+1) ->
+    (bounds (Q,K), tids (Q,K)), K = min(probes+1, T), sorted descending.
+
+    ``reps_aug`` row ``t`` is ``[rep_t | spread_t]``, so scoring the
+    norm-augmented query yields each topic's Cauchy–Schwarz score bound;
+    the leading ``probes`` columns are the probe set and column ``probes``
+    (when present) bounds every unprobed topic.  ``n_valid`` masks
+    retired and unborn topic rows to (-inf, any index)."""
+    if n_valid is None:
+        n_valid = reps_aug.shape[0]
+    k = int(min(probes + 1, reps_aug.shape[0]))
+    return route_topics_raw(queries, reps_aug, n_valid, k)
+
+
+@_counted
+def sim_topk_q8(q8, qscale, c8, cscale, k: int, n_valid=None):
+    """Quantized-slab Top-K candidate generation: (Q,D)i8 x (N,D)i8 ->
+    (vals (Q,K), idx (Q,K)) of approximate fp32 similarities
+    ``(acc * qscale) * cscale``, same order and tie rule as
+    :func:`sim_topk`.  ``k`` is clamped to the candidate count."""
+    return sim_topk_q8_raw(q8, qscale, c8, cscale, n_valid,
+                           int(min(k, c8.shape[0])))
 
 
 @_counted

@@ -26,6 +26,53 @@ def sim_top1_ref(queries: torch.Tensor, candidates: torch.Tensor,
             idx.to(torch.int32))
 
 
+def _topk_sorted(scores: torch.Tensor, k: int):
+    """The K best columns per row, descending; a stable sort keeps equal
+    scores in ascending column order (``torch.topk`` promises no order
+    for ties)."""
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def _mask_cols(scores: torch.Tensor, n_valid) -> torch.Tensor:
+    col = torch.arange(scores.shape[1], device=scores.device)
+    return torch.where(col[None, :] < n_valid, scores, float("-inf"))
+
+
+def sim_topk_ref(queries: torch.Tensor, candidates: torch.Tensor,
+                 n_valid: int, k: int):
+    """queries (Q,D), candidates (N,D) -> (vals (Q,K), idx (Q,K)), sorted
+    descending, ties toward the lower index; columns at or past
+    ``n_valid`` score -inf."""
+    scores = queries.to(torch.float32) @ candidates.to(torch.float32).T
+    return _topk_sorted(_mask_cols(scores, n_valid), k)
+
+
+def int8_dots(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
+    """Exact ``q8 @ c8.T`` integer dots of int8 rows, as float32.  The CPU
+    takes an int64 product; the card has no integer matmul for this, so
+    it takes a float64 one, exact for any D below 2^53 / 127^2.  Either
+    way the float32 cast rounds to nearest, as an int32 -> float32 cast
+    does (exact while D * 127^2 < 2^24)."""
+    if q8.device.type == "cpu":
+        acc = q8.to(torch.int64) @ c8.to(torch.int64).T
+    else:
+        acc = q8.to(torch.float64) @ c8.to(torch.float64).T
+    return acc.to(torch.float32)
+
+
+def sim_topk_q8_ref(q8: torch.Tensor, qscale: torch.Tensor,
+                    c8: torch.Tensor, cscale: torch.Tensor,
+                    n_valid: int, k: int):
+    """Quantized-slab Top-K: exact integer dots rescaled per row as
+    ``(acc * qscale) * cscale`` in that order (the kernel's, the reference
+    kernel's and the host gemm's order, so all give the same bits), then
+    the order and masking of :func:`sim_topk_ref`."""
+    scores = (int8_dots(q8, c8) * qscale.to(torch.float32)[:, None]) \
+        * cscale.to(torch.float32)[None, :]
+    return _topk_sorted(_mask_cols(scores, n_valid), k)
+
+
 def rac_value_ref(tsi: torch.Tensor, tid: torch.Tensor,
                   tp_last: torch.Tensor, t_last: torch.Tensor,
                   alpha: float, t_now):

@@ -8,7 +8,8 @@ values within 1e-6 relative), ``checkpoint``/``restore`` must round-trip,
 and ``load_reference_state`` must continue a warmed reference cache with
 identical decisions.  Also: torch ``pagerank_power`` against
 ``pagerank_power_jax``, and the features the port has not reached yet
-raising ``NotImplementedError``.
+raising ``NotImplementedError`` (the approximate lookups are held against
+the reference in ``tests/test_torch_approx.py``).
 """
 import dataclasses
 
@@ -250,7 +251,6 @@ def test_pagerank_power_matches_jax(rng, n):
 @pytest.mark.parametrize("field,value", [
     ("async_admit", True), ("async_admit", "sync"),
     ("tiers", TierConfig(host_capacity=8)),
-    ("quantized_lookup", True), ("pruned_lookup", True),
     ("policy", "LRU"), ("policy", "RadixRAC"), ("backend", "sharded")])
 def test_unported_features_raise_and_point_at_the_roadmap(field, value):
     kw = {"hit_mode": "semantic", "backend": "numpy", field: value}
@@ -259,11 +259,12 @@ def test_unported_features_raise_and_point_at_the_roadmap(field, value):
 
 
 def test_unported_backend_options_raise():
-    for cls in (NumpyBackend, KernelBackend):
+    # the quantized and pruned lookups are ported; their policy-stacked
+    # arena surface and the sharded backend are not
+    for be in (NumpyBackend(quantized=True),
+               KernelBackend(device="cpu", pruned=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cls(quantized=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cls(pruned=True)
+            be.top1_multi(None, np.zeros((1, DIM), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_backend("sharded")
 

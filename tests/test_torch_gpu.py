@@ -119,3 +119,155 @@ def test_kernel_backend_on_the_card_matches_the_host_oracle(cuda):
         out[backend] = (st.hits, st.misses, st.evictions)
     assert out["kernel"] == out["numpy"] and out["numpy"][2] > 0
     assert all(m.launches > 0 for m in mods)
+
+
+# ------------------------------------------- Top-K kernels (B4, B5) and B1
+def _assert_topk(v, i, pv, pi, exact_values):
+    """Kernel (v, i) against the plain (pv, pi): the same -inf tail,
+    values equal (int8) or within 1e-5 (fp32), indices equal wherever the
+    value is finite and clear of its neighbours (fp32) or finite (int8)."""
+    assert v.shape == pv.shape and i.dtype == torch.int32
+    assert torch.equal(torch.isneginf(v), torch.isneginf(pv))
+    fin = torch.isfinite(pv)
+    if exact_values:
+        assert torch.equal(v[fin], pv[fin])
+        assert torch.equal(i[fin], pi[fin])
+        return
+    if fin.any():
+        assert float((v - pv)[fin].abs().max()) <= 1e-5
+    # an index is pinned down when its score is 1e-4 clear of the next
+    # and of the previous rank
+    pad = torch.full_like(pv[:, :1], float("-inf"))
+    nxt = torch.cat([pv[:, 1:], pad], dim=1)
+    prv = torch.cat([-pad, pv[:, :-1]], dim=1)
+    clear = fin & (pv - nxt > 1e-4) & (prv - pv > 1e-4)
+    assert torch.equal(i[clear], pi[clear])
+
+
+@pytest.mark.parametrize("nq,nc,d,n_valid,k", [
+    (1, 1, 32, 1, 1), (7, 100, 64, 0, 4), (37, 901, 64, 700, 16),
+    (130, 1500, 96, 1500, 3), (8, 20_000, 768, 20_000, 257),
+    (512, 4_096, 769, 3_000, 3), (3, 700, 48, 650, 700),
+    (64, 5_000, 770, 4_999, 33)])
+def test_sim_topk_kernel_matches_plain(cuda, rng, nq, nc, d, n_valid, k):
+    from repro_torch.kernels import ref, similarity_topk
+    q, c = _unit(rng, nq, d, cuda), _unit(rng, nc, d, cuda)
+    before = similarity_topk.topk_launches
+    v, i = similarity_topk.sim_topk(q, c, n_valid, k)
+    assert similarity_topk.topk_launches == before + 1
+    pv, pi = ref.sim_topk_ref(q, c, n_valid, k)
+    _assert_topk(v, i, pv, pi, exact_values=False)
+    if n_valid == 0:
+        assert bool(torch.isneginf(v).all())
+
+
+def test_sim_topk_kernel_ties_go_low(cuda, rng):
+    from repro_torch.kernels import similarity_topk
+    row = _unit(rng, 1, 64, cuda)
+    c = torch.cat([-_unit(rng, 5, 64, cuda), row.repeat(9_000, 1)])
+    for nq in (3, 200):                          # both tile shapes
+        for k in (4, 40):                        # shared and device lists
+            v, i = similarity_topk.sim_topk(row.repeat(nq, 1), c,
+                                            c.shape[0], k)
+            want = torch.arange(5, 5 + k, device=cuda, dtype=torch.int32)
+            assert torch.equal(i, want.expand(nq, k))
+
+
+@pytest.mark.parametrize("nq,nc,d,n_valid,k", [
+    (1, 65_537, 768, 65_537, 8), (512, 9_000, 768, 8_500, 8),
+    (5, 1_311, 768, 1_300, 8), (9, 600, 130, 570, 5), (4, 300, 64, 0, 3),
+    (16, 2_000, 96, 2_000, 257)])
+def test_sim_topk_q8_kernel_is_bit_equal_to_plain(cuda, rng, nq, nc, d,
+                                                  n_valid, k):
+    from repro_torch.kernels import ref, similarity_topk
+    from repro_torch.kernels.quant import quantize_rows_int8
+    q8, qs, _ = quantize_rows_int8(rng.standard_normal((nq, d)))
+    c8, cs, _ = quantize_rows_int8(rng.standard_normal((nc, d)))
+    args = [torch.from_numpy(x).to(cuda) for x in (q8, qs, c8, cs)]
+    before = similarity_topk.topk_q8_launches
+    v, i = similarity_topk.sim_topk_q8(*args, n_valid, k)
+    assert similarity_topk.topk_q8_launches == before + 1
+    pv, pi = ref.sim_topk_q8_ref(*args, n_valid, k)
+    _assert_topk(v, i, pv, pi, exact_values=True)
+    # and the host gemm of the reference's numpy helper gives the same bits
+    from repro_torch.kernels.quant import int8_scores
+    host = (int8_scores(q8, c8[:n_valid]) * qs[:, None]) * cs[None, :n_valid]
+    if n_valid:
+        kk = min(k, n_valid)
+        order = np.argsort(-host, axis=1, kind="stable")[:, :kk]
+        np.testing.assert_array_equal(v[:, :kk].cpu().numpy(),
+                                      np.take_along_axis(host, order, 1))
+
+
+def test_sim_topk_q8_kernel_unaligned_rows(cuda, rng):
+    """Rows that are not 16-byte aligned take the byte-wise loads."""
+    from repro_torch.kernels import ref, similarity_topk
+    from repro_torch.kernels.quant import quantize_rows_int8
+    c8, cs, _ = quantize_rows_int8(rng.standard_normal((401, 64)))
+    q8, qs, _ = quantize_rows_int8(rng.standard_normal((6, 64)))
+    c = torch.from_numpy(np.ascontiguousarray(c8[:, 3:])).to(cuda)
+    args = (torch.from_numpy(np.ascontiguousarray(q8[:, 3:])).to(cuda),
+            torch.from_numpy(qs).to(cuda), c, torch.from_numpy(cs).to(cuda))
+    v, i = similarity_topk.sim_topk_q8(*args, 401, 6)
+    pv, pi = ref.sim_topk_q8_ref(*args, 401, 6)
+    _assert_topk(v, i, pv, pi, exact_values=True)
+
+
+def test_sim_top1_device_n_valid_matches_host_int(cuda, rng):
+    from repro_torch.kernels import similarity_topk
+    q, c = _unit(rng, 9, 96, cuda), _unit(rng, 3_000, 96, cuda)
+    for nv in (0, 1, 1_777, 3_000):
+        dn = torch.tensor([nv], dtype=torch.int32, device=cuda)
+        v, i = similarity_topk.sim_top1(q, c, dn)
+        hv, hi = similarity_topk.sim_top1(q, c, nv)
+        assert torch.equal(v, hv) and torch.equal(i, hi)
+
+
+def test_wrappers_never_take_the_plain_version_on_the_card(cuda, rng,
+                                                          monkeypatch):
+    from repro_torch.kernels import ref, similarity_topk
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    for name in ("sim_top1_ref", "sim_topk_ref", "sim_topk_q8_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    q, c = _unit(rng, 4, 64, cuda), _unit(rng, 300, 64, cuda)
+    similarity_topk.sim_top1(q, c, 300)
+    similarity_topk.sim_topk(q, c, 300, 5)
+    q8 = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
+    s = torch.ones(300, device=cuda)
+    similarity_topk.sim_topk_q8(q8, s[:4].contiguous(),
+                                torch.zeros((300, 64), dtype=torch.int8,
+                                            device=cuda), s, 300, 5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("quant,pruned", [
+    (True, False), (False, True), (True, True),
+    ({"fused": False}, {"fused": False})])
+def test_approximate_lookups_on_the_card_match_the_host_oracle(
+        cuda, quant, pruned):
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.core import OASSTConfig, oasst_style_trace
+    from repro_torch.kernels import similarity_topk
+    tr = oasst_style_trace(OASSTConfig(trace_len=1_500, dim=128, seed=4))
+    out = {}
+    before = (similarity_topk.topk_launches,
+              similarity_topk.topk_q8_launches)
+    for backend, device in (("kernel", "cuda"), ("numpy", "cpu")):
+        cache = SemanticCache(CacheConfig(
+            capacity=200, dim=128, backend=backend, device=device,
+            quantized_lookup=quant, pruned_lookup=pruned))
+        ev = []
+        for kind in ("hit", "miss", "admit", "evict"):
+            cache.subscribe(kind, lambda e, k=kind: ev.append((k, e.cid)))
+        for r in tr.requests:
+            if not cache.lookup(r.emb, cid=r.cid, t=r.t).hit:
+                cache.admit(r.cid, r.emb, t=r.t)
+        out[backend] = ev
+    assert out["kernel"] == out["numpy"]
+    assert any(k == "evict" for k, _ in out["numpy"])
+    if pruned:
+        assert similarity_topk.topk_launches > before[0]
+    if quant is not False and pruned is not True:
+        assert similarity_topk.topk_q8_launches > before[1]

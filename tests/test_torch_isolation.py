@@ -44,6 +44,22 @@ def test_sources_name_no_jax_and_no_reference_module():
     assert not hits, hits
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.quant", "repro_torch.kernels.fused",
+    "repro_torch.cache.quantized", "repro_torch.cache.pruned"])
+def test_approximate_lookup_modules_stand_alone(module):
+    """The modules of the approximate lookups import alone, with neither
+    JAX nor the reference package (whose numpy-only twins they copy)."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_kernel_sources_ship_with_the_package():
     from repro_torch.kernels import _build
     for name in _build.SOURCES:
