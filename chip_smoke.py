@@ -18,23 +18,41 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                over the slab (Q = 8, k in {1, 8, 16, 257}), int8 Top-K over
                the slab (Q in {1, 512}, k = 8, scores bit-equal), and Top-1
                with a count read on the card (the fused rescore's shapes).
+               The policy-stacked kernels too, at the arena's shapes (P = 15
+               slabs of S = 6,852 rows: 10% of the trace's 68,510 unique
+               contents plus the spare, D = 768): Top-1 and int8 Top-K
+               (k = 8) at Q in {16, 512}, and the victim values over
+               N = 6,852 slots and T = 4,096 topics; each policy's slice
+               must equal a single-slab launch on that slab.
   4. parity  - the first 8,000 requests of the trace at D=768, capacity
                4,096, replayed on the kernel backend on the card and on the
                port's NumpyBackend host oracle: hit, admit and eviction
                sequences must be identical.
-  5. approx  - the same 8,000 requests replayed request by request through
+  5. approx  - the first 5,000 of those requests replayed one by one through
                lookup/admit with the quantized, the pruned (2 probes), the
                composed (fused) and the composed staged (fused=False)
                lookups, on the card and on the host oracle: every event
                sequence must equal the exact path's on the card.  The nine
                replays are independent and host-bound, so each runs in a
                worker process of its own.
-  6. main    - the batched replay (RAC, backend="kernel", device="cuda") of
+  6. arena   - the 15 default_factories(seed=0) policies replayed in one
+               pass (run_arena, semantic mode, chunk 512, D=768) over the
+               trace's first ARENA_LEN requests at capacity 10% of their
+               unique contents, on the card and on the host oracle (in a
+               worker process, at the same time): every policy's hits,
+               misses and evictions must be identical, and the stacked
+               Top-1 must have launched once per chunk.  The stacked
+               victim values of the three RAC variants' final tables are
+               then checked in one launch.  The exact, quantized, pruned
+               and composed arenas then replay a shorter prefix, each in a
+               worker process, and must make the same Stats; the stacked
+               int8 Top-K must have launched once per chunk.
+  7. main    - the batched replay (RAC, backend="kernel", device="cuda") of
                the OASST-style trace's first 71,000 requests at D=768,
                capacity 65,536 (a 65,537 x 768 fp32 slab on the card),
                chunk 512, on a cache the smoke keeps; B1-B3 must have
                launched.
-  7. approx main - that warmed cache is checkpointed and restored into an
+  8. approx main - that warmed cache is checkpointed and restored into an
                exact and a quantized+pruned (defaults) cache, which replay
                the trace's last 1,000 requests one by one (the fused path
                at b = 1) and then peek 512 queries at once (the staged
@@ -45,6 +63,7 @@ The last line of standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -64,7 +83,11 @@ CONT_LEN = 1_000           # the approximate continuation after the main run
 CHUNK = 512
 PEEK = 512                 # one staged peek_batch of this many queries
 PARITY_LEN, PARITY_CAP = 8_000, 4_096
+APPROX_PARITY_LEN = 5_000  # the approximate-parity phase's prefix
 N_TOPICS = 4_096           # routing-table rows for the kernel check
+N_POL = 15                 # default_factories(): 11 baselines, Belady, 3 RAC
+ARENA_LEN = 12_000         # the arena's trace prefix (host-bound: its cost)
+ARENA_APPROX_LEN = 2_000   # the approximate arenas' shorter prefix
 ALPHA = 0.001
 TAU_HIT = 0.85             # CacheConfig's default hit threshold
 DEVICE = "cuda"
@@ -365,6 +388,124 @@ def check_values(rng, n: int, t: int, reps: int):
     return out
 
 
+def phase_multi(trace):
+    """The policy-stacked kernels at the arena's shapes, each against its
+    plain version and against P single-slab launches on the card."""
+    from repro_torch.kernels import decision, ref
+    from repro_torch.kernels import similarity_topk as st
+    from repro_torch.kernels.quant import quantize_rows_int8
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+    embs = np.stack([r.emb for r in trace.requests]).astype(np.float32)
+    s = len({r.cid for r in trace.requests}) // 10 + 1   # capacity + spare
+    d = embs.shape[1]
+    # each policy holds its own sample of the trace's embeddings
+    rows = np.stack([rng.choice(embs.shape[0], s, replace=False)
+                     for _ in range(N_POL)])
+    slabs = torch.from_numpy(embs[rows]).to(dev)           # (P, S, D)
+    flat = slabs.view(N_POL * s, d)
+    counts = torch.full((N_POL,), s, dtype=torch.int32, device=dev)
+    n_live = N_POL * s
+    chunk = torch.from_numpy(embs[-CHUNK:]).to(dev)
+    b1, b5 = [], []
+    for nq, reps in ((512, 10), (16, 20)):
+        q = chunk[:nq].contiguous()
+        nq = q.shape[0]
+        v, i = st.sim_top1_multi(q, slabs, counts)
+        pv, pi = ref.sim_top1_multi_ref(q, slabs, counts)
+        torch.cuda.synchronize()
+        err = float((v - pv).abs().max())
+        if not err <= SIM_TOL:
+            raise AssertionError(f"sim_top1_multi Q={nq}: max |err| {err}")
+        top2 = torch.matmul(slabs, q.T).topk(2, dim=1).values   # (P, 2, Q)
+        clear = top2[:, 0] - top2[:, 1] > 1e-4
+        if not torch.equal(i[clear], pi[clear]):
+            raise AssertionError(f"sim_top1_multi Q={nq}: argmax differs")
+        for p in range(N_POL):
+            sv, si = st.sim_top1(q, slabs[p], s)
+            if not (torch.equal(v[p], sv) and torch.equal(i[p], si)):
+                raise AssertionError(f"sim_top1_multi Q={nq}: policy {p} "
+                                     "differs from its single-slab launch")
+        nb, op = bound((nq * d + n_live * d) * 4 + N_POL * nq * 8,
+                       2.0 * nq * n_live * d)
+        b1.append({
+            "shape": f"Q={nq} P={N_POL} S={s} D={d}", "max_abs_err": err,
+            "bound_ms": nb, "bound_by": op,
+            **timings(lambda q=q: st.sim_top1_multi(q, slabs, counts),
+                      lambda q=q: ref.sim_top1_multi_ref(q, slabs, counts),
+                      lambda q=q: torch.mm(q, flat.T), reps)})
+    log(f"sim_top1_multi: bit-equal to {N_POL} single-slab launches")
+
+    c8n, csn, _ = quantize_rows_int8(flat.cpu().numpy())
+    c8 = torch.from_numpy(c8n).to(dev).view(N_POL, s, d)
+    cs = torch.from_numpy(csn).to(dev).view(N_POL, s)
+    # cuBLASLt's int8 product wants at least 17 rows and widths in 8s
+    c8t = c8.view(n_live, d)[: n_live - n_live % 8].T
+    for nq, reps in ((512, 10), (16, 20)):
+        q8n, qsn, _ = quantize_rows_int8(chunk[:nq].cpu().numpy())
+        nq = q8n.shape[0]
+        q8, qs = torch.from_numpy(q8n).to(dev), torch.from_numpy(qsn).to(dev)
+        q8p = torch.cat([q8, q8.new_zeros((max(0, 32 - nq), d))])
+
+        def run(q8=q8, qs=qs):
+            return st.sim_topk_q8_multi(q8, qs, c8, cs, counts, 8)
+        v, i = run()
+        for p in range(N_POL):
+            sv, si = st.sim_topk_q8(q8, qs, c8[p], cs[p], s, 8)
+            if not (torch.equal(v[p], sv) and torch.equal(i[p], si)):
+                raise AssertionError(f"sim_topk_q8_multi Q={nq}: policy {p} "
+                                     "differs from its single-slab launch")
+        b5.append(check_topk(
+            f"Q={nq} P={N_POL} S={s} D={d} k=8",
+            lambda run=run, nq=nq: tuple(x.view(N_POL * nq, 8)
+                                         for x in run()),
+            lambda q8=q8, qs=qs, nq=nq: tuple(
+                x.view(N_POL * nq, 8) for x in ref.sim_topk_q8_multi_ref(
+                    q8, qs, c8, cs, counts, 8)),
+            lambda q8p=q8p: torch._int_mm(q8p, c8t),
+            nq * (d + 4) + n_live * (d + 4) + N_POL * nq * 8 * 8,
+            2.0 * nq * n_live * d, PEAK_INT8, True, reps))
+    log(f"sim_topk_q8_multi: bit-equal to {N_POL} single-slab launches")
+
+    t = N_TOPICS
+    tsi = torch.from_numpy(rng.random((N_POL, s)).astype(np.float32)
+                           * 8).to(dev)
+    tid = torch.from_numpy(rng.integers(-1, t, (N_POL, s)).astype(
+        np.int32)).to(dev)
+    occ = torch.from_numpy((rng.random((N_POL, s)) < 0.97).astype(
+        np.int32)).to(dev)
+    tp = torch.from_numpy(rng.random((N_POL, t)).astype(np.float32)
+                          * 20).to(dev)
+    tl = torch.from_numpy(rng.integers(0, 60_000, (N_POL, t)).astype(
+        np.int32)).to(dev)
+    t_now = 72_000
+    vv = decision.victim_value_multi(tsi, tid, occ, tp, tl, t_now, ALPHA)
+    pv = ref.victim_value_multi_ref(tsi, tid, occ, tp, tl, t_now, ALPHA)
+    if not torch.equal(torch.isinf(vv), torch.isinf(pv)):
+        raise AssertionError("victim_value_multi: +inf masks differ")
+    fin = torch.isfinite(pv)
+    rel = float(((vv - pv).abs() / pv.abs().clamp(min=1e-30))[fin].max())
+    if not rel <= VALUE_RTOL:
+        raise AssertionError(f"victim_value_multi: rel err {rel}")
+    for p in range(N_POL):
+        one = decision.victim_value(tsi[p], tid[p], occ[p], tp[p], tl[p],
+                                    t_now, ALPHA)
+        if not torch.equal(vv[p], one):
+            raise AssertionError(f"victim_value_multi: policy {p} differs "
+                                 "from its single-table launch")
+    nb, op = bound(N_POL * (s * 16 + t * 8), 6.0 * N_POL * s)
+    b2 = [{"shape": f"P={N_POL} N={s} T={t}",
+           "max_abs_err": float((vv - pv)[fin].abs().max()),
+           "max_rel_err": rel, "bound_ms": nb, "bound_by": op,
+           **timings(lambda: decision.victim_value_multi(
+               tsi, tid, occ, tp, tl, t_now, ALPHA),
+               lambda: ref.victim_value_multi_ref(tsi, tid, occ, tp, tl,
+                                                  t_now, ALPHA),
+               None, 200)}]
+    log(f"victim_value_multi: bit-equal to {N_POL} single-table launches")
+    return b1, b5, b2
+
+
 def phase_kernels(trace):
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
@@ -497,7 +638,7 @@ def phase_approx_parity(trace):
     (they are independent and host-bound), all held to the exact events."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    reqs = trace.requests[:PARITY_LEN]
+    reqs = trace.requests[:APPROX_PARITY_LEN]
     tasks = [("exact", "kernel", DEVICE, {}, PARITY_CAP, DIM, reqs)] + [
         (name, backend, device, kw, PARITY_CAP, DIM, reqs)
         for name, kw in APPROX.items()
@@ -530,6 +671,213 @@ def phase_approx_parity(trace):
             f"wall={wall:.2f}s quant={json.dumps(snap['quant'])} "
             f"prune={json.dumps(snap['prune'])} "
             f"sync={json.dumps(snap['sync'])}")
+
+
+def prefix(trace, n: int):
+    """The first ``n`` requests as a trace of their own (copied, with
+    Belady's next-use pointers taken within the prefix) and its capacity:
+    10% of its unique contents."""
+    import dataclasses
+    from repro_torch.core.types import Trace
+    reqs = [dataclasses.replace(r) for r in trace.requests[:n]]
+    sub = Trace(requests=reqs, n_topics=trace.n_topics,
+                meta=dict(trace.meta)).with_next_use()
+    return sub, len({r.cid for r in reqs}) // 10
+
+
+def _counts(stats) -> list:
+    return [(s.policy, s.hits, s.misses, s.evictions) for s in stats]
+
+
+def _arena_replay(task):
+    """One arena replay in a worker process: per-policy counts, wall, the
+    stacked kernels' launches and the approximate ledgers."""
+    name, backend, device, approx, sub, cap = task
+    from repro_torch.cache import backends
+    from repro_torch.core import default_factories, run_arena
+    from repro_torch.kernels import similarity_topk as st
+    made = []
+    get_backend = backends.get_backend
+
+    def keep(*a, **kw):
+        made.append(get_backend(*a, **kw))
+        return made[-1]
+    st.multi_launches = st.topk_q8_multi_launches = 0
+    backends.get_backend = keep
+    try:
+        t0 = time.perf_counter()
+        stats = run_arena(sub, cap, default_factories(seed=0),
+                          hit_mode="semantic", tau_hit=TAU_HIT,
+                          backend=backend, device=device, chunk=CHUNK,
+                          **approx)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        backends.get_backend = get_backend
+    be = made[0]
+    return (name, backend, _counts(stats), wall,
+            {"sim_top1_multi": st.multi_launches,
+             "sim_topk_q8_multi": st.topk_q8_multi_launches},
+            {"quant": be.quant_stats, "prune": be.prune_stats})
+
+
+@contextlib.contextmanager
+def _workers(n: int, blas_threads: int):
+    """A spawn pool of ``n`` workers with ``blas_threads`` BLAS threads
+    each (they share the host's cores with this process)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    keys = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: str(blas_threads) for k in keys})
+    try:
+        with ProcessPoolExecutor(
+                max_workers=n,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            yield pool
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def stacked_victims(policies, views, t_now: int):
+    """B2-multi over the RAC variants' final tables (one launch), each
+    policy's row held to its single-table launch and to the plain
+    version."""
+    from repro_torch.kernels import decision, ops, ref
+    dev = torch.device(DEVICE)
+    alpha = policies[0].alpha
+    if any(p.alpha != alpha for p in policies):
+        raise AssertionError("the RAC variants' alphas differ")
+    t = max(p.table.tp_last.shape[0] for p in policies)
+
+    def stack(arrs, dtype, width=None):
+        out = np.zeros((len(arrs), width or arrs[0].shape[0]), dtype)
+        for j, a in enumerate(arrs):
+            out[j, :a.shape[0]] = a
+        return torch.from_numpy(out).to(dev)
+    tsi = stack([p.table.tsi for p in policies], np.float32)
+    tid = stack([p.table.topic_of for p in policies], np.int32)
+    occ = stack([v.occ for v in views], np.int32)
+    tp = stack([p.table.tp_last for p in policies], np.float32, t)
+    tl = stack([p.table.t_last for p in policies], np.int32, t)
+    vv = ops.victim_value_multi(tsi, tid, occ, tp, tl, t_now, alpha=alpha)
+    pv = ref.victim_value_multi_ref(tsi, tid, occ, tp, tl, t_now, alpha)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isinf(vv), torch.isinf(pv)):
+        raise AssertionError("stacked victims: +inf masks differ")
+    fin = torch.isfinite(pv)
+    rel = float(((vv - pv).abs() / pv.abs().clamp(min=1e-30))[fin].max())
+    if not rel <= VALUE_RTOL:
+        raise AssertionError(f"stacked victims: rel err {rel}")
+    for j in range(len(policies)):
+        one = decision.victim_value(tsi[j], tid[j], occ[j], tp[j], tl[j],
+                                    t_now, alpha)
+        if not torch.equal(vv[j], one):
+            raise AssertionError(f"stacked victims: policy {j} differs")
+    log(f"arena: stacked victim values of {len(policies)} RAC tables "
+        f"(N={tsi.shape[1]}, T={t}) match single launches, rel err {rel}")
+
+
+def phase_arena(trace):
+    """The 15-policy arena on the card against the host oracle (run at the
+    same time in a worker), then the approximate arenas on a shorter
+    prefix against the exact one."""
+    from repro_torch.core import default_factories, run_arena
+    from repro_torch.kernels import decision, ops, rac_value
+    from repro_torch.kernels import similarity_topk as st
+    sub, cap = prefix(trace, ARENA_LEN)
+    n_chunks = -(-len(sub.requests) // CHUNK)
+    log(f"arena: {N_POL} policies, {len(sub.requests)} requests, capacity "
+        f"{cap}, chunk {CHUNK}, D={DIM}")
+    kept = []
+
+    def keeping(f):
+        def make(capacity, store):
+            kept.append((f(capacity, store), store))
+            return kept[-1][0]
+        return make
+    facs = {n: keeping(f) for n, f in default_factories(seed=0).items()}
+    with _workers(1, 4) as pool:
+        oracle = pool.submit(_arena_replay,
+                             ("exact", "numpy", "cpu", {}, sub, cap))
+        counters = ((st, "multi_launches"), (st, "topk_q8_multi_launches"),
+                    (st, "launches"), (decision, "multi_launches"),
+                    (rac_value, "launches"))
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        d0 = dict(ops.dispatch_stats)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = run_arena(sub, cap, facs, hit_mode="semantic",
+                          tau_hit=TAU_HIT, backend="kernel", device=DEVICE,
+                          chunk=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        disp = {k: ops.dispatch_stats[k] - d0[k] for k in d0}
+        peak = torch.cuda.max_memory_allocated()
+        rac = [(pol, v) for pol, v in kept if hasattr(pol, "table")]
+        stacked_victims([p for p, _ in rac], [v for _, v in rac],
+                        sub.requests[-1].t)
+        launches = {f"{mod.__name__.split('.')[-1]}.{attr}":
+                    getattr(mod, attr) for mod, attr in counters}
+        _, _, want, oracle_wall, _, _ = oracle.result()
+    got = _counts(stats)
+    n = len(sub.requests)
+    log(f"arena card: wall={wall:.2f}s ({N_POL * n / wall:.0f} "
+        f"policy-requests/s), host oracle wall={oracle_wall:.2f}s")
+    log(f"arena card: dispatch={json.dumps(disp)} per chunk: dispatches "
+        f"{disp['launches'] / n_chunks:.2f}, host syncs "
+        f"{disp['host_syncs'] / n_chunks:.2f}; kernel launches "
+        f"{json.dumps(launches)} kernel_share_of_wall="
+        f"{disp['kernel_s'] / wall:.4f} peak_device_bytes={peak}")
+    log("arena hit ratios: " + json.dumps(
+        {p: round(h / n, 6) for p, h, _, _ in got}))
+    if got != want:
+        bad = [(a, b) for a, b in zip(got, want) if a != b]
+        raise AssertionError(f"arena: card and host oracle differ: {bad}")
+    if any(e == 0 or h == 0 for _, h, _, e in got):
+        raise AssertionError("arena: a policy made no hits or evictions")
+    if launches["similarity_topk.multi_launches"] != n_chunks:
+        raise AssertionError(f"arena: {launches} stacked launches for "
+                             f"{n_chunks} chunks")
+    log(f"arena: {N_POL} policies' hits, misses and evictions identical on "
+        f"the card and the host oracle over {n} requests")
+
+    # the approximate arenas on a shorter prefix, against the exact one,
+    # side by side (host-bound: each rescans its flagged queries one by
+    # one, the quantized ones through the fused lookup)
+    sub2, cap2 = prefix(trace, ARENA_APPROX_LEN)
+    n_chunks2 = -(-len(sub2.requests) // CHUNK)
+    tasks = [(name, "kernel", DEVICE, kw, sub2, cap2) for name, kw in (
+        ("exact", {}), ("quantized", {"quantized": True}),
+        ("pruned", {"pruned": True}),
+        ("both", {"quantized": True, "pruned": True}))]
+    with _workers(len(tasks), 1) as pool:
+        results = list(pool.map(_arena_replay, tasks))
+    exact = results[0][2]
+    for name, _, cnt, w, kl, ledgers in results:
+        log(f"arena {name}: {len(sub2.requests)} requests, capacity {cap2}, "
+            f"wall={w:.2f}s launches={json.dumps(kl)} "
+            f"quant={json.dumps(ledgers['quant'])} "
+            f"prune={json.dumps(ledgers['prune'])}")
+        if cnt != exact:
+            bad = [(a, b) for a, b in zip(cnt, exact) if a != b]
+            raise AssertionError(f"arena {name}: Stats differ from the "
+                                 f"exact arena's: {bad}")
+    q8_launches = results[1][4]["sim_topk_q8_multi"]
+    if q8_launches != n_chunks2:
+        raise AssertionError(f"arena quantized: {q8_launches} stacked int8 "
+                             f"launches for {n_chunks2} chunks")
+    log(f"arena: the quantized, pruned and composed arenas made the exact "
+        f"arena's Stats for all {N_POL} policies")
+    return {"sim_top1_multi": launches["similarity_topk.multi_launches"],
+            "victim_value_multi": launches["decision.multi_launches"],
+            "sim_topk_q8_multi": q8_launches}
 
 
 def phase_main(trace):
@@ -720,11 +1068,14 @@ def main():
         f"{len({r.cid for r in trace.requests})} unique, D={DIM} "
         f"({time.perf_counter() - t0:.1f}s)")
     sim, values, (b4, b5, b1d) = phase_kernels(trace)
+    m1, m5, m2 = phase_multi(trace)
     log(f"kernels: {time.perf_counter() - t_start:.1f}s")
     phase_parity(trace)
     log(f"parity: {time.perf_counter() - t_start:.1f}s")
     phase_approx_parity(trace)
     log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
+    arena = phase_arena(trace)
+    log(f"arena: {time.perf_counter() - t_start:.1f}s")
     launches, warm = phase_main(trace)
     log(f"main: {time.perf_counter() - t_start:.1f}s")
     approx = phase_approx_main(trace, warm)
@@ -757,7 +1108,16 @@ def main():
             "the slab's first 65,536 rows)"),
         row("sim_top1 (device n_valid)", "sim_top1.cu",
             "similarity_topk.py:67", approx["dev_n_valid_launches"], b1d,
-            "torch.mm (product only, IEEE fp32)")]
+            "torch.mm (product only, IEEE fp32)"),
+        row("sim_top1_multi", "sim_top1.cu", "ops.py:306",
+            arena["sim_top1_multi"], m1,
+            "torch.mm over the flat (P*S, D) slab (product only, IEEE fp32)"),
+        row("sim_topk_q8_multi", "sim_topk.cu", "ops.py:260",
+            arena["sim_topk_q8_multi"], m5,
+            "torch._int_mm over the flat (P*S, D) int8 slab (product only; "
+            "Q padded to 32 rows at Q=16, the first rows in 8s)"),
+        row("victim_value_multi", "victim_value.cu", "decision.py:79",
+            arena["victim_value_multi"], m2, None)]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -48,12 +48,16 @@ for lookups of at most ``fused_max_batch`` queries.  Decisions are those
 of the exact scan by construction: every approximate result is certified
 or rescanned exactly.
 
-The policy-stacked arena surface (``top1_multi``) and the sharded backend
-are not ported yet; asking for them raises ``NotImplementedError`` (see
-``ROADMAP.md``).
+Both also serve the multi-policy arena (:mod:`repro_torch.core.arena`):
+``top1_multi`` scores a query chunk against every policy's slab of an
+``ArenaStore`` — on the kernel backend with ONE policy-stacked kernel
+launch (``sim_top1_multi``; ``sim_topk_q8_multi`` when quantized), and on
+the numpy backend with one host gemm.  The sharded backend is not ported
+yet; asking for it raises ``NotImplementedError`` (``ROADMAP.md`` A10).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
@@ -125,6 +129,15 @@ class LookupBackend(Protocol):
         """Fused snapshot decision scoring for a (B, D) query block: hit
         Top-1 + routing Top-1 + masked Eq. 1 victim values in one launch.
         ``table=None`` (table-less policies) degrades to hit Top-1 only."""
+        ...
+
+    def top1_multi(self, arena, queries: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """Policy-stacked Top-1 over an :class:`~repro_torch.core.arena.
+        ArenaStore`'s (P, S, D) slab — the multi-policy arena's snapshot
+        scoring surface.  Returns ((P, B) cids, (P, B) sims); each row is
+        the answer :meth:`top1_batch` would give for that policy's store
+        view."""
         ...
 
 
@@ -228,11 +241,14 @@ class NumpyBackend:
         self.quantized = as_quantized_config(quantized)
         self.quant_stats = new_quant_stats()
         self._qhost = QuantizedSlabMirror()
+        self._qhost_arena = QuantizedSlabMirror()
         # topic-pruned two-stage scan: the facade wires route_table and
-        # route_store when the acting policy exposes a PolicyTable
+        # route_store when the acting policy exposes a PolicyTable;
+        # run_arena wires route_tables (one per policy)
         self.pruned = as_pruned_config(pruned)
         self.prune_stats = new_prune_stats()
         self._pidx = TopicBucketIndex()
+        self._pidx_arena: dict[int, TopicBucketIndex] = {}
         self.route_table = None
         self.route_store = None
 
@@ -383,8 +399,113 @@ class NumpyBackend:
         sims[:, :kk] = vals
         return cids, sims
 
-    def top1_multi(self, arena, queries):
-        raise _not_ported("the policy-stacked arena (top1_multi)", "8")
+    def top1_multi(self, arena, queries: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """Host stacked pass: ONE (B, P*S) gemm scores the chunk against
+        every policy's slab.  Free slots hold zero embeddings, so instead
+        of masking, a zero row that wins maps to cid -1 → ``-inf`` — the
+        same *decision* the masked per-view scan makes (a zero can only
+        win when every real similarity is negative, far below any sensible
+        ``tau_hit``); gate-adjacent outcomes are re-scored by the
+        reference engine via the arena's epsilon flags."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if self.pruned is not None:
+            out = self._top1_multi_pruned(arena, queries)
+            if out is not None:
+                return out
+        if self.quantized is not None:
+            return self._top1_multi_quantized(arena, queries)
+        b = queries.shape[0]
+        n_pol, n_slots = arena.occ.shape
+        flat = arena.emb.reshape(n_pol * n_slots, -1)
+        sims3 = (queries @ flat.T).reshape(b, n_pol, n_slots)
+        idx = sims3.argmax(axis=2)                        # (B, P)
+        vals = np.take_along_axis(sims3, idx[:, :, None],
+                                  axis=2)[:, :, 0]        # (B, P)
+        cids = arena.cid[np.arange(n_pol)[None, :], idx].T.copy()
+        sims = np.where(cids >= 0, vals.T.astype(np.float64), -np.inf)
+        return cids, sims
+
+    def _top1_multi_quantized(self, arena, queries: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Stacked host oracle of the quantized arena scan: one int8 gemm
+        over the flat (P*S, D) mirror, then the shared per-policy
+        rescore/certify driver against each policy's store view."""
+        if not arena.track_rows:
+            raise ValueError("quantized top1_multi needs an ArenaStore "
+                             "built with track_rows=True")
+        b = queries.shape[0]
+        n_pol, n_slots = arena.occ.shape
+        dim = arena.emb.shape[-1]
+        qm = self._qhost_arena.sync(
+            arena.version, arena.dirty_since,
+            arena.emb.reshape(n_pol * n_slots, dim))
+        q8, qs, ql1 = quantize_rows_int8(queries)
+        scores3 = ((int8_scores(q8, qm.q8)
+                    * qs[:, None]) * qm.scale[None, :]
+                   ).reshape(b, n_pol, n_slots)
+        scale2 = qm.scale.reshape(n_pol, n_slots)
+        l12 = qm.l1.reshape(n_pol, n_slots)
+        hwms = arena.hwms()
+        k_cfg = self.quantized.k
+        out_c = np.full((n_pol, b), -1, dtype=np.int64)
+        out_s = np.full((n_pol, b), -np.inf)
+        for p in range(n_pol):
+            hw = int(hwms[p])
+            if hw == 0:
+                continue
+            vals, order = _sorted_topk(scores3[:, p, :hw], min(k_cfg, hw))
+            eps = scan_margin(qs, ql1, scale2[p], l12[p], dim)
+            view = arena.views[p]
+            cids, sims, n_fb, n_union = resolve_topk(
+                vals, order, eps, k_cfg >= hw, self.quantized.tau_hit,
+                lambda rows, v=view: self.top1_rows(v, queries, rows),
+                lambda sel, v=view: self._top1_batch_exact(v, queries[sel]))
+            account_scan(self.quant_stats, n_valid=hw, dim=dim, batch=b,
+                         n_union=n_union, n_fallback=n_fb)
+            out_c[p], out_s[p] = cids, sims
+        return out_c, out_s
+
+    def _top1_multi_pruned(self, arena, queries: np.ndarray
+                           ) -> Optional[tuple]:
+        """Per-policy pruned pass over the arena's store views: each
+        table-backed policy runs the two-stage driver against its own
+        :class:`TopicBucketIndex`; table-less policies take a per-view
+        exact scan (same per-row dots as the stacked gemm).  Returns
+        ``None`` when ``run_arena`` didn't wire ``route_tables``."""
+        tables = getattr(self, "route_tables", None)
+        if tables is None:
+            return None
+        if not arena.track_rows:
+            raise ValueError("pruned top1_multi needs an ArenaStore "
+                             "built with track_rows=True")
+        b = queries.shape[0]
+        n_pol = arena.occ.shape[0]
+        dim = arena.emb.shape[-1]
+        probes = self.pruned.probes
+        out_c = np.full((n_pol, b), -1, dtype=np.int64)
+        out_s = np.full((n_pol, b), -np.inf)
+        for p in range(n_pol):
+            view = arena.views[p]
+            if not view.slot_of:
+                continue
+            table = tables[p] if p < len(tables) else None
+            if table is None:
+                cids, sims = self._top1_batch_exact(view, queries)
+            else:
+                idx = self._pidx_arena.setdefault(p, TopicBucketIndex())
+                cids, sims = pruned_top1_batch(
+                    view, table, queries, self.pruned, idx,
+                    self.prune_stats,
+                    route_fn=lambda qs, aug, nt: route_topics_host(
+                        qs, aug, nt, probes),
+                    scan_fn=lambda sel, rows, v=view: (
+                        *self.top1_rows(v, queries[sel], rows),
+                        rows.size * dim * 4),
+                    exact_fn=lambda sel, v=view: self._top1_batch_exact(
+                        v, queries[sel]))
+            out_c[p], out_s[p] = cids, sims
+        return out_c, out_s
 
     def rac_value(self, tsi, tids, tp_last, t_last, alpha, t_now):
         decay = 0.5 ** (alpha * (t_now - t_last[tids]))
@@ -439,6 +560,13 @@ class KernelBackend:
     therefore moves O(mutated rows) per chunk, not O(capacity), and every
     scan — full slab, gathered candidates, rescored union — reads its rows
     from a mirror instead of uploading them.
+
+    The multi-policy arena mirrors its stacked slab as one flat (P*S, D)
+    tensor (fp32, and int8 for the quantized arena) against the arena's
+    flat journal; ``top1_multi`` scores a chunk against all P slabs with
+    one policy-stacked kernel launch, and single-store calls on an arena
+    view (the flagged rescans, the rescore legs) read the view's rows of
+    that same mirror.
     """
 
     name = "kernel"
@@ -458,6 +586,9 @@ class KernelBackend:
         self.pruned = as_pruned_config(pruned)
         self.prune_stats = new_prune_stats()
         self._pidx = TopicBucketIndex()
+        # run_arena wires route_tables (one per policy) and each policy
+        # gets its own bucket index
+        self._pidx_arena: dict[int, TopicBucketIndex] = {}
         self.route_table = None
         self.route_store = None
         dev = self.device
@@ -481,6 +612,16 @@ class KernelBackend:
         # version (unassigned-only churn doesn't move the aug journal)
         self._csr_mirror = _DeviceMirror({"indptr": np.int32,
                                           "slots": np.int32}, dev)
+        # the arena's stacked slab, flat (P*S, D), synced against its flat
+        # journal; its int8 twin for the quantized arena; per-policy CSR
+        # and routing-matrix mirrors for the pruned arena
+        self._arena_mirror = _DeviceMirror({"emb": np.float32}, dev)
+        self._qhost_arena = QuantizedSlabMirror()
+        self._q8_arena_mirror = _DeviceMirror({"q8": np.int8,
+                                               "scale": np.float32,
+                                               "l1": np.float32}, dev)
+        self._csr_arena: dict[int, _DeviceMirror] = {}
+        self._route_arena: dict[int, _DeviceMirror] = {}
         self._tracker = None                # telemetry sink (observation-only)
         self._sync_seen: dict[str, int] = {}   # last sync_stats flushed to it
 
@@ -512,7 +653,9 @@ class KernelBackend:
         """Aggregate mirror observability: full uploads vs dirty-row
         copies, total rows copied, and host→device bytes moved."""
         mirrors = (self._store_mirror, self._slot_mirror, self._topic_mirror,
-                   self._route_mirror, self._q8_mirror, self._csr_mirror)
+                   self._route_mirror, self._q8_mirror, self._csr_mirror,
+                   self._arena_mirror, self._q8_arena_mirror,
+                   *self._csr_arena.values(), *self._route_arena.values())
         return {k: sum(m.stats[k] for m in mirrors)
                 for k in ("full", "incremental", "rows", "bytes")}
 
@@ -523,13 +666,53 @@ class KernelBackend:
         Process-global — consumers read deltas."""
         return dict(ops.dispatch_stats)
 
+    @staticmethod
+    def _arena_rows(store):
+        """``(arena, rows)`` when ``store`` is a view of a row-tracked
+        arena — its rows are then read from the arena's mirrors, so the
+        P views never fight over the single-store mirror — else None."""
+        arena = getattr(store, "_arena", None)
+        if arena is None or not arena.track_rows:
+            return None
+        n = arena.n_slots
+        return arena, slice(store._p * n, (store._p + 1) * n)
+
+    def _arena_flat(self, arena) -> torch.Tensor:
+        """The arena's flat (P*S, D) slab on the device, freshened by
+        dirty-row copies against the arena's flat journal."""
+        n_pol, n_slots, dim = arena.emb.shape
+        return self._arena_mirror.sync(
+            arena.version, arena.dirty_since,
+            lambda: {"emb": arena.emb.reshape(n_pol * n_slots, dim)})["emb"]
+
+    def _arena_q8(self, arena):
+        """The arena's flat host int8 mirror and its device copy."""
+        n_pol, n_slots, dim = arena.emb.shape
+        qm = self._qhost_arena.sync(arena.version, arena.dirty_since,
+                                    arena.emb.reshape(n_pol * n_slots, dim))
+        dev = self._q8_arena_mirror.sync(
+            arena.version, arena.dirty_since,
+            lambda: {"q8": qm.q8, "scale": qm.scale, "l1": qm.l1})
+        return qm, dev
+
     def _slab(self, store: ResidentStore) -> dict:
+        view = self._arena_rows(store)
+        if view is not None:
+            arena, rows = view
+            return {"emb": self._arena_flat(arena)[rows]}
         return self._store_mirror.sync(
             store.version, store.dirty_since,
             lambda: {"emb": store.emb, "occ": store.occ})
 
     def _q8(self, store: ResidentStore):
         """The host int8 mirror and its device copy, both freshened."""
+        view = self._arena_rows(store)
+        if view is not None:
+            arena, rows = view
+            qm, dev = self._arena_q8(arena)
+            return (SimpleNamespace(q8=qm.q8[rows], scale=qm.scale[rows],
+                                    l1=qm.l1[rows]),
+                    {k: v[rows] for k, v in dev.items()})
         qm = self._qhost.sync(store.version, store.dirty_since, store.emb)
         dev = self._q8_mirror.sync(
             store.version, store.dirty_since,
@@ -686,7 +869,7 @@ class KernelBackend:
                 self._tracker, "fused_quant")
         win, rmax, cert, n_u = ops.to_host_tuple(out)
         cids, sims, n_fb = self._fused_results(
-            store, queries, win[:b], rmax[:b], cert[:b],
+            win[:b], rmax[:b], cert[:b], store.cid, n_slots,
             lambda sel: self._top1_batch_exact(store, queries[sel]))
         account_scan(self.quant_stats, n_valid=store.hwm, dim=dim, batch=b,
                      n_union=int(n_u.reshape(-1)[0]), n_fallback=n_fb)
@@ -694,14 +877,17 @@ class KernelBackend:
         return cids, sims
 
     @staticmethod
-    def _fused_results(store, queries, win, rmax, cert, exact_fn):
-        """Map a fused call's winner slots to cids (the ``n_slots``
-        sentinel: no finite score) and exact-rescan the uncertified rows;
-        returns ``(cids, sims, n_fallback)``."""
-        n_slots = store.emb.shape[0]
-        win = win.astype(np.int64)
-        ok = win < n_slots
-        cids = np.where(ok, store.cid[np.minimum(win, n_slots - 1)], -1)
+    def _fused_results(win, rmax, cert, cid_arr, n_slots: int, exact_fn,
+                       slot_off: int = 0):
+        """Map a fused call's winner rows to cids and exact-rescan the
+        uncertified rows; returns ``(cids, sims, n_fallback)``.  A winner
+        is row ``slot_off + slot`` of the scanned slab (``slot_off`` > 0
+        for an arena view inside the flat (P*S, D) slab); anything outside
+        the view's ``n_slots`` — the sentinel past the slab's last row —
+        had no finite score."""
+        local = win.astype(np.int64) - slot_off
+        ok = (local >= 0) & (local < n_slots)
+        cids = np.where(ok, cid_arr[np.clip(local, 0, n_slots - 1)], -1)
         sims = np.where(cids >= 0, rmax.astype(np.float64), -np.inf)
         certm = cert.astype(bool)
         n_fb = int(certm.size - np.count_nonzero(certm))
@@ -724,14 +910,24 @@ class KernelBackend:
                                        lambda: {"aug": idx.aug})
         return self._fused_pruned_call(
             store, table, queries, cfg, idx, emb_dev=self._slab(store)["emb"],
-            q8_dev=q8d, aug_dev=augd["aug"])
+            q8_dev=q8d, aug_dev=augd["aug"], csr_mirror=self._csr_mirror,
+            slot_off=0, n_slots=store.emb.shape[0], cid_arr=store.cid,
+            exact_fn=lambda sel: self._top1_batch_exact(store,
+                                                        queries[sel]),
+            stats=self.prune_stats)
 
     def _fused_pruned_call(self, store, table, queries: np.ndarray, cfg,
-                           idx, *, emb_dev, q8_dev, aug_dev):
-        """Fused pruned driver: prep the static shape buckets, make ONE
-        fused call covering routing → probe cap → CSR gather → int8 scan →
-        fp32 union rescore → safety predicates with one host sync, then
-        map winners/fallbacks and ledger on the host."""
+                           idx, *, emb_dev, q8_dev, aug_dev, csr_mirror,
+                           slot_off: int, n_slots: int, cid_arr, exact_fn,
+                           stats: dict):
+        """Shared fused-pruned driver (single stores and arena views):
+        prep the static shape buckets, make ONE fused call covering
+        routing → probe cap → CSR gather → int8 scan → fp32 union rescore
+        → safety predicates with one host sync, then map winners/fallbacks
+        and ledger on the host.  ``slot_off`` shifts the CSR slot ids into
+        the flat (P*S, D) arena slab that ``emb_dev``/``q8_dev`` hold;
+        ``n_slots`` is the per-view slot count winners map back into (the
+        sentinel row lands outside it)."""
         b, dim = queries.shape
         probes = int(cfg.probes)
         indptr_h, slot_ids, unassigned = idx.csr()
@@ -742,10 +938,11 @@ class KernelBackend:
                          int(cfg.max_scan_frac * store.hwm))
         cap_c = fused.candidate_cap(np.diff(indptr_h), unassigned.size,
                                     probes, budget)
-        csr = self._csr_mirror.sync(
-            (idx.key, t_rows), lambda v: None,
+        csr = csr_mirror.sync(
+            (idx.key, t_rows, slot_off), lambda v: None,
             lambda: dict(zip(("indptr", "slots"), fused.csr_device_arrays(
-                indptr_h, slot_ids, unassigned, t_rows))))
+                indptr_h, slot_ids + slot_off, unassigned + slot_off,
+                t_rows))))
         # pow2 bucket, floor 1: every padded row pays a full cap_c-row
         # gather, and the serving path is b=1
         qp, q8q, qsc, ql1 = (
@@ -764,14 +961,14 @@ class KernelBackend:
         win, rmax, ub, cert, total, probed, capped, n_u = \
             ops.to_host_tuple(out)
         cids, sims, n_fb = self._fused_results(
-            store, queries, win[:b], rmax[:b], cert[:b],
-            lambda sel: self._top1_batch_exact(store, queries[sel]))
+            win[:b], rmax[:b], cert[:b], cid_arr, n_slots, exact_fn,
+            slot_off)
         tot = int(total[:b].sum())
         ncap = int(capped[:b].sum())
         # gathered int8 candidate bytes (codes + scale + l1) + the fp32
         # union-rescore gather
         slab_bytes = tot * (dim + 8) + int(n_u.reshape(-1)[0]) * dim * 4
-        account_prune(self.prune_stats, n_valid=int(store.hwm), dim=dim,
+        account_prune(stats, n_valid=int(store.hwm), dim=dim,
                       n_topics=int(table.topic_hwm), batch=b,
                       probes=int(probed[:b].sum()), scanned_rows=tot,
                       slab_bytes=slab_bytes, n_fallback=n_fb,
@@ -859,8 +1056,161 @@ class KernelBackend:
         out_s[:, :kk] = np.where(finite, vals, -np.inf)
         return out_c, out_s
 
-    def top1_multi(self, arena, queries):
-        raise _not_ported("the policy-stacked arena (top1_multi)", "8")
+    def top1_multi(self, arena, queries: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """Stacked device pass: ONE ``sim_top1_multi`` launch scores the
+        query chunk against all P policy slabs, each masked to its own
+        high-water mark (a (P,) count the kernel reads on the card).  The
+        flat (P*S, D) slab is mirrored against the arena's flat journal
+        (dirty-row copies), so steady-state chunks move O(mutations) rows
+        for the whole arena."""
+        if not arena.track_rows:
+            # host-only arenas skip journaling entirely; a version-keyed
+            # mirror would silently serve stale rows
+            raise ValueError("KernelBackend.top1_multi needs an ArenaStore "
+                             "built with track_rows=True")
+        queries = np.asarray(queries, dtype=np.float32)
+        n_pol, n_slots, dim = arena.emb.shape
+        # an empty arena launches too (every count is 0, so each row comes
+        # back as a miss): one stacked launch per chunk, always
+        if self.pruned is not None:
+            out = self._top1_multi_pruned(arena, queries)
+            if out is not None:
+                return out
+        if self.quantized is not None:
+            return self._top1_multi_quantized(arena, queries)
+        flat = self._arena_flat(arena)
+        qd = self._tensor(queries, np.float32)
+        with annotate("rac/sim_top1_multi"):
+            vals, idx = ops.run_timed(
+                lambda: ops.sim_top1_multi(
+                    qd, flat.view(n_pol, n_slots, dim),
+                    n_valid=self._tensor(arena.hwms(), np.int32)),
+                self._tracker, "sim_top1_multi")
+        vals, idx = ops.to_host_tuple((vals, idx))
+        cids = arena.cid[np.arange(n_pol)[:, None], idx].copy()
+        # a free (zeroed) slot can only win when all real sims < 0 → miss
+        sims = np.where(cids >= 0, vals.astype(np.float64), -np.inf)
+        self._flush_sync()
+        return cids, sims
+
+    def _top1_multi_quantized(self, arena, queries: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Stacked quantized arena scan: ONE ``sim_topk_q8_multi`` launch
+        streams every policy's int8 slab (the 4x byte saving multiplied
+        by P), then each policy's survivors are rescored and certified
+        against its own store view — per-row kernel-score independence
+        makes each policy's shortlist the one its single-slab launch would
+        have produced."""
+        b = queries.shape[0]
+        n_pol, n_slots, dim = arena.emb.shape
+        qm, dev = self._arena_q8(arena)
+        q8, qs, ql1 = quantize_rows_int8(queries)
+        k = self.quantized.k
+        hwms = arena.hwms()
+        with annotate("rac/sim_topk_q8_multi"):
+            vals, idx = ops.run_timed(
+                lambda: ops.sim_topk_q8_multi(
+                    self._tensor(q8, np.int8), self._tensor(qs, np.float32),
+                    dev["q8"].view(n_pol, n_slots, dim),
+                    dev["scale"].view(n_pol, n_slots), k,
+                    n_valid=self._tensor(hwms, np.int32)),
+                self._tracker, "sim_topk_q8_multi")
+        vals, rows = ops.to_host_tuple((vals, idx))
+        vals = vals.astype(np.float64)
+        scale2 = qm.scale.reshape(n_pol, n_slots)
+        l12 = qm.l1.reshape(n_pol, n_slots)
+        out_c = np.full((n_pol, b), -1, dtype=np.int64)
+        out_s = np.full((n_pol, b), -np.inf)
+        for p in range(n_pol):
+            hw = int(hwms[p])
+            if hw == 0:
+                continue
+            eps = scan_margin(qs, ql1, scale2[p], l12[p], dim)
+            view = arena.views[p]
+            cids, sims, n_fb, n_union = resolve_topk(
+                vals[p], rows[p], eps, k >= hw, self.quantized.tau_hit,
+                lambda r, v=view: self.top1_rows(v, queries, r),
+                lambda sel, v=view: self._top1_batch_exact(v, queries[sel]))
+            account_scan(self.quant_stats, n_valid=hw, dim=dim, batch=b,
+                         n_union=n_union, n_fallback=n_fb)
+            out_c[p], out_s[p] = cids, sims
+        self._flush_sync()
+        return out_c, out_s
+
+    def _top1_multi_pruned(self, arena, queries: np.ndarray
+                           ) -> Optional[tuple]:
+        """Per-policy pruned pass over the arena's store views: each
+        table-backed policy runs the two-stage driver against its own
+        :class:`TopicBucketIndex` — fused (one call per policy over the
+        flat arena mirrors, its CSR slot ids shifted by ``p*S``) or staged
+        — and table-less policies take a per-view exact kernel scan (the
+        same per-row dots as the stacked launch).  Returns ``None`` when
+        ``run_arena`` didn't wire ``route_tables``."""
+        tables = getattr(self, "route_tables", None)
+        if tables is None:
+            return None
+        b = queries.shape[0]
+        n_pol, n_slots, dim = arena.emb.shape
+        cfg = self.pruned
+        fused_on = cfg.fused and cfg.probes >= 1
+        if fused_on:
+            # one flat (P*S, D) fp32 + int8 mirror pair serves every
+            # policy's fused call
+            flat = self._arena_flat(arena)
+            _, q8d = self._arena_q8(arena)
+        out_c = np.full((n_pol, b), -1, dtype=np.int64)
+        out_s = np.full((n_pol, b), -np.inf)
+        for p in range(n_pol):
+            view = arena.views[p]
+            if not view.slot_of:
+                continue
+            table = tables[p] if p < len(tables) else None
+            if table is None:
+                out_c[p], out_s[p] = self._top1_batch_exact(view, queries)
+                continue
+
+            def exact(sel, v=view):
+                return self._top1_batch_exact(v, queries[sel])
+
+            idx = self._pidx_arena.setdefault(p, TopicBucketIndex())
+            route_m = self._route_arena.setdefault(
+                p, _DeviceMirror({"aug": np.float32}, self.device))
+
+            def aug_dev(idx=idx, route_m=route_m):
+                return route_m.sync(idx.version, idx.dirty_since,
+                                    lambda: {"aug": idx.aug})["aug"]
+
+            if fused_on and table.rep.shape[0] >= 1 and view.hwm > 0:
+                idx.sync(view, table)
+                csr_m = self._csr_arena.setdefault(
+                    p, _DeviceMirror({"indptr": np.int32,
+                                      "slots": np.int32}, self.device))
+                cids, sims = self._fused_pruned_call(
+                    view, table, queries, cfg, idx, emb_dev=flat,
+                    q8_dev=q8d, aug_dev=aug_dev(), csr_mirror=csr_m,
+                    slot_off=p * n_slots, n_slots=n_slots, cid_arr=view.cid,
+                    exact_fn=exact, stats=self.prune_stats)
+            else:
+                def route(qs, aug, n_top, aug_dev=aug_dev):
+                    with annotate("rac/route_topics"):
+                        vals, tids = ops.run_timed(
+                            lambda: ops.route_topics(
+                                self._tensor(qs, np.float32), aug_dev(),
+                                cfg.probes, n_valid=n_top),
+                            self._tracker, "route_topics")
+                    return ops.to_host_tuple((vals, tids))
+
+                cids, sims = pruned_top1_batch(
+                    view, table, queries, cfg, idx, self.prune_stats,
+                    route_fn=route,
+                    scan_fn=lambda sel, rows, v=view: (
+                        *self.top1_rows(v, queries[sel], rows),
+                        rows.size * dim * 4),
+                    exact_fn=exact)
+            out_c[p], out_s[p] = cids, sims
+        self._flush_sync()
+        return out_c, out_s
 
     def _value_args(self, tsi, tids, tp_last, t_last, t_now):
         # shift timestamps so t_now is 0: the kernel sees

@@ -31,7 +31,12 @@ exactness is modulo float-exact similarity ties between distinct
 embeddings, which the synthetic geometry excludes).  Content mode needs no
 similarity work and simply delegates.
 
-Both drivers default to the ``"kernel"`` backend on the card
+``run_many`` runs a dict of policies under identical settings, one after
+the other or (``arena=True``) in one pass of the policy arena
+(:mod:`repro_torch.core.arena`); ``default_factories`` is the paper's
+baseline set plus the RAC variants.
+
+Every driver defaults to the ``"kernel"`` backend on the card
 (``device="cuda"``); pass ``device="cpu"`` to run the kernels' plain
 versions, or ``backend="numpy"`` for the host oracle.
 """
@@ -61,8 +66,11 @@ _EPS = 1e-4
 def with_seed(factory: PolicyFactory, seed: int | None) -> PolicyFactory:
     """Bind a deterministic ``seed`` into a policy factory.
 
-    Factories that expose a ``seed`` parameter get it bound; plain
-    ``(capacity, store)`` factories pass through untouched."""
+    Factories that expose a ``seed`` parameter (everything built by
+    :func:`default_factories`, covering the RNG-bearing baselines LeCaR /
+    RANDOM / LHD / TinyLFU's sketch) get it bound; plain ``(capacity,
+    store)`` factories pass through untouched, so callers can thread one
+    seed through a mixed factory dict without per-policy wiring."""
     if seed is None:
         return factory
     try:
@@ -240,3 +248,66 @@ def replay_batched(cache: "SemanticCache", reqs, chunk: int = 512,
                     tail[upd] = sims[upd]
                     best_cid[i + 1:][upd] = req.cid
                     promoted[i + 1:][upd] = True
+
+
+def run_many(trace: Trace, capacity: int,
+             factories: dict[str, PolicyFactory], batched: bool = False,
+             arena: bool = False, seed: int | None = None,
+             **kw) -> list[Stats]:
+    """Run every factory under identical settings.
+
+    ``arena=True`` routes the whole dict through the one-pass multi-policy
+    arena (:func:`repro_torch.core.arena.run_arena`): one trace pass, one
+    stacked snapshot launch per chunk, the same decisions as the
+    sequential replays.  ``batched=True`` (sequential) routes each policy
+    through :func:`run_policy_batched` (forwarding e.g. ``chunk=``); the
+    batched-only kwargs are dropped when neither flag is set so callers
+    can toggle without editing their kwargs.  ``seed`` is bound into every
+    factory that accepts one (see :func:`with_seed`).  ``backend`` and
+    ``device`` are forwarded: the card by default."""
+    if arena:
+        from .arena import run_arena
+        return run_arena(trace, capacity, factories, seed=seed, **kw)
+    if batched:
+        runner = run_policy_batched
+    else:
+        runner = run_policy
+        kw.pop("chunk", None)
+    return [runner(trace, capacity, f, name=n, seed=seed, **kw)
+            for n, f in factories.items()]
+
+
+def default_factories(include_belady: bool = True,
+                      include_extra: bool = False,
+                      seed: int | None = None) -> dict[str, PolicyFactory]:
+    """Paper baseline set (§4.2) + RAC variants.
+
+    Every baseline factory exposes a ``seed`` kwarg; ``seed=`` here binds a
+    default so the RNG-bearing policies (LeCaR, RANDOM, LHD, TinyLFU's
+    sketch) are reproducible across reruns without per-policy wiring (a
+    per-run ``run_many(seed=...)`` still overrides it)."""
+    from .policies import BASELINES, RNG_BASELINES
+    from .rac import RAC_VARIANTS, make_rac
+
+    paper_baselines = ["FIFO", "LRU", "CLOCK", "TTL", "TinyLFU", "ARC",
+                       "S3-FIFO", "SIEVE", "2Q", "LHD", "LeCaR"]
+    extra = ["LFU", "LRU-2", "GDSF", "RANDOM"]
+    names = paper_baselines + (extra if include_extra else [])
+    if include_belady:
+        names.append("Belady")
+
+    fac: dict[str, PolicyFactory] = {}
+    for n in names:
+        cls = BASELINES[n]
+        rng = n in RNG_BASELINES
+
+        def f(cap, store, seed=seed, _c=cls, _rng=rng):
+            kw = {"seed": seed} if (_rng and seed is not None) else {}
+            return _c(cap, store, **kw)
+
+        f.__name__ = n
+        fac[n] = f
+    for n, kwargs in RAC_VARIANTS.items():
+        if n in ("RAC", "RAC w/o TP", "RAC w/o TSI") or include_extra:
+            fac[n] = make_rac(**kwargs)
+    return fac

@@ -31,12 +31,27 @@
 //  - Columns at or past n_valid (the free tail) and past N score -inf.  A
 //    row whose columns are all masked comes back as (-inf, 0).
 //  - n_valid comes either as a host int or, when n_valid_dev is not null,
-//    as one int32 on the card that the kernel reads itself (the TPU kernel
+//    as an int32 on the card that the kernel reads itself (the TPU kernel
 //    reads its scalar-prefetched count the same way): the fused lookup's
 //    union rescore masks to a count it computed on the card, with no host
 //    sync in between.
+//
+// The policy-stacked entry (sim_top1_multi_launch) replaces
+// repro/kernels/ops.py::sim_top1_multi_raw, which walks P policy slabs
+// with lax.map over the TPU kernel inside one dispatch: the multi-policy
+// arena's snapshot scan, one per chunk.  Here the policy is a grid axis
+// (grid.z): block (x, y, p) reads slab p at offset p*S*D and policy p's
+// count n_valid_dev[p], so all P slabs are one launch plus one merge pass
+// over P*Q rows; a stacked block skips the candidate tiles wholly at or
+// past its policy's count.  A policy's slice is bit-equal to a single-slab launch
+// on that slab: every score is the same fmaf chain in ascending k, and
+// the tie rule is the same.  At the arena's shape (Q = 512, P = 15,
+// S = 6,852, D = 768) the work is 80.8 GFLOP, 1.21 ms at the fp32 rate,
+// against 316 MB of slab (0.094 ms): compute-bound, like B1 at Q = 512.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <climits>
 
 namespace {
 
@@ -47,12 +62,15 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <int BQ, int BC, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
-                 int nq, int nc, int d, int n_valid,
-                 const int* __restrict__ n_valid_dev, int tiles_per_split,
-                 float* __restrict__ part_val, int* __restrict__ part_idx) {
+// The body of both partial kernels.  MULTI: grid.z is the policy, whose
+// slab starts at p*nc*d and whose count is n_valid_dev[p]; without it the
+// policy offsets compile away.
+template <int BQ, int BC, int TM, int TN, bool MULTI>
+__device__ __forceinline__ void top1_partial(
+    const float* __restrict__ q, const float* __restrict__ c, int nq, int nc,
+    int d, int n_valid, const int* __restrict__ n_valid_dev,
+    int tiles_per_split, float* __restrict__ part_val,
+    int* __restrict__ part_idx) {
   constexpr int TXN = BC / TN;  // threads along the candidate axis
   static_assert(TXN * (BQ / TM) == kThreads, "tile does not match block");
   static_assert(TXN <= 32 && (TXN & (TXN - 1)) == 0, "row group is a warp part");
@@ -67,17 +85,22 @@ sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
   const int ty = tid / TXN;
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
-  const int ntiles = (nc + BC - 1) / BC;
+  if (MULTI) c += (size_t)blockIdx.z * nc * d;
+  const int limit =
+      MULTI ? max(0, min(n_valid_dev[blockIdx.z], nc))
+            : min(n_valid_dev != nullptr ? *n_valid_dev : n_valid, nc);
+  // a stacked block skips the tiles wholly at or past its policy's count
+  // (they hold only -inf columns)
+  const int ntiles = ((MULTI ? limit : nc) + BC - 1) / BC;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, ntiles);
-  const int limit = min(n_valid_dev != nullptr ? *n_valid_dev : n_valid, nc);
 
   float best_v[TM];
   int best_i[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     best_v[i] = -CUDART_INF_F;
-    best_i[i] = 0x7fffffff;
+    best_i[i] = INT_MAX;  // no column seen; the merge maps it to 0
   }
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -143,36 +166,104 @@ sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
     }
   }
   if (tx == 0) {
+    const size_t part0 =
+        ((MULTI ? (size_t)blockIdx.z * gridDim.y : 0) + split) * nq;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int row = q0 + ty * TM + i;
       if (row < nq) {
-        part_val[(size_t)split * nq + row] = best_v[i];
-        part_idx[(size_t)split * nq + row] = best_i[i];
+        part_val[part0 + row] = best_v[i];
+        part_idx[part0 + row] = best_i[i];
       }
     }
   }
 }
 
+// Single slab: the compiler's own register choice (64 a thread for the
+// wide tile, 40 for the narrow one).
+template <int BQ, int BC, int TM, int TN>
+__global__ void __launch_bounds__(kThreads)
+sim_top1_partial(const float* __restrict__ q, const float* __restrict__ c,
+                 int nq, int nc, int d, int n_valid,
+                 const int* __restrict__ n_valid_dev, int tiles_per_split,
+                 float* __restrict__ part_val, int* __restrict__ part_idx) {
+  top1_partial<BQ, BC, TM, TN, false>(q, c, nq, nc, d, n_valid, n_valid_dev,
+                                      tiles_per_split, part_val, part_idx);
+}
+
+// Policy-stacked: held to MINB resident blocks per SM, which keeps the
+// single-slab kernel's register budget (left alone, the compiler spends
+// more registers on the policy offsets and loses occupancy).
+template <int BQ, int BC, int TM, int TN, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+sim_top1_multi_partial(const float* __restrict__ q,
+                       const float* __restrict__ c, int nq, int nc, int d,
+                       const int* __restrict__ n_valid_dev,
+                       int tiles_per_split, float* __restrict__ part_val,
+                       int* __restrict__ part_idx) {
+  top1_partial<BQ, BC, TM, TN, true>(q, c, nq, nc, d, 0, n_valid_dev,
+                                     tiles_per_split, part_val, part_idx);
+}
+
 // ascending split order with a strict '>': equal maxima keep the earlier
-// split, i.e. the lower candidate index
+// split, i.e. the lower candidate index.  Row r of the (P, Q) output is
+// policy r / nq, query r % nq; a row that saw no column (every tile at or
+// past its count) comes back as (-inf, 0).
+template <bool MULTI>
 __global__ void sim_top1_merge(const float* __restrict__ part_val,
                                const int* __restrict__ part_idx, int nsplit,
-                               int nq, float* __restrict__ out_val,
+                               int nq, int nrows, float* __restrict__ out_val,
                                int* __restrict__ out_idx) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= nq) return;
-  float bv = part_val[r];
-  int bi = part_idx[r];
+  if (r >= nrows) return;
+  const size_t base = MULTI ? (size_t)(r / nq) * nsplit * nq + r % nq : r;
+  float bv = part_val[base];
+  int bi = part_idx[base];
   for (int s = 1; s < nsplit; ++s) {
-    const float v = part_val[(size_t)s * nq + r];
+    const float v = part_val[base + (size_t)s * nq];
     if (v > bv) {
       bv = v;
-      bi = part_idx[(size_t)s * nq + r];
+      bi = part_idx[base + (size_t)s * nq];
     }
   }
   out_val[r] = bv;
-  out_idx[r] = bi;
+  out_idx[r] = MULTI && bi == INT_MAX ? 0 : bi;
+}
+
+// n_pol = 0: one slab with a host or device count; n_pol >= 1: n_pol
+// stacked slabs with their counts in n_valid_dev
+int launch(const float* q, const float* c, int nq, int nc, int d,
+           int n_valid, const int* n_valid_dev, int n_pol, int small,
+           int nsplit, int tiles_per_split, float* part_val, int* part_idx,
+           float* out_val, int* out_idx, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int bq = small ? 8 : 64;
+  const dim3 grid((nq + bq - 1) / bq, nsplit, n_pol > 0 ? n_pol : 1);
+  if (n_pol == 0 && small)
+    sim_top1_partial<8, 128, 1, 4><<<grid, kThreads, 0, stream>>>(
+        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
+        part_idx);
+  else if (n_pol == 0)
+    sim_top1_partial<64, 64, 4, 4><<<grid, kThreads, 0, stream>>>(
+        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
+        part_idx);
+  else if (small)
+    sim_top1_multi_partial<8, 128, 1, 4, 6><<<grid, kThreads, 0, stream>>>(
+        q, c, nq, nc, d, n_valid_dev, tiles_per_split, part_val, part_idx);
+  else
+    sim_top1_multi_partial<64, 64, 4, 4, 4><<<grid, kThreads, 0, stream>>>(
+        q, c, nq, nc, d, n_valid_dev, tiles_per_split, part_val, part_idx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nrows = (n_pol > 0 ? n_pol : 1) * nq;
+  if (n_pol > 0)
+    sim_top1_merge<true><<<(nrows + 255) / 256, 256, 0, stream>>>(
+        part_val, part_idx, nsplit, nq, nrows, out_val, out_idx);
+  else
+    sim_top1_merge<false><<<(nrows + 255) / 256, 256, 0, stream>>>(
+        part_val, part_idx, nsplit, nq, nrows, out_val, out_idx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -187,24 +278,24 @@ int sim_top1_launch(const float* q, const float* c, int nq, int nc, int d,
                     int nsplit, int tiles_per_split,
                     float* part_val, int* part_idx, float* out_val,
                     int* out_idx, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (small) {
-    dim3 grid((nq + 7) / 8, nsplit);
-    sim_top1_partial<8, 128, 1, 4><<<grid, kThreads, 0, stream>>>(
-        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
-        part_idx);
-  } else {
-    dim3 grid((nq + 63) / 64, nsplit);
-    sim_top1_partial<64, 64, 4, 4><<<grid, kThreads, 0, stream>>>(
-        q, c, nq, nc, d, n_valid, n_valid_dev, tiles_per_split, part_val,
-        part_idx);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sim_top1_merge<<<(nq + 255) / 256, 256, 0, stream>>>(
-      part_val, part_idx, nsplit, nq, out_val, out_idx);
-  return (int)cudaGetLastError();
+  return launch(q, c, nq, nc, d, n_valid, n_valid_dev, 0, small, nsplit,
+                tiles_per_split, part_val, part_idx, out_val, out_idx,
+                device, stream);
+}
+
+// Policy-stacked Top-1: c is (n_pol, n_slots, d), n_valid_dev (n_pol,)
+// int32 on the card, out_val/out_idx (n_pol, nq); part_val/part_idx hold
+// n_pol * nsplit * nq partials.
+int sim_top1_multi_launch(const float* q, const float* c, int nq,
+                          int n_slots, int d, const int* n_valid_dev,
+                          int n_pol, int small, int nsplit,
+                          int tiles_per_split, float* part_val,
+                          int* part_idx, float* out_val, int* out_idx,
+                          int device, cudaStream_t stream) {
+  if (n_pol < 1) return (int)cudaErrorInvalidValue;
+  return launch(q, c, nq, n_slots, d, 0, n_valid_dev, n_pol, small, nsplit,
+                tiles_per_split, part_val, part_idx, out_val, out_idx,
+                device, stream);
 }
 
 }  // extern "C"

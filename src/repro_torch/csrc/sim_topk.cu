@@ -50,6 +50,18 @@
 //    with fewer than K live columns comes back with (-inf, 0) in its tail.
 //    No --use_fast_math: the two scale products are __fmul_rn, so the int8
 //    scores are bit-equal to the plain version's and the host gemm's.
+//
+// The policy-stacked entry (sim_topk_multi_launch, int8) replaces
+// repro/kernels/ops.py::sim_topk_q8_multi_raw, which walks P int8 policy
+// slabs with lax.map over the TPU kernel inside one dispatch: the
+// quantized arena's snapshot scan.  The policy is a grid axis (grid.z):
+// block (x, y, p) reads slab p at offset p*S*D, its scales at p*S, and
+// policy p's count from n_valid_dev[p] on the card; the merge runs over
+// P*Q rows.  A policy's slice equals a single-slab launch on that slab
+// (exact int32 sums, the same score products, the same fold and merge).
+// At the arena's shape (Q = 512, P = 15, S = 6,852, D = 768, k = 8):
+// 80.8 G int8 operations, 0.041 ms on the tensor cores, against 79 MB of
+// int8 slab (0.024 ms); on __dp4a it stays far above that bound.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -166,13 +178,16 @@ __device__ void fold_row(const float* srow, int c0, int bc, int limit, int k,
   if (lane == 0) *cnt = n;
 }
 
-template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
-                 const float* __restrict__ qscale,
-                 const float* __restrict__ cscale, int nq, int nc, int d,
-                 int n_valid, int k, int tiles_per_split, int list_in_smem,
-                 float* part_val, int* part_idx) {
+// The body of both partial kernels.  MULTI: grid.z is the policy, whose
+// slab starts at p*nc*d (its scales at p*nc) and whose count is
+// n_valid_dev[p]; without it the policy offsets compile away.
+template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC, bool MULTI>
+__device__ __forceinline__ void topk_partial(
+    const void* __restrict__ qv, const void* __restrict__ cv,
+    const float* __restrict__ qscale, const float* __restrict__ cscale,
+    int nq, int nc, int d, int n_valid, const int* __restrict__ n_valid_dev,
+    int k, int tiles_per_split, int list_in_smem, float* part_val,
+    int* part_idx) {
   using Word = typename std::conditional<Q8, int, float>::type;
   constexpr int TXN = BC / TN;  // threads along the candidate axis
   static_assert(TXN * (BQ / TM) == kThreads, "tile does not match block");
@@ -188,9 +203,18 @@ sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
   const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
-  const int limit = max(0, min(n_valid, nc));
+  const int pol = MULTI ? (int)blockIdx.z : 0;  // the policy slab
+  if constexpr (MULTI && Q8) {  // slab p and its scales
+    cv = static_cast<const signed char*>(cv) + (size_t)pol * nc * d;
+    cscale += (size_t)pol * nc;
+  } else if constexpr (MULTI) {
+    cv = static_cast<const float*>(cv) + (size_t)pol * nc * d;
+  }
+  const int limit = max(0, min(MULTI ? n_valid_dev[pol] : n_valid, nc));
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, (limit + BC - 1) / BC);
+  // this block's partial lists: rows q0.. of (policy, split)
+  const size_t part_row = (size_t)pol * gridDim.y * nq + (size_t)split * nq;
 
   // row r's list: lv + r*k, li + r*k
   float* lv;
@@ -199,8 +223,8 @@ sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
     lv = reinterpret_cast<float*>(dyn);
     li = reinterpret_cast<int*>(dyn + (size_t)BQ * k * sizeof(float));
   } else {
-    lv = part_val + ((size_t)split * nq + q0) * k;
-    li = part_idx + ((size_t)split * nq + q0) * k;
+    lv = part_val + (part_row + q0) * k;
+    li = part_idx + (part_row + q0) * k;
   }
   for (int r = tid; r < BQ; r += kThreads) cnt[r] = 0;
 
@@ -270,8 +294,8 @@ sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
   for (int r = warp; r < BQ; r += kWarps) {
     if (q0 + r >= nq) continue;
     const int n = cnt[r];
-    float* ov = part_val + ((size_t)split * nq + q0 + r) * k;
-    int* oi = part_idx + ((size_t)split * nq + q0 + r) * k;
+    float* ov = part_val + (part_row + q0 + r) * k;
+    int* oi = part_idx + (part_row + q0 + r) * k;
     for (int j = lane; j < k; j += 32) {
       if (j >= n) {
         ov[j] = -CUDART_INF_F;
@@ -284,8 +308,41 @@ sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
   }
 }
 
-// One block per query: K rounds, each taking the best head of the nsplit
-// sorted partial lists, by (value descending, split ascending).
+// Single slab: the compiler's own register choice.
+template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
+                 const float* __restrict__ qscale,
+                 const float* __restrict__ cscale, int nq, int nc, int d,
+                 int n_valid, int k, int tiles_per_split, int list_in_smem,
+                 float* part_val, int* part_idx) {
+  topk_partial<BQ, BC, TM, TN, Q8, VEC, false>(
+      qv, cv, qscale, cscale, nq, nc, d, n_valid, nullptr, k,
+      tiles_per_split, list_in_smem, part_val, part_idx);
+}
+
+// Policy-stacked int8: held to four resident blocks per SM (at most 64
+// registers a thread), the single-slab kernels' budget; left alone, the
+// compiler spends more registers on the policy offsets and loses
+// occupancy.
+template <int BQ, int BC, int TM, int TN, bool VEC>
+__global__ void __launch_bounds__(kThreads, 4)
+sim_topk_multi_partial(const void* __restrict__ qv,
+                       const void* __restrict__ cv,
+                       const float* __restrict__ qscale,
+                       const float* __restrict__ cscale, int nq, int nc,
+                       int d, const int* __restrict__ n_valid_dev, int k,
+                       int tiles_per_split, int list_in_smem, float* part_val,
+                       int* part_idx) {
+  topk_partial<BQ, BC, TM, TN, true, VEC, true>(
+      qv, cv, qscale, cscale, nq, nc, d, 0, n_valid_dev, k, tiles_per_split,
+      list_in_smem, part_val, part_idx);
+}
+
+// One block per (policy, query) row of the (P, Q, K) output: K rounds,
+// each taking the best head of the nsplit sorted partial lists, by (value
+// descending, split ascending).
+template <bool MULTI>
 __global__ void sim_topk_merge(const float* __restrict__ part_val,
                                const int* __restrict__ part_idx, int nsplit,
                                int nq, int k, float* __restrict__ out_val,
@@ -296,6 +353,11 @@ __global__ void sim_topk_merge(const float* __restrict__ part_val,
   __shared__ float win_v;
   __shared__ int win_s;
   const int row = blockIdx.x;
+  // partial list s of this row: part + (s * nq) * k
+  const size_t prow =
+      (MULTI ? (size_t)(row / nq) * nsplit * nq + row % nq : row) * (size_t)k;
+  part_val += prow;
+  part_idx += prow;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) / 32;
   for (int s = threadIdx.x; s < nsplit; s += blockDim.x) head[s] = 0;
@@ -307,7 +369,7 @@ __global__ void sim_topk_merge(const float* __restrict__ part_val,
     for (int s = threadIdx.x; s < nsplit; s += blockDim.x) {
       const int h = head[s];
       if (h < k) {
-        const float v = part_val[((size_t)s * nq + row) * k + h];
+        const float v = part_val[(size_t)s * nq * k + h];
         if (v > bv) {  // s ascends within a thread: ties keep the lower
           bv = v;
           bs = s;
@@ -350,7 +412,7 @@ __global__ void sim_topk_merge(const float* __restrict__ part_val,
     if (threadIdx.x == 0) {
       const int s = win_s;
       out_val[(size_t)row * k + j] = win_v;
-      out_idx[(size_t)row * k + j] = part_idx[((size_t)s * nq + row) * k + head[s]];
+      out_idx[(size_t)row * k + j] = part_idx[(size_t)s * nq * k + head[s]];
       head[s] += 1;
     }
     __syncthreads();
@@ -364,28 +426,74 @@ __global__ void sim_topk_merge(const float* __restrict__ part_val,
 template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
 cudaError_t launch_partial(const void* q, const void* c, const float* qs,
                            const float* cs, int nq, int nc, int d, int n_valid,
-                           int k, int nsplit, int per, int list_in_smem,
-                           float* pv, int* pi, cudaStream_t stream) {
+                           const int* n_valid_dev, int n_pol, int k,
+                           int nsplit, int per, int list_in_smem, float* pv,
+                           int* pi, cudaStream_t stream) {
   const size_t dyn = list_in_smem ? (size_t)BQ * k * 8 : 0;
-  dim3 grid((nq + BQ - 1) / BQ, nsplit);
-  sim_topk_partial<BQ, BC, TM, TN, Q8, VEC><<<grid, kThreads, dyn, stream>>>(
-      q, c, qs, cs, nq, nc, d, n_valid, k, per, list_in_smem, pv, pi);
+  if (n_pol == 0) {
+    const dim3 grid((nq + BQ - 1) / BQ, nsplit);
+    sim_topk_partial<BQ, BC, TM, TN, Q8, VEC><<<grid, kThreads, dyn, stream>>>(
+        q, c, qs, cs, nq, nc, d, n_valid, k, per, list_in_smem, pv, pi);
+  } else if constexpr (Q8) {
+    const dim3 grid((nq + BQ - 1) / BQ, nsplit, n_pol);
+    sim_topk_multi_partial<BQ, BC, TM, TN, VEC>
+        <<<grid, kThreads, dyn, stream>>>(q, c, qs, cs, nq, nc, d,
+                                          n_valid_dev, k, per, list_in_smem,
+                                          pv, pi);
+  } else {
+    return cudaErrorInvalidValue;  // the stacked scan is int8 only
+  }
   return cudaGetLastError();
 }
 
 template <bool Q8, bool VEC>
 cudaError_t launch_shape(int small, const void* q, const void* c,
                          const float* qs, const float* cs, int nq, int nc,
-                         int d, int n_valid, int k, int nsplit, int per,
+                         int d, int n_valid, const int* n_valid_dev,
+                         int n_pol, int k, int nsplit, int per,
                          int list_in_smem, float* pv, int* pi,
                          cudaStream_t stream) {
   if (small)
     return launch_partial<8, 128, 1, 4, Q8, VEC>(
-        q, c, qs, cs, nq, nc, d, n_valid, k, nsplit, per, list_in_smem, pv,
-        pi, stream);
+        q, c, qs, cs, nq, nc, d, n_valid, n_valid_dev, n_pol, k, nsplit, per,
+        list_in_smem, pv, pi, stream);
   return launch_partial<64, 64, 4, 4, Q8, VEC>(
-      q, c, qs, cs, nq, nc, d, n_valid, k, nsplit, per, list_in_smem, pv, pi,
-      stream);
+      q, c, qs, cs, nq, nc, d, n_valid, n_valid_dev, n_pol, k, nsplit, per,
+      list_in_smem, pv, pi, stream);
+}
+
+// n_pol = 0: one slab with a host count; n_pol >= 1: n_pol stacked int8
+// slabs with their counts in n_valid_dev
+int launch(const void* q, const void* c, const float* qscale,
+           const float* cscale, int q8, int vec, int nq, int nc, int d,
+           int n_valid, const int* n_valid_dev, int n_pol, int k, int small,
+           int nsplit, int tiles_per_split, int list_in_smem, float* part_val,
+           int* part_idx, float* out_val, int* out_idx, int device,
+           cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!q8)
+    err = launch_shape<false, false>(
+        small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
+        k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
+  else if (vec)
+    err = launch_shape<true, true>(
+        small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
+        k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
+  else
+    err = launch_shape<true, false>(
+        small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
+        k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int nrows = (n_pol > 0 ? n_pol : 1) * nq;
+  const size_t heads = (size_t)nsplit * sizeof(int);
+  if (n_pol > 0)
+    sim_topk_merge<true><<<nrows, 128, heads, stream>>>(
+        part_val, part_idx, nsplit, nq, k, out_val, out_idx);
+  else
+    sim_topk_merge<false><<<nrows, 128, heads, stream>>>(
+        part_val, part_idx, nsplit, nq, k, out_val, out_idx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -404,24 +512,27 @@ int sim_topk_launch(const void* q, const void* c, const float* qscale,
                     int tiles_per_split, int list_in_smem, float* part_val,
                     int* part_idx, float* out_val, int* out_idx, int device,
                     cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!q8)
-    err = launch_shape<false, false>(small, q, c, qscale, cscale, nq, nc, d,
-                                     n_valid, k, nsplit, tiles_per_split,
-                                     list_in_smem, part_val, part_idx, stream);
-  else if (vec)
-    err = launch_shape<true, true>(small, q, c, qscale, cscale, nq, nc, d,
-                                   n_valid, k, nsplit, tiles_per_split,
-                                   list_in_smem, part_val, part_idx, stream);
-  else
-    err = launch_shape<true, false>(small, q, c, qscale, cscale, nq, nc, d,
-                                    n_valid, k, nsplit, tiles_per_split,
-                                    list_in_smem, part_val, part_idx, stream);
-  if (err != cudaSuccess) return (int)err;
-  sim_topk_merge<<<nq, 128, (size_t)nsplit * sizeof(int), stream>>>(
-      part_val, part_idx, nsplit, nq, k, out_val, out_idx);
-  return (int)cudaGetLastError();
+  return launch(q, c, qscale, cscale, q8, vec, nq, nc, d, n_valid, nullptr,
+                0, k, small, nsplit, tiles_per_split, list_in_smem, part_val,
+                part_idx, out_val, out_idx, device, stream);
+}
+
+// Policy-stacked int8 Top-K: c is (n_pol, n_slots, d) int8 with cscale
+// (n_pol, n_slots), n_valid_dev (n_pol,) int32 on the card, out_val/
+// out_idx (n_pol, nq, k); part_val/part_idx hold n_pol * nsplit * nq * k
+// partials.  Other arguments as sim_topk_launch.
+int sim_topk_multi_launch(const void* q, const void* c, const float* qscale,
+                          const float* cscale, int vec, int nq, int n_slots,
+                          int d, const int* n_valid_dev, int n_pol, int k,
+                          int small, int nsplit, int tiles_per_split,
+                          int list_in_smem, float* part_val, int* part_idx,
+                          float* out_val, int* out_idx, int device,
+                          cudaStream_t stream) {
+  if (n_pol < 1) return (int)cudaErrorInvalidValue;
+  return launch(q, c, qscale, cscale, 1, vec, nq, n_slots, d, 0,
+                n_valid_dev, n_pol, k, small, nsplit, tiles_per_split,
+                list_in_smem, part_val, part_idx, out_val, out_idx, device,
+                stream);
 }
 
 }  // extern "C"

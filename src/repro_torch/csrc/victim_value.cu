@@ -17,6 +17,15 @@
 // exp2f (no fast-math, to stay close to XLA's exp2), then (decay*tp)*tsi.
 // t_now is a plain kernel argument: the scalar-prefetch operand has no
 // counterpart to port.
+//
+// The policy-stacked entry (victim_value_multi_launch) replaces
+// repro/kernels/decision.py::victim_value_multi_pallas, which walks P
+// policies' slot tables with lax.map over the TPU kernel inside one
+// dispatch.  The policy is a grid axis (grid.y): policy p's slot tables
+// start at p*N and its topic tables at p*T; t_now and alpha are shared
+// (one simulated clock).  At P = 15, N = 6,852, T = 4,096 it moves about
+// 2.1 MB, 0.6 us at 3.35 TB/s, so the launch bounds it, and one launch
+// for all P policies is the whole gain.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -31,6 +40,13 @@ __global__ void victim_value_kernel(const float* __restrict__ tsi,
                                     float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t pol = blockIdx.y;  // the policy (0 for a single table)
+  tsi += pol * n;
+  tid += pol * n;
+  occ += pol * n;
+  out += pol * n;
+  tp_last += pol * n_topics;
+  t_last += pol * n_topics;
   const int t = min(max(tid[i], 0), n_topics - 1);
   const int age = (int)((unsigned)t_now - (unsigned)__ldg(t_last + t));
   const float decay = exp2f(neg_alpha * (float)age);
@@ -40,14 +56,31 @@ __global__ void victim_value_kernel(const float* __restrict__ tsi,
 
 }  // namespace
 
-extern "C" int victim_value_launch(const float* tsi, const int* tid,
-                                   const int* occ, const float* tp_last,
-                                   const int* t_last, int n, int n_topics,
-                                   int t_now, float neg_alpha, float* out,
-                                   int device, cudaStream_t stream) {
+extern "C" {
+
+int victim_value_launch(const float* tsi, const int* tid, const int* occ,
+                        const float* tp_last, const int* t_last, int n,
+                        int n_topics, int t_now, float neg_alpha, float* out,
+                        int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   victim_value_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
       tsi, tid, occ, tp_last, t_last, n, n_topics, t_now, neg_alpha, out);
   return (int)cudaGetLastError();
 }
+
+// Policy-stacked: tsi/tid/occ/out are (n_pol, n), tp_last/t_last
+// (n_pol, n_topics).
+int victim_value_multi_launch(const float* tsi, const int* tid,
+                              const int* occ, const float* tp_last,
+                              const int* t_last, int n, int n_topics,
+                              int n_pol, int t_now, float neg_alpha,
+                              float* out, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  victim_value_kernel<<<dim3((n + 255) / 256, n_pol), 256, 0, stream>>>(
+      tsi, tid, occ, tp_last, t_last, n, n_topics, t_now, neg_alpha, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

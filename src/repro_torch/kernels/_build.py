@@ -42,7 +42,13 @@ _SIGNATURES = {
                         _P, _I, _P],
     "sim_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P, _I, _P],
+    "sim_top1_multi_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P,
+                              _P, _P, _P, _I, _P],
+    "sim_topk_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
+                              _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "victim_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P],
+    "victim_value_multi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                  _P, _I, _P],
     "rac_value_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _I, _P],
 }
 

@@ -24,10 +24,13 @@ import numpy as np
 import torch
 
 from .decision import victim_value as _victim_value
+from .decision import victim_value_multi as _victim_value_multi
 from .rac_value import rac_value as _rac_value
 from .similarity_topk import sim_top1 as _sim_top1
+from .similarity_topk import sim_top1_multi as _sim_top1_multi
 from .similarity_topk import sim_topk as _sim_topk
 from .similarity_topk import sim_topk_q8 as _sim_topk_q8
+from .similarity_topk import sim_topk_q8_multi as _sim_topk_q8_multi
 
 dispatch_stats = {"launches": 0, "host_syncs": 0, "kernel_s": 0.0}
 
@@ -100,6 +103,15 @@ def _as(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         return x.to(device=device, dtype=dtype).contiguous()
     return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                            device=device)
+
+
+def _counts(n_valid, n_pol: int, n_slots: int,
+            dev: torch.device) -> torch.Tensor:
+    """Per-policy counts as a (P,) int32 tensor on ``dev`` (default: every
+    slot), the stacked kernels' device-read ``n_valid``."""
+    if n_valid is None:
+        n_valid = np.full(n_pol, n_slots, dtype=np.int32)
+    return _as(n_valid, torch.int32, dev).reshape(n_pol)
 
 
 def _sim_top1_raw(queries, candidates, n_valid, dev):
@@ -201,6 +213,55 @@ def sim_topk_q8(q8, qscale, c8, cscale, k: int, n_valid=None):
     :func:`sim_topk`.  ``k`` is clamped to the candidate count."""
     return sim_topk_q8_raw(q8, qscale, c8, cscale, n_valid,
                            int(min(k, c8.shape[0])))
+
+
+@_counted
+def sim_top1_multi(queries, slabs, n_valid=None):
+    """Policy-stacked Top-1 retrieval: (B,D)x(P,N,D) -> ((P,B), (P,B)).
+
+    The batched-over-policy variant of :func:`sim_top1` behind the
+    multi-policy arena: ONE dispatch (one kernel launch, the policy a grid
+    axis) scores a query chunk against every policy's resident slab, with
+    a per-policy count ``n_valid`` (P,) masking each slab's free tail
+    (default: every slot).  Slice p is what :func:`sim_top1` gives for
+    slab p."""
+    dev = _device_of(slabs, queries)
+    s = _as(slabs, torch.float32, dev)
+    return _sim_top1_multi(_as(queries, torch.float32, dev), s,
+                           _counts(n_valid, s.shape[0], s.shape[1], dev))
+
+
+@_counted
+def sim_topk_q8_multi(q8, qscale, slabs8, cscales, k: int, n_valid=None):
+    """Policy-stacked quantized Top-K: (B,D)i8 x (P,N,D)i8 ->
+    ((P,B,K), (P,B,K)) — the quantized arena's stacked scan on the
+    4x-smaller slab, one dispatch.  ``k`` is clamped to the slot-axis
+    width like :func:`sim_topk_q8`; ``n_valid`` (P,) as in
+    :func:`sim_top1_multi`."""
+    dev = _device_of(slabs8, q8)
+    s8 = _as(slabs8, torch.int8, dev)
+    n_pol, n_slots = s8.shape[0], s8.shape[1]
+    return _sim_topk_q8_multi(
+        _as(q8, torch.int8, dev), _as(qscale, torch.float32, dev), s8,
+        _as(cscales, torch.float32, dev),
+        _counts(n_valid, n_pol, n_slots, dev), int(min(k, n_slots)))
+
+
+@_counted
+def victim_value_multi(tsi, tid, occ, tp_last, t_last, t_now, *,
+                       alpha: float):
+    """Policy-stacked occupancy-masked Eq.1: ``tsi``/``tid``/``occ`` are
+    (P, N) slot tables, ``tp_last``/``t_last`` (P, T) topic tables, and
+    ``t_now`` the one shared clock; returns (P, N) victim values (free
+    slots +inf) from one dispatch — the multi-policy analogue of
+    :func:`victim_value`."""
+    dev = _device_of(tsi, tid, occ, tp_last, t_last)
+    return _victim_value_multi(_as(tsi, torch.float32, dev),
+                               _as(tid, torch.int32, dev),
+                               _as(occ, torch.int32, dev),
+                               _as(tp_last, torch.float32, dev),
+                               _as(t_last, torch.int32, dev), int(t_now),
+                               float(alpha))
 
 
 @_counted

@@ -92,3 +92,42 @@ def victim_value_ref(tsi: torch.Tensor, tid: torch.Tensor, occ: torch.Tensor,
     decay = torch.exp2(-alpha * age)
     val = decay * tp_last[tid].to(torch.float32) * tsi
     return torch.where(occ > 0, val, float("inf"))
+
+
+# -- policy-stacked versions: a leading policy axis, a count per policy ----
+# Each policy's slice is the single-slab plain version on that slice, so a
+# stacked kernel is held to exactly what P single launches would give.
+# ``n_valid`` is a (P,) tensor (or sequence); its entries stay tensors, so
+# the plain versions run on the card without a host sync.  P >= 1.
+
+def sim_top1_multi_ref(queries: torch.Tensor, slabs: torch.Tensor,
+                       n_valid):
+    """queries (B,D), slabs (P,S,D), n_valid (P,) -> (vals (P,B),
+    idx (P,B)): :func:`sim_top1_ref` of every slab under its own count."""
+    outs = [sim_top1_ref(queries, slabs[p], n_valid[p])
+            for p in range(slabs.shape[0])]
+    return (torch.stack([v for v, _ in outs]),
+            torch.stack([i for _, i in outs]))
+
+
+def sim_topk_q8_multi_ref(q8: torch.Tensor, qscale: torch.Tensor,
+                          slabs8: torch.Tensor, cscales: torch.Tensor,
+                          n_valid, k: int):
+    """q8 (B,D) int8 with qscale (B,), slabs8 (P,S,D) int8 with cscales
+    (P,S), n_valid (P,) -> (vals (P,B,K), idx (P,B,K)):
+    :func:`sim_topk_q8_ref` of every slab under its own count."""
+    outs = [sim_topk_q8_ref(q8, qscale, slabs8[p], cscales[p], n_valid[p], k)
+            for p in range(slabs8.shape[0])]
+    return (torch.stack([v for v, _ in outs]),
+            torch.stack([i for _, i in outs]))
+
+
+def victim_value_multi_ref(tsi: torch.Tensor, tid: torch.Tensor,
+                           occ: torch.Tensor, tp_last: torch.Tensor,
+                           t_last: torch.Tensor, t_now, alpha: float):
+    """Slot tables (P,N), topic tables (P,T), one shared ``t_now`` ->
+    (P,N): :func:`victim_value_ref` of every policy's tables."""
+    return torch.stack([
+        victim_value_ref(tsi[p], tid[p], occ[p], tp_last[p], t_last[p],
+                         t_now, alpha)
+        for p in range(tsi.shape[0])])

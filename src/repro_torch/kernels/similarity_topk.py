@@ -1,8 +1,11 @@
 """Cosine retrieval kernels and their wrappers: Top-1 (``csrc/sim_top1.cu``)
-and Top-K in fp32 and int8 (``csrc/sim_topk.cu``).
+and Top-K in fp32 and int8 (``csrc/sim_topk.cu``), each also stacked over
+a policy grid axis for the multi-policy arena.
 
 Replace ``repro/kernels/similarity_topk.py::sim_top1_pallas``,
-``::sim_topk_pallas`` and ``::sim_topk_q8_pallas``.  Each wrapper launches
+``::sim_topk_pallas`` and ``::sim_topk_q8_pallas``, and the ``lax.map``
+policy stacks over them in ``repro/kernels/ops.py``
+(``sim_top1_multi_raw``, ``sim_topk_q8_multi_raw``).  Each wrapper launches
 its CUDA kernel for CUDA tensors and takes the plain version
 (:mod:`~repro_torch.kernels.ref`) for CPU tensors; anything else raises.
 The kernels need no padding: they mask the ragged query, candidate and
@@ -22,6 +25,10 @@ dev_n_valid_launches = 0
 topk_launches = 0
 #: kernel launches made by :func:`sim_topk_q8` (int8 Top-K)
 topk_q8_launches = 0
+#: kernel launches made by :func:`sim_top1_multi` (one per stacked call)
+multi_launches = 0
+#: kernel launches made by :func:`sim_topk_q8_multi` (one per stacked call)
+topk_q8_multi_launches = 0
 
 # blocks to aim for: a few waves over the H100's 132 SMs
 _TARGET_BLOCKS = 4 * 132
@@ -31,14 +38,15 @@ _SMALL_TILE, _WIDE_TILE = (8, 128), (64, 64)
 _LIST_SMEM = 16384
 
 
-def split_plan(nq: int, nc: int, small: bool,
-               min_cols: int = 1) -> tuple[int, int]:
+def split_plan(nq: int, nc: int, small: bool, min_cols: int = 1,
+               groups: int = 1) -> tuple[int, int]:
     """(splits, candidate tiles per split) for the split-N grid: enough
-    splits that ``query tiles x splits`` fills the card, never more than
-    there are candidate tiles, and none with fewer than ``min_cols``
-    candidates (a Top-K split should hold more than its K)."""
+    splits that ``query tiles x groups x splits`` fills the card, never
+    more than there are candidate tiles, and none with fewer than
+    ``min_cols`` candidates (a Top-K split should hold more than its K).
+    ``groups`` is the number of stacked slabs sharing the grid."""
     rows, cols = _SMALL_TILE if small else _WIDE_TILE
-    q_tiles = -(-nq // rows)
+    q_tiles = -(-nq // rows) * groups
     c_tiles = max(1, -(-nc // cols))
     want = max(1, min(c_tiles, -(-_TARGET_BLOCKS // q_tiles),
                       nc // max(1, min_cols)))
@@ -109,33 +117,51 @@ def sim_top1(queries: torch.Tensor, candidates: torch.Tensor,
     return vals, idx
 
 
-def _topk_launch(q, c, qscale, cscale, n_valid: int, k: int):
-    """Shared launch of the fp32 (``qscale is None``) and int8 Top-K."""
+def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
+    """Shared launch of the fp32 (``qscale is None``) and int8 Top-K.  With
+    ``counts`` (a (P,) int32 tensor on the card; int8 only) ``c`` is a
+    (P, S, D) stack, ``cscale`` (P, S), and the outputs are (P, Q, K)."""
     dev = c.device
     nq, d = q.shape
-    nc = c.shape[0]
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    n_pol = 1 if counts is None else c.shape[0]
+    nc = c.shape[-2]
+    shape = (nq, k) if counts is None else (n_pol, nq, k)
+    vals = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
     if nq == 0:
         return vals, idx
     small = nq <= 16
-    limit = max(0, min(int(n_valid), nc))
-    nsplit, per = split_plan(nq, max(limit, 1), small, min_cols=2 * k)
+    # stacked counts live on the card: plan the splits for full slabs, the
+    # P slabs sharing one grid's worth of blocks (a Top-K block folds many
+    # tiles into its lists, so long splits pay; measured on an H100,
+    # ``PERF.md``)
+    limit = nc if counts is not None else max(0, min(int(n_valid), nc))
+    nsplit, per = split_plan(nq, max(limit, 1), small, min_cols=2 * k,
+                             groups=n_pol)
     rows = (_SMALL_TILE if small else _WIDE_TILE)[0]
     in_smem = rows * k * 8 <= _LIST_SMEM
-    part_v = torch.empty((nsplit, nq, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nsplit, nq, k), dtype=torch.int32, device=dev)
+    part_v = torch.empty((n_pol, nsplit, nq, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((n_pol, nsplit, nq, k), dtype=torch.int32,
+                         device=dev)
     q8 = qscale is not None
     # 16-byte int8 loads need whole 16-byte rows on 16-byte boundaries
     vec = q8 and d % 16 == 0 and q.data_ptr() % 16 == 0 \
         and c.data_ptr() % 16 == 0
     lib = _build.library()
-    _build.check(lib.sim_topk_launch(
-        q.data_ptr(), c.data_ptr(),
-        qscale.data_ptr() if q8 else None, cscale.data_ptr() if q8 else None,
-        int(q8), int(vec), nq, nc, d, limit, k, int(small), nsplit, per,
-        int(in_smem), part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), dev.index, _build.stream_of(c)), "sim_topk")
+    scales = (qscale.data_ptr() if q8 else None,
+              cscale.data_ptr() if q8 else None)
+    tail = (k, int(small), nsplit, per, int(in_smem), part_v.data_ptr(),
+            part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
+            _build.stream_of(c))
+    if counts is None:
+        err = lib.sim_topk_launch(q.data_ptr(), c.data_ptr(), *scales,
+                                  int(q8), int(vec), nq, nc, d, limit, *tail)
+    else:
+        err = lib.sim_topk_multi_launch(q.data_ptr(), c.data_ptr(), *scales,
+                                        int(vec), nq, nc, d,
+                                        counts.data_ptr(), n_pol, *tail)
+    _build.check(err, "sim_topk")
     return vals, idx
 
 
@@ -188,4 +214,93 @@ def sim_topk_q8(q8: torch.Tensor, qscale: torch.Tensor, c8: torch.Tensor,
         raise ValueError(f"sim_topk_q8: unsupported device {dev}")
     out = _topk_launch(q8, c8, qscale, cscale, n_valid, k)
     topk_q8_launches += 1
+    return out
+
+
+def _check_counts(n_valid: torch.Tensor, n_pol: int,
+                  device: torch.device) -> None:
+    if not isinstance(n_valid, torch.Tensor):
+        raise ValueError("n_valid: expected a (P,) int32 tensor")
+    _check("n_valid", n_valid, torch.int32, 1, device)
+    if n_pol < 1 or n_valid.shape[0] != n_pol:
+        raise ValueError(f"n_valid: expected one count for each of the "
+                         f"{n_pol} (>= 1) slabs, got {n_valid.shape[0]}")
+
+
+def sim_top1_multi(queries: torch.Tensor, slabs: torch.Tensor,
+                   n_valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Policy-stacked Top-1: queries (B, D) f32, slabs (P, S, D) f32,
+    n_valid (P,) int32 on the slabs' device -> (vals (P, B) f32,
+    idx (P, B) i32).  Slice p is :func:`sim_top1` of slab p under count
+    ``n_valid[p]`` (bit-equal on the card), from ONE launch: the policy is
+    a grid axis and the kernel reads each count itself."""
+    global multi_launches
+    dev = slabs.device
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("slabs", slabs, torch.float32, 3, dev)
+    n_pol, n_slots, d = slabs.shape
+    _check_counts(n_valid, n_pol, dev)
+    if queries.shape[1] != d:
+        raise ValueError(f"width mismatch: {tuple(queries.shape)} vs "
+                         f"{tuple(slabs.shape)}")
+    if dev.type == "cpu":
+        return ref.sim_top1_multi_ref(queries, slabs, n_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"sim_top1_multi: unsupported device {dev}")
+    nq = queries.shape[0]
+    vals = torch.empty((n_pol, nq), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_pol, nq), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return vals, idx
+    if n_slots == 0:
+        return vals.fill_(float("-inf")), idx.zero_()
+    small = nq <= 16
+    # each policy gets the splits a single-slab launch would: P times the
+    # blocks, so the grid's last wave is a small share of it (fewer,
+    # longer splits measured slower on an H100, ``PERF.md``)
+    nsplit, per = split_plan(nq, n_slots, small)
+    part_v = torch.empty((n_pol, nsplit, nq), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((n_pol, nsplit, nq), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    _build.check(lib.sim_top1_multi_launch(
+        queries.data_ptr(), slabs.data_ptr(), nq, n_slots, d,
+        n_valid.data_ptr(), n_pol, int(small), nsplit, per,
+        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), dev.index, _build.stream_of(slabs)), "sim_top1_multi")
+    multi_launches += 1
+    return vals, idx
+
+
+def sim_topk_q8_multi(q8: torch.Tensor, qscale: torch.Tensor,
+                      slabs8: torch.Tensor, cscales: torch.Tensor,
+                      n_valid: torch.Tensor,
+                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Policy-stacked int8 Top-K: q8 (B, D) int8 with qscale (B,) f32,
+    slabs8 (P, S, D) int8 with cscales (P, S) f32, n_valid (P,) int32 on
+    the slabs' device -> (vals (P, B, K) f32, idx (P, B, K) i32).  Slice p
+    is :func:`sim_topk_q8` of slab p under count ``n_valid[p]``, from ONE
+    launch (the policy is a grid axis)."""
+    global topk_q8_multi_launches
+    dev = slabs8.device
+    _check("q8", q8, torch.int8, 2, dev)
+    _check("qscale", qscale, torch.float32, 1, dev)
+    _check("slabs8", slabs8, torch.int8, 3, dev)
+    _check("cscales", cscales, torch.float32, 2, dev)
+    n_pol, n_slots, d = slabs8.shape
+    _check_counts(n_valid, n_pol, dev)
+    if q8.shape[1] != d:
+        raise ValueError(f"width mismatch: {tuple(q8.shape)} vs "
+                         f"{tuple(slabs8.shape)}")
+    if qscale.shape[0] != q8.shape[0] \
+            or tuple(cscales.shape) != (n_pol, n_slots):
+        raise ValueError("one scale per row expected")
+    _check_k(k, n_slots)
+    if dev.type == "cpu":
+        return ref.sim_topk_q8_multi_ref(q8, qscale, slabs8, cscales,
+                                         n_valid, k)
+    if dev.type != "cuda":
+        raise ValueError(f"sim_topk_q8_multi: unsupported device {dev}")
+    out = _topk_launch(q8, slabs8, qscale, cscales, 0, k, counts=n_valid)
+    topk_q8_multi_launches += 1
     return out

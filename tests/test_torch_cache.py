@@ -259,14 +259,16 @@ def test_unported_features_raise_and_point_at_the_roadmap(field, value):
 
 
 def test_unported_backend_options_raise():
-    # the quantized and pruned lookups are ported; their policy-stacked
-    # arena surface and the sharded backend are not
-    for be in (NumpyBackend(quantized=True),
-               KernelBackend(device="cpu", pruned=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            be.top1_multi(None, np.zeros((1, DIM), np.float32))
+    # the quantized and pruned lookups and their policy-stacked arena
+    # surface are ported; the sharded backend is not, for the facade and
+    # for the arena alike
+    from repro_torch.core import OASSTConfig, oasst_style_trace, run_arena
+    from repro_torch.core.policies import BASELINES
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_backend("sharded")
+    tr = oasst_style_trace(OASSTConfig(trace_len=8, dim=DIM, seed=0))
+    with pytest.raises(NotImplementedError, match="A10"):
+        run_arena(tr, 4, {"LRU": BASELINES["LRU"]}, backend="sharded")
 
 
 def test_disabled_tier_config_is_single_tier(requests):

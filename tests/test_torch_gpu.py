@@ -271,3 +271,154 @@ def test_approximate_lookups_on_the_card_match_the_host_oracle(
         assert similarity_topk.topk_launches > before[0]
     if quant is not False and pruned is not True:
         assert similarity_topk.topk_q8_launches > before[1]
+
+
+# ------------------------------- policy-stacked kernels (B1/B5/B2 multi)
+def _counts(ns, dev):
+    return torch.tensor(ns, dtype=torch.int32, device=dev)
+
+
+# (Q, S, D, per-policy counts): P = 1, a policy with nothing resident,
+# one with every slot, Q off the tile multiples, D = 770 (not a multiple
+# of 16: the int8 kernel takes byte loads)
+_STACKED = [(1, 50, 32, (50,)), (7, 300, 64, (0, 300, 171)),
+            (37, 901, 96, (901, 0, 1, 450, 900)),
+            (130, 1_200, 770, (1_200, 7, 0)),
+            (512, 2_000, 768, (2_000, 1_999, 1_000, 0))]
+
+
+@pytest.mark.parametrize("nq,s,d,nv", _STACKED)
+def test_sim_top1_multi_matches_plain_and_single_launches(cuda, rng, nq, s,
+                                                          d, nv):
+    from repro_torch.kernels import ref, similarity_topk
+    q = _unit(rng, nq, d, cuda)
+    slabs = _unit(rng, len(nv) * s, d, cuda).view(len(nv), s, d)
+    counts = _counts(nv, cuda)
+    before = (similarity_topk.multi_launches, similarity_topk.launches)
+    v, i = similarity_topk.sim_top1_multi(q, slabs, counts)
+    assert (similarity_topk.multi_launches, similarity_topk.launches) == \
+        (before[0] + 1, before[1])
+    assert v.shape == i.shape == (len(nv), nq)
+    pv, pi = ref.sim_top1_multi_ref(q, slabs, counts)
+    assert torch.equal(torch.isneginf(v), torch.isneginf(pv))
+    fin = torch.isfinite(pv)
+    if fin.any():
+        assert float((v - pv)[fin].abs().max()) <= 1e-5
+    for p, n in enumerate(nv):
+        # each slice is bit-equal to a single-slab launch on that slab
+        sv, si = similarity_topk.sim_top1(q, slabs[p].contiguous(), n)
+        assert torch.equal(v[p], sv) and torch.equal(i[p], si)
+        if n == 0:
+            assert int(i[p].abs().sum()) == 0       # (-inf, 0) per row
+        elif n > 1:
+            top2 = (q @ slabs[p, :n].T).topk(2, dim=1).values
+            clear = top2[:, 0] - top2[:, 1] > 1e-4
+            assert torch.equal(i[p][clear], pi[p][clear])
+
+
+@pytest.mark.parametrize("nq,s,d,nv", _STACKED)
+def test_sim_topk_q8_multi_matches_plain_and_single_launches(cuda, rng, nq,
+                                                             s, d, nv):
+    from repro_torch.kernels import ref, similarity_topk
+    from repro_torch.kernels.quant import quantize_rows_int8
+    n_pol, k = len(nv), 8
+    q8n, qsn, _ = quantize_rows_int8(_unit(rng, nq, d, cuda).cpu().numpy())
+    c8n, csn, _ = quantize_rows_int8(
+        _unit(rng, n_pol * s, d, cuda).cpu().numpy())
+    q8, qs = torch.from_numpy(q8n).to(cuda), torch.from_numpy(qsn).to(cuda)
+    c8 = torch.from_numpy(c8n).to(cuda).view(n_pol, s, d)
+    cs = torch.from_numpy(csn).to(cuda).view(n_pol, s)
+    counts = _counts(nv, cuda)
+    before = (similarity_topk.topk_q8_multi_launches,
+              similarity_topk.topk_q8_launches)
+    v, i = similarity_topk.sim_topk_q8_multi(q8, qs, c8, cs, counts, k)
+    assert (similarity_topk.topk_q8_multi_launches,
+            similarity_topk.topk_q8_launches) == (before[0] + 1, before[1])
+    assert v.shape == i.shape == (n_pol, nq, k)
+    pv, pi = ref.sim_topk_q8_multi_ref(q8, qs, c8, cs, counts, k)
+    for p, n in enumerate(nv):
+        _assert_topk(v[p], i[p], pv[p], pi[p], exact_values=True)
+        sv, si = similarity_topk.sim_topk_q8(q8, qs, c8[p].contiguous(),
+                                             cs[p].contiguous(), n, k)
+        assert torch.equal(v[p], sv) and torch.equal(i[p], si)
+
+
+@pytest.mark.parametrize("p,n,t", [(1, 1, 1), (3, 777, 33), (15, 6_852,
+                                                             4_096)])
+def test_victim_value_multi_matches_plain_and_single_launches(cuda, rng, p,
+                                                              n, t):
+    from repro_torch.kernels import decision, ref
+
+    def dev(x):
+        return torch.from_numpy(x).to(cuda)
+    tsi = dev(rng.random((p, n)).astype(np.float32))
+    tid = dev(rng.integers(-1, t, (p, n)).astype(np.int32))
+    occ = dev(rng.integers(0, 2, (p, n)).astype(np.int32))
+    tp = dev((rng.random((p, t)) * 10).astype(np.float32))
+    tl = dev(rng.integers(0, 1000, (p, t)).astype(np.int32))
+    before = (decision.multi_launches, decision.launches)
+    got = decision.victim_value_multi(tsi, tid, occ, tp, tl, 1500, 0.001)
+    assert (decision.multi_launches, decision.launches) == \
+        (before[0] + 1, before[1])
+    want = ref.victim_value_multi_ref(tsi, tid, occ, tp, tl, 1500, 0.001)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got[occ > 0], want[occ > 0], rtol=1e-6,
+                               atol=0)
+    for j in range(p):
+        one = decision.victim_value(tsi[j], tid[j], occ[j], tp[j], tl[j],
+                                    1500, 0.001)
+        assert torch.equal(got[j], one)
+
+
+def test_stacked_wrappers_never_take_the_plain_version_on_the_card(
+        cuda, rng, monkeypatch):
+    from repro_torch.kernels import decision, ref, similarity_topk
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    for name in ("sim_top1_multi_ref", "sim_topk_q8_multi_ref",
+                 "victim_value_multi_ref", "sim_top1_ref", "sim_topk_q8_ref",
+                 "victim_value_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    counts = _counts((30, 0), cuda)
+    similarity_topk.sim_top1_multi(_unit(rng, 4, 64, cuda),
+                                   _unit(rng, 60, 64, cuda).view(2, 30, 64),
+                                   counts)
+    similarity_topk.sim_topk_q8_multi(
+        torch.zeros((4, 64), dtype=torch.int8, device=cuda),
+        torch.ones(4, device=cuda),
+        torch.zeros((2, 30, 64), dtype=torch.int8, device=cuda),
+        torch.ones((2, 30), device=cuda), counts, 5)
+    z = torch.zeros((2, 30), dtype=torch.int32, device=cuda)
+    decision.victim_value_multi(torch.ones((2, 30), device=cuda), z, z,
+                                torch.ones((2, 4), device=cuda),
+                                torch.zeros((2, 4), dtype=torch.int32,
+                                            device=cuda), 3, 0.1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("approx", [{}, {"quantized": True},
+                                    {"pruned": True},
+                                    {"quantized": True, "pruned": True}])
+def test_arena_on_the_card_matches_the_host_oracle(cuda, approx):
+    from repro_torch.core import (OASSTConfig, default_factories,
+                                  oasst_style_trace, run_arena)
+    from repro_torch.kernels import similarity_topk
+    tr = oasst_style_trace(OASSTConfig(trace_len=1_500, dim=128, seed=4))
+    similarity_topk.multi_launches = 0
+    similarity_topk.topk_q8_multi_launches = 0
+    out = {}
+    for backend, device in (("kernel", "cuda"), ("numpy", "cpu")):
+        stats = run_arena(tr, 120, default_factories(seed=0),
+                          hit_mode="semantic", backend=backend,
+                          device=device, chunk=128, **approx)
+        out[backend] = [(s.policy, s.hits, s.misses, s.evictions)
+                        for s in stats]
+    assert out["kernel"] == out["numpy"]
+    assert len(out["kernel"]) == 15
+    assert all(e > 0 for *_, e in out["numpy"])
+    n_chunks = -(-1_500 // 128)
+    if not approx:
+        assert similarity_topk.multi_launches == n_chunks
+    elif approx == {"quantized": True}:
+        assert similarity_topk.topk_q8_multi_launches == n_chunks

@@ -46,10 +46,12 @@ def test_sources_name_no_jax_and_no_reference_module():
 
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.quant", "repro_torch.kernels.fused",
-    "repro_torch.cache.quantized", "repro_torch.cache.pruned"])
+    "repro_torch.cache.quantized", "repro_torch.cache.pruned",
+    "repro_torch.core.policies", "repro_torch.core.arena"])
 def test_approximate_lookup_modules_stand_alone(module):
-    """The modules of the approximate lookups import alone, with neither
-    JAX nor the reference package (whose numpy-only twins they copy)."""
+    """The modules of the approximate lookups, the baselines and the
+    arena import alone, with neither JAX nor the reference package (whose
+    numpy-only twins they copy)."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
