@@ -54,10 +54,34 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                launched.
   8. approx main - that warmed cache is checkpointed and restored into an
                exact and a quantized+pruned (defaults) cache, which replay
-               the trace's last 1,000 requests one by one (the fused path
+               the next 500 requests one by one (the fused path
                at b = 1) and then peek 512 queries at once (the staged
                path): identical events and hit cids; B4, B5 and B1 with a
                count on the card must have launched.
+  9. attention - B8 (flash_attention) and B9 (decode_attention) against
+               their plain versions on the card (bf16 within one bf16 ulp,
+               2^-7 of the value plus 1e-6; fp32 within 2e-5), then timed
+               beside the library yardstick (scaled_dot_product_attention
+               for B8; none for B9): B8 at bf16 (B,H,Hkv,S,D) =
+               (1,15,5,4096,64) and (2,15,5,1000,64), fp32 (1,8,2,513,128),
+               and the kernel alone at S = 32,768; B9 at bf16
+               (8,15,5,512,64), (8,15,5,2048,64) and (128,15,5,32768,64)
+               with seeded pos including 0 and S_max - 1.
+ 10. model   - the paper's served LM (configs/paper.py: 32 layers, d_model
+               960, 15/5 heads of 64, bf16) on the card from a seeded
+               generator: prefill and forward of B=2 x 1,000 tokens through
+               B8 against the same model on plain attention, then the same
+               tokens teacher-forced one at a time through decode_step (B9,
+               a 1,024-position cache) against forward at every position;
+               B8 32 launches per forward, B9 32 per step.
+ 11. serve   - ServingEngine at that width (kernel cache backend, D=768,
+               capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
+               first SERVE_LEN requests of the synthetic trace
+               launch/serve.py uses, prompts of 32-480 tokens; replayed at
+               the same time on the host at smoke width (numpy backend) in
+               a worker process: identical hit/miss/admit/evict events,
+               cached flags and token counts; B1, B2 and B9 must have
+               launched.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -79,14 +103,15 @@ import torch  # noqa: E402
 DIM = 768                  # GPTCache's default ONNX embedder width
 CAPACITY = 65_536
 TRACE_LEN = 72_000
-CONT_LEN = 1_000           # the approximate continuation after the main run
+MAIN_LEN = 71_000          # the main replay: past capacity, so it evicts
+CONT_LEN = 500             # the approximate continuation after the main run
 CHUNK = 512
 PEEK = 512                 # one staged peek_batch of this many queries
 PARITY_LEN, PARITY_CAP = 8_000, 4_096
 APPROX_PARITY_LEN = 5_000  # the approximate-parity phase's prefix
 N_TOPICS = 4_096           # routing-table rows for the kernel check
 N_POL = 15                 # default_factories(): 11 baselines, Belady, 3 RAC
-ARENA_LEN = 12_000         # the arena's trace prefix (host-bound: its cost)
+ARENA_LEN = 8_000          # the arena's trace prefix (host-bound: its cost)
 ARENA_APPROX_LEN = 2_000   # the approximate arenas' shorter prefix
 ALPHA = 0.001
 TAU_HIT = 0.85             # CacheConfig's default hit threshold
@@ -108,6 +133,35 @@ PEAK_BYTES = 3.35e12
 
 SIM_TOL = 1e-5             # fp32 dot products summed in another order
 VALUE_RTOL = 1e-6          # exp2f and the product order match the plain one
+# attention outputs: fp32 sums in another order; in bf16 both round fp32
+# values that agree to ~1e-6, so at most one bf16 ulp apart (2^-7 |x|
+# bounds one ulp of x) plus that noise near zero
+ATT_F32_TOL = 2e-5
+PEAK_BF16 = 989e12         # dense bf16 on the tensor cores
+
+# B8 at the model's prefill shapes, (B, H, Hkv, S, D), dtype, timing reps;
+# the last is prefill_32k's length, where the plain version does not fit
+FLASH_SHAPES = [((1, 15, 5, 4096, 64), torch.bfloat16, 5),
+                ((2, 15, 5, 1000, 64), torch.bfloat16, 20),
+                ((1, 8, 2, 513, 128), torch.float32, 20),
+                ((1, 15, 5, 32768, 64), torch.bfloat16, 2)]
+PLAIN_MAX_S = 8192         # the plain B8 materialises (B, H, S, S) fp32
+# B9, bf16, (B, H, Hkv, S_max, D) and timing reps: the engine's 8 slots,
+# a longer cache, and SHAPES["decode_32k"]'s batch and length (one layer)
+DECODE_SHAPES = [((8, 15, 5, 512, 64), 50), ((8, 15, 5, 2048, 64), 50),
+                 ((128, 15, 5, 32768, 64), 5)]
+MODEL_ARCH = "paper"       # configs/paper.py: the paper's served LM
+SMOKE_MODEL = False        # True: its smoke_variant (CPU rehearsals only)
+PREFILL_B, PREFILL_S = 2, 1_000
+DECODE_MAX_SEQ = 1_024
+SERVE_LEN = 128            # requests the serve phase answers (3,314 decode
+                           # steps at ~35-60 ms each, host-bound)
+SERVE_DIM = 768
+# full-width bf16 logits (max |logit| ~3.3): the kernels' and the plain
+# versions' roundings, and decode's and forward's GEMM shapes, differ in
+# the last bf16 bit of some activations, and that spreads over 32 layers;
+# measured 0.055 for both comparisons (NVIDIA H100 80GB HBM3, 700 W)
+LOGIT_TOL = 0.1
 
 
 def log(*a):
@@ -174,14 +228,17 @@ def graph_ms(fn, reps: int) -> float:
     return _elapsed_ms(g.replay) / reps
 
 
-def timings(kernel, plain, library, reps: int) -> dict:
-    """Device time per call of the kernel, its plain version and the
-    library yardstick (CUDA graphs), and the kernel's eager time."""
+def timings(kernel, plain, library, reps: int,
+            plain_reps: int | None = None) -> dict:
+    """Device time per call of the kernel, its plain version (None where it
+    does not fit) and the library yardstick (CUDA graphs), and the
+    kernel's eager time."""
     for fn in (plain, library):
         if fn is not None:
             fn()                                # warm-up off the capture
     return {"eager_ms": event_ms(kernel, reps), "ms": graph_ms(kernel, reps),
-            "plain_ms": graph_ms(plain, reps),
+            "plain_ms": None if plain is None
+            else graph_ms(plain, plain_reps or reps),
             "library_ms": None if library is None else graph_ms(library, reps)}
 
 
@@ -881,14 +938,14 @@ def phase_arena(trace):
 
 
 def phase_main(trace):
-    """The batched replay of all but the trace's last CONT_LEN requests,
-    on a cache the smoke keeps for the approximate continuation."""
+    """The batched replay of the trace's first MAIN_LEN requests, on a
+    cache the smoke keeps for the approximate continuation."""
     from repro_torch.cache import CacheConfig, SemanticCache
     from repro_torch.core import make_rac, replay_batched
     from repro_torch.kernels import decision, ops, rac_value, similarity_topk
     wrappers = {"sim_top1": similarity_topk, "victim_value": decision,
                 "rac_value": rac_value}
-    reqs = trace.requests[:len(trace.requests) - CONT_LEN]
+    reqs = trace.requests[:MAIN_LEN]
     cache = SemanticCache(CacheConfig(capacity=CAPACITY, dim=DIM,
                                       device=DEVICE),
                           policy_factory=make_rac())
@@ -981,8 +1038,9 @@ def phase_approx_main(trace, warm):
     state = warm.checkpoint()
     log(f"approx main: checkpoint of {len(warm)} entries "
         f"{time.perf_counter() - t0:.1f}s")
-    cont = trace.requests[len(trace.requests) - CONT_LEN:]
-    peek = np.stack([r.emb for r in cont[:PEEK]]).astype(np.float32)
+    cont = trace.requests[MAIN_LEN:MAIN_LEN + CONT_LEN]
+    peek = np.stack([r.emb for r in trace.requests[MAIN_LEN:MAIN_LEN + PEEK]]
+                    ).astype(np.float32)
     counters = ("topk_launches", "topk_q8_launches", "launches",
                 "dev_n_valid_launches")
     runs = {}
@@ -1056,6 +1114,353 @@ def phase_approx_main(trace, warm):
     return kl
 
 
+def attn_err(out: torch.Tensor, plain: torch.Tensor, label: str) -> float:
+    """Max |kernel - plain| in fp32, held to the stated tolerance (one bf16
+    ulp for bf16 outputs, ATT_F32_TOL for fp32)."""
+    err = (out.float() - plain.float()).abs()
+    if out.dtype == torch.bfloat16:
+        ok = bool((err <= 2.0 ** -7 * plain.float().abs() + 1e-6).all())
+    else:
+        ok = bool((err <= ATT_F32_TOL).all())
+    if not ok:
+        raise AssertionError(f"{label}: max |err| {float(err.max())} "
+                             "beyond the tolerance")
+    return float(err.max())
+
+
+def _randn(gen, shape, dtype):
+    """Standard normal draws made on the device (the largest B9 inputs are
+    5.4 GB of fp32 draws), then cast."""
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def phase_attention():
+    """B8 and B9 against their plain versions at the model's shapes, then
+    timed beside the library yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    gen = torch.Generator(DEVICE).manual_seed(2)
+    rng = np.random.default_rng(2)
+    b8 = []
+    for (b, h, hkv, s, d), dtype, reps in FLASH_SHAPES:
+        q = _randn(gen, (b, h, s, d), dtype)
+        k = _randn(gen, (b, hkv, s, d), dtype)
+        v = _randn(gen, (b, hkv, s, d), dtype)
+        label = f"B={b} H={h} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}"
+        run = (lambda q=q, k=k, v=v:
+               flash_attention.flash_attention(q, k, v))
+        fits = s <= PLAIN_MAX_S
+        plain = (lambda q=q, k=k, v=v: ref.attention_ref(q, k, v)) \
+            if fits else None
+        out = run()
+        err = attn_err(out, plain(), label) if fits else None
+        elt = q.element_size()
+        nb, op = bound((2 * b * h * s * d + 2 * b * hkv * s * d) * elt,
+                       2.0 * b * h * d * s * (s + 1),
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        b8.append({"shape": label, "max_abs_err": err, "bound_ms": nb,
+                   "bound_by": op, **timings(
+                       run, plain,
+                       lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True),
+                       reps, 3)})
+        log(f"flash_attention {label}: " + json.dumps(b8[-1]))
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    b9 = []
+    for (b, h, hkv, s, d), reps in DECODE_SHAPES:
+        q = _randn(gen, (b, h, d), torch.bfloat16)
+        k = _randn(gen, (b, s, hkv, d), torch.bfloat16)
+        v = _randn(gen, (b, s, hkv, d), torch.bfloat16)
+        pos_np = rng.integers(0, s, b).astype(np.int32)
+        pos_np[0], pos_np[-1] = 0, s - 1
+        pos = torch.from_numpy(pos_np).to(DEVICE)
+        label = f"B={b} H={h} Hkv={hkv} S_max={s} D={d} bf16"
+        run = (lambda q=q, k=k, v=v, pos=pos:
+               decode_attention.decode_attention(q, k, v, pos))
+        plain = (lambda q=q, k=k, v=v, pos=pos:
+                 ref.decode_attention_ref(q, k, v, pos))
+        err = attn_err(run(), plain(), label)
+        keys = int(np.minimum(pos_np.astype(np.int64) + 1, s).sum())
+        nb, op = bound(2 * keys * hkv * d * 2 + 2 * b * h * d * 2 + 4 * b,
+                       4.0 * keys * h * d, PEAK_BF16)
+        b9.append({"shape": label + f" sum(pos+1)={keys}",
+                   "max_abs_err": err, "bound_ms": nb, "bound_by": op,
+                   **timings(run, plain, None, reps,
+                                  3 if s > 4096 else reps)})
+        log(f"decode_attention {label}: " + json.dumps(b9[-1]))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return b8, b9
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention on the plain versions (the comparison run)."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention = ref.attention_ref
+    ops.decode_attention = ref.decode_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def model_config():
+    """The served LM's config (its smoke variant in CPU rehearsals)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke_variant
+    cfg = get_config(MODEL_ARCH)
+    return smoke_variant(cfg) if SMOKE_MODEL else cfg
+
+
+def phase_model():
+    """The paper's LM at full width in bf16: prefill/forward through B8
+    against plain attention, and teacher-forced decode through B9 against
+    forward."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import Model, make_prefill_step
+    cfg = model_config()
+    model = Model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    n_par = sum(t.numel() for blk in params["blocks"] for p in blk.values()
+                for t in p.values()) + sum(
+        t.numel() if torch.is_tensor(t) else t["scale"].numel()
+        for t in params["emb"].values())
+    log(f"model: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} {cfg.param_dtype}, "
+        f"{n_par} parameters, init {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(DEVICE)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    prefill(params, batch)                    # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    if prefill_launches != cfg.n_layers:
+        raise AssertionError(f"prefill: B8 launched {prefill_launches} "
+                             f"times, not {cfg.n_layers}")
+    flash_attention.launches = 0
+    full = model.forward(params, batch)
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError("forward: B8 did not launch once per layer")
+    with plain_attention():
+        want = model.forward(params, batch)
+    torch.cuda.synchronize()
+    if not torch.equal(last, full[:, -1]):
+        raise AssertionError("prefill differs from forward's last row")
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("forward: non-finite logits")
+    d_plain = float((full.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    log(f"model prefill: B={PREFILL_B} S={PREFILL_S} "
+        f"{PREFILL_B * PREFILL_S / prefill_s:.0f} tokens/s "
+        f"({prefill_s * 1e3:.1f} ms), max |logit| {scale:.3f}, "
+        f"max |B8 - plain| {d_plain:.5f} (tolerance {LOGIT_TOL})")
+    if not d_plain <= LOGIT_TOL:
+        raise AssertionError(f"prefill: logits {d_plain} off the plain "
+                             "attention model's")
+
+    cache = model.init_cache(PREFILL_B, DECODE_MAX_SEQ)
+    decode_attention.launches = 0
+    errs = torch.zeros(PREFILL_S, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(PREFILL_S):
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((PREFILL_B,), p, dtype=torch.int32,
+                              device=DEVICE)})
+        errs[p] = (logits.float() - full[:, p].float()).abs().max()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if decode_attention.launches != cfg.n_layers * PREFILL_S:
+        raise AssertionError(f"decode: B9 launched "
+                             f"{decode_attention.launches} times over "
+                             f"{PREFILL_S} steps of {cfg.n_layers} layers")
+    d_dec = float(errs.max())
+    log(f"model decode: {PREFILL_S} teacher-forced steps of B={PREFILL_B} "
+        f"in {decode_s:.2f}s ({PREFILL_B * PREFILL_S / decode_s:.0f} "
+        f"tokens/s, {decode_s / PREFILL_S * 1e3:.2f} ms/step), max "
+        f"|decode - forward| {d_dec:.5f} at position "
+        f"{int(errs.argmax())} (tolerance {LOGIT_TOL}), mean "
+        f"{float(errs.mean()):.5f}")
+    if not d_dec <= LOGIT_TOL:
+        raise AssertionError(f"decode: logits {d_dec} off forward's")
+    step_profile(lambda: model.decode_step(params, cache, {
+        "tokens": tokens[:, :1], "pos": torch.full(
+            (PREFILL_B,), PREFILL_S - 1, dtype=torch.int32, device=DEVICE)}))
+    del params, cache, full, want
+    torch.cuda.empty_cache()
+    return prefill_launches
+
+
+def step_profile(step) -> None:
+    """One decode step under torch.profiler: its CUDA kernels, their summed
+    device time against the step's wall (the card's busy share), and the
+    aten dispatches the host made."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    aten = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("aten::"))
+    log(f"model decode step (profiled): {len(kernels)} CUDA kernels, "
+        f"device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (busy "
+        f"share {busy / (wall * 1e3):.4f}), {aten} aten dispatches")
+
+
+def serve_requests(vocab: int, n: int):
+    """The serve phase's ``n`` requests: the trace launch/serve.py uses at
+    the main path's embedder width, prompts of 32-480 tokens below
+    ``vocab``."""
+    from repro_torch.core import SynthConfig, synthetic_trace
+    trace = synthetic_trace(SynthConfig(trace_len=n, n_topics=24,
+                                        dim=SERVE_DIM, seed=0))
+    rng = np.random.default_rng(0)
+    return [(r.cid, r.emb, [int(t) for t in rng.integers(
+        2, vocab, size=int(rng.integers(32, 481)))])
+        for r in trace.requests[:n]]
+
+
+def _serve_engine_config(device: str, backend: str):
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(cache_backend=backend, device=device,
+                        emb_dim=SERVE_DIM, cache_capacity=64, max_batch=8,
+                        max_seq=512, max_new_tokens=16)
+
+
+def _serve_outcome(engine, events, done) -> dict:
+    s = engine.stats
+    return {"events": events,
+            "requests": [(r.rid, r.cid, r.cached, len(r.out_tokens))
+                         for r in done],
+            "stats": {k: s[k] for k in ("hits", "misses", "evictions",
+                                        "generated_tokens", "batches")}}
+
+
+def _serve_host(n: int):
+    """The serve phase's host replay of ``n`` requests at smoke width, in a
+    worker."""
+    torch.set_num_threads(2)
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke_variant
+    from repro_torch.serving import ServingEngine
+    cfg = smoke_variant(get_config(MODEL_ARCH))
+    engine = ServingEngine(cfg, _serve_engine_config("cpu", "numpy"),
+                           generator=torch.Generator().manual_seed(0))
+    events = record(engine.cache)
+    t0 = time.perf_counter()
+    done = engine.run(serve_requests(cfg.vocab_size, n))
+    out = _serve_outcome(engine, events, done)
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_serve():
+    """The serving engine at the paper LM's full width on the card, held
+    to the host replay's decisions."""
+    from repro_torch.kernels import (decision, decode_attention, rac_value,
+                                     similarity_topk)
+    from repro_torch.models import smoke_variant
+    from repro_torch.serving import ServingEngine
+    cfg = model_config()
+    with _workers(1, 2) as pool:
+        host = pool.submit(_serve_host, SERVE_LEN)
+        engine = ServingEngine(cfg, _serve_engine_config(DEVICE, "kernel"),
+                               generator=torch.Generator(
+                                   DEVICE).manual_seed(0))
+        events = record(engine.cache)
+        reqs = serve_requests(smoke_variant(cfg).vocab_size, SERVE_LEN)
+        # where the wall goes: the model's decode steps (synchronised
+        # inside the timer) against the cache's calls
+        split = {"model": 0.0, "cache": 0.0}
+        decode = engine.decode
+
+        def timed_decode(*a):
+            t = time.perf_counter()
+            out = decode(*a)
+            torch.cuda.synchronize()
+            split["model"] += time.perf_counter() - t
+            return out
+        engine.decode = timed_decode
+        for name in ("decide_batch", "peek_rows", "lookup", "admit",
+                     "flush"):
+            fn = getattr(engine.cache, name)
+
+            def wrap(*a, _fn=fn, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    split["cache"] += time.perf_counter() - t
+            setattr(engine.cache, name, wrap)
+        counters = ((similarity_topk, "launches"), (decision, "launches"),
+                    (rac_value, "launches"), (decode_attention, "launches"))
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {mod.__name__.split(".")[-1]: getattr(mod, attr)
+                    for mod, attr in counters}
+        peak = torch.cuda.max_memory_allocated()
+        got = _serve_outcome(engine, events, done)
+        want = host.result()
+    st = got["stats"]
+    n = len(reqs)
+    log(f"serve: {n} requests in {wall:.2f}s ({n / wall:.2f} req/s), "
+        f"{st['batches']} decode steps ({wall / max(1, st['batches']) * 1e3:.2f}"
+        f" ms/step), {st['generated_tokens']} generated tokens "
+        f"({st['generated_tokens'] / wall:.1f}/s), hits {st['hits']} misses "
+        f"{st['misses']} evictions {st['evictions']} hit_ratio "
+        f"{st['hits'] / max(1, st['hits'] + st['misses']):.4f}, peak device "
+        f"bytes {peak}")
+    log(f"serve: wall split model {split['model']:.2f}s, cache "
+        f"{split['cache']:.2f}s, other "
+        f"{wall - split['model'] - split['cache']:.2f}s; kernel launches "
+        f"{json.dumps(launches)}; host replay (smoke width, numpy) "
+        f"{want['wall']:.2f}s")
+    for key in ("stats", "requests", "events"):
+        if got[key] != want[key]:
+            detail = (first_diff(got[key], want[key]) if key != "stats"
+                      else f"{got[key]} vs {want[key]}")
+            raise AssertionError(f"serve: {key} differ from the host "
+                                 f"replay's: {detail}")
+    if st["hits"] == 0 or st["evictions"] == 0:
+        raise AssertionError("serve: no hits or no evictions")
+    missing = [k for k in ("similarity_topk", "decision", "decode_attention")
+               if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"serve: kernels never launched: {missing}")
+    if launches["decode_attention"] != st["batches"] * cfg.n_layers:
+        raise AssertionError("serve: B9 did not launch once per layer and "
+                             "decode step")
+    log(f"serve: {len(got['events'])} events, {n} cached flags and token "
+        "counts identical to the host replay's")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     kind = phase_device()
@@ -1069,6 +1474,7 @@ def main():
         f"({time.perf_counter() - t0:.1f}s)")
     sim, values, (b4, b5, b1d) = phase_kernels(trace)
     m1, m5, m2 = phase_multi(trace)
+    b8, b9 = phase_attention()
     log(f"kernels: {time.perf_counter() - t_start:.1f}s")
     phase_parity(trace)
     log(f"parity: {time.perf_counter() - t_start:.1f}s")
@@ -1079,6 +1485,13 @@ def main():
     launches, warm = phase_main(trace)
     log(f"main: {time.perf_counter() - t_start:.1f}s")
     approx = phase_approx_main(trace, warm)
+    del warm
+    torch.cuda.empty_cache()
+    log(f"approx main: {time.perf_counter() - t_start:.1f}s")
+    fa_launches = phase_model()
+    log(f"model: {time.perf_counter() - t_start:.1f}s")
+    serve = phase_serve()
+    log(f"serve: {time.perf_counter() - t_start:.1f}s")
 
     src = "src/repro_torch/csrc/"
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1088,7 +1501,8 @@ def main():
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": "src/repro/kernels/" + replaces,
                 "launches": n_launch, **{k: shapes[0][k] for k in keys},
-                "max_abs_err": max(x["max_abs_err"] for x in shapes),
+                "max_abs_err": max(x["max_abs_err"] for x in shapes
+                                   if x["max_abs_err"] is not None),
                 "library_call": library_call, "shapes": shapes}
 
     rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
@@ -1117,7 +1531,13 @@ def main():
             "torch._int_mm over the flat (P*S, D) int8 slab (product only; "
             "Q padded to 32 rows at Q=16, the first rows in 8s)"),
         row("victim_value_multi", "victim_value.cu", "decision.py:79",
-            arena["victim_value_multi"], m2, None)]
+            arena["victim_value_multi"], m2, None),
+        row("flash_attention", "flash_attention.cu", "flash_attention.py:56",
+            fa_launches, b8,
+            "torch.nn.functional.scaled_dot_product_attention(is_causal="
+            "True, enable_gqa=True)"),
+        row("decode_attention", "decode_attention.cu",
+            "decode_attention.py:53", serve["decode_attention"], b9, None)]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -41,9 +41,15 @@ their exact-scan fallbacks reach the tracker as the
 ``metrics_snapshot()`` always carries their ``quant`` and ``prune``
 ledgers (zeroed when the paths are off).
 
+Policies: ``cfg.policy`` is ``"RAC"`` or any of the 16 baselines of
+:data:`repro_torch.core.policies.BASELINES`.  Admission is synchronous and
+single-tier, so ``flush``/``drain`` and ``close`` are no-ops, nothing is
+ever ``in_host``, ``pending_admits`` is 0 and ``tier_stats`` is empty, as
+in the reference's synchronous single-tier form.
+
 Not ported yet (each raises ``NotImplementedError``, see ``ROADMAP.md``):
-asynchronous admission, the host/ghost tiers behind the facade, the
-baseline policies and ``"RadixRAC"``.
+asynchronous admission, the host/ghost tiers behind the facade, and
+``"RadixRAC"``.
 
 :func:`load_reference_state` fills a cache from the plain-array state of
 another implementation's cache (the reference's, in the tests), so a
@@ -89,7 +95,8 @@ def _make_policy(cfg: CacheConfig, store: ResidentStore):
         return RACPolicy(cfg.capacity, store, **cfg.policy_kwargs)
     if cfg.policy == "RadixRAC":
         raise _not_ported("policy 'RadixRAC'", "9")
-    raise _not_ported(f"policy {cfg.policy!r}", "2")
+    from repro_torch.core.policies import BASELINES
+    return BASELINES[cfg.policy](cfg.capacity, store, **cfg.policy_kwargs)
 
 
 class SemanticCache:
@@ -204,6 +211,36 @@ class SemanticCache:
 
     def __contains__(self, cid: int) -> bool:
         return cid in self.store
+
+    def in_host(self, cid: int) -> bool:
+        """Whether ``cid`` lives in the host DRAM tier: never, single-tier."""
+        return False
+
+    @property
+    def tier_stats(self) -> dict:
+        """Per-tier counters (empty: single-tier)."""
+        return {}
+
+    @property
+    def pending_admits(self) -> int:
+        """Queued-but-unapplied admissions (0: admission is synchronous)."""
+        return 0
+
+    @property
+    def admit_stall_s(self) -> float:
+        """Producer-visible admission stall: the full insert+evict cost,
+        admission being synchronous."""
+        return self.metrics.admit_s
+
+    def flush(self) -> list[int]:
+        """Apply all queued admissions: none are ever queued, so this
+        evicts nothing and returns ``[]``."""
+        return []
+
+    drain = flush
+
+    def close(self):
+        """Release the admission worker: there is none (a no-op)."""
 
     @property
     def tracker(self):

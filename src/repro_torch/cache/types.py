@@ -81,7 +81,7 @@ class CacheConfig:
     tau_hit: float = 0.85
     hit_mode: str = "semantic"           # "semantic" | "content"
     backend: str = "kernel"              # "kernel" | "numpy"
-    policy: str = "RAC"                  # "RAC" (baselines: ROADMAP.md)
+    policy: str = "RAC"                  # "RAC" or a BASELINES name
     policy_kwargs: dict = dataclasses.field(default_factory=dict)
     device: str = "cuda"                 # kernel backend: "cuda" | "cpu"
     backend_kwargs: dict = dataclasses.field(default_factory=dict)

@@ -6,6 +6,9 @@ versions beside them.
     and fp32/int8 Top-K (the approximate lookups).
   - decision: occupancy-masked Eq. 1 victim scoring with a runtime t_now.
   - rac_value: per-eviction Eq. 1 scoring over the resident table.
+  - flash_attention / decode_attention: causal GQA prefill attention and
+    one-token decode attention over a KV cache, fp32 online softmax, for
+    the model stack (:mod:`repro_torch.models`).
 
 Top-1, int8 Top-K and the victim scoring also come policy-stacked
 (``sim_top1_multi``, ``sim_topk_q8_multi``, ``victim_value_multi``): P

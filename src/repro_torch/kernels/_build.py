@@ -23,7 +23,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("sim_top1.cu", "sim_topk.cu", "victim_value.cu", "rac_value.cu")
+SOURCES = ("sim_top1.cu", "sim_topk.cu", "victim_value.cu", "rac_value.cu",
+           "decode_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +51,10 @@ _SIGNATURES = {
     "victim_value_multi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _P, _I, _P],
     "rac_value_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _I, _P],
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                               _F, _I, _P],
 }
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from .decision import victim_value as _victim_value
+from .decode_attention import decode_attention as _decode_attention
+from .flash_attention import flash_attention as _flash_attention
 from .decision import victim_value_multi as _victim_value_multi
 from .rac_value import rac_value as _rac_value
 from .similarity_topk import sim_top1 as _sim_top1
@@ -262,6 +264,20 @@ def victim_value_multi(tsi, tid, occ, tp_last, t_last, t_now, *,
                                _as(tp_last, torch.float32, dev),
                                _as(t_last, torch.int32, dev), int(t_now),
                                float(alpha))
+
+
+@_counted
+def flash_attention(q, k, v):
+    """Causal GQA flash attention.  q (B,H,S,D); k/v (B,Hkv,S,D) ->
+    (B,H,S,D), any S (the kernel masks the ragged tail: no padding)."""
+    return _flash_attention(q, k, v)
+
+
+@_counted
+def decode_attention(q, k, v, pos):
+    """One-token GQA decode.  q (B,H,D); k/v (B,S,Hkv,D); pos (B,) int32
+    on the tensors' device (read there: no host sync) -> (B,H,D)."""
+    return _decode_attention(q, k, v, pos)
 
 
 @_counted

@@ -131,3 +131,41 @@ def victim_value_multi_ref(tsi: torch.Tensor, tid: torch.Tensor,
         victim_value_ref(tsi[p], tid[p], occ[p], tp_last[p], t_last[p],
                          t_now, alpha)
         for p in range(tsi.shape[0])])
+
+
+# -- attention: fp32 softmax, the reference's layouts ----------------------
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q (B,H,S,D); k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype.  Query head
+    ``h`` reads kv head ``h // (H/Hkv)``; scores, softmax and the weighted
+    sum are fp32.  Any strides."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    qf = q.to(torch.float32).reshape(b, hkv, g, s, d) / d ** 0.5
+    scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32))
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", w, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """One query token per batch row over a KV cache: q (B,H,D); k/v
+    (B,S,Hkv,D); pos (B,) the newest valid cache index (keys ``[0, pos]``
+    are attended; ``pos`` stays on its device, nothing reads it on the
+    host) -> (B,H,D) in q's dtype, fp32 softmax."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.to(torch.float32).reshape(b, hkv, g, d) / d ** 0.5
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32))
+    valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,9 @@
+"""The port's model stack: the dense decoder-only LMs on the hand-written
+attention kernels (B8 for prefill, B9 for decode)."""
+from .config import SHAPES, ModelConfig, ShapeConfig, smoke_variant
+from .model import Model, build_model, params_from_reference
+from .steps import make_decode_step, make_prefill_step
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "smoke_variant", "Model",
+           "build_model", "params_from_reference", "make_prefill_step",
+           "make_decode_step"]

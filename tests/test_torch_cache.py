@@ -251,7 +251,7 @@ def test_pagerank_power_matches_jax(rng, n):
 @pytest.mark.parametrize("field,value", [
     ("async_admit", True), ("async_admit", "sync"),
     ("tiers", TierConfig(host_capacity=8)),
-    ("policy", "LRU"), ("policy", "RadixRAC"), ("backend", "sharded")])
+    ("policy", "RadixRAC"), ("backend", "sharded")])
 def test_unported_features_raise_and_point_at_the_roadmap(field, value):
     kw = {"hit_mode": "semantic", "backend": "numpy", field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -422,3 +422,223 @@ def test_arena_on_the_card_matches_the_host_oracle(cuda, approx):
         assert similarity_topk.multi_launches == n_chunks
     elif approx == {"quantized": True}:
         assert similarity_topk.topk_q8_multi_launches == n_chunks
+
+
+# ---------------------------------------------------------------- attention
+# fp32 outputs: within 2e-5 of the plain version (fp32 sums in another
+# order); bf16 outputs: within one bf16 ulp of it (both round an fp32 value
+# that agrees to ~1e-6; 2^-7 |x| bounds one ulp of x), plus 1e-6 of that
+# fp32 noise near zero.
+def _attn_close(out, plain):
+    err = (out.float() - plain.float()).abs()
+    if out.dtype == torch.bfloat16:
+        ok = err <= 2.0 ** -7 * plain.float().abs() + 1e-6
+    else:
+        ok = err <= 2e-5
+    assert bool(ok.all()), f"max |err| {float(err.max())}"
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 1, 1, 1, 64), (1, 3, 1, 63, 64), (2, 15, 5, 200, 64),
+    (1, 8, 2, 513, 128), (2, 4, 1, 65, 128), (1, 12, 3, 1000, 64),
+    (3, 4, 4, 130, 64)])
+def test_flash_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
+                                              dtype):
+    from repro_torch.kernels import flash_attention, ref
+    q = _randn(rng, (b, h, s, d), dtype, cuda)
+    k = _randn(rng, (b, hkv, s, d), dtype, cuda)
+    v = _randn(rng, (b, hkv, s, d), dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _attn_close(out, ref.attention_ref(q, k, v))
+
+
+def test_flash_attention_kernel_takes_the_model_layout(cuda, rng):
+    """(B,S,H,D) projections passed as transpose(1, 2) views: the same
+    result as contiguous inputs, and the output keeps q's strides."""
+    from repro_torch.kernels import flash_attention
+    b, s, h, hkv, d = 2, 150, 6, 2, 64
+    q = _randn(rng, (b, s, h, d), torch.bfloat16, cuda)
+    k = _randn(rng, (b, s, hkv, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, s, hkv, d), torch.bfloat16, cuda)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = flash_attention.flash_attention(qt, kt, vt)
+    assert out.stride() == qt.stride()
+    assert out.transpose(1, 2).is_contiguous()
+    want = flash_attention.flash_attention(
+        *(x.contiguous() for x in (qt, kt, vt)))
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 1, 1, 1, 64), (8, 15, 5, 512, 64), (3, 4, 1, 257, 128),
+    (2, 8, 2, 33, 128), (5, 12, 3, 2048, 64), (128, 15, 5, 300, 64),
+    (4, 4, 4, 100, 64)])
+def test_decode_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
+                                               dtype):
+    from repro_torch.kernels import decode_attention, ref
+    q = _randn(rng, (b, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, hkv, d), dtype, cuda)
+    v = _randn(rng, (b, s, hkv, d), dtype, cuda)
+    pos = rng.integers(0, s, b).astype(np.int32)
+    pos[0] = 0
+    pos[-1] = s - 1
+    pos = torch.from_numpy(pos).to(cuda)
+    before = decode_attention.launches
+    out = decode_attention.decode_attention(q, k, v, pos)
+    assert decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _attn_close(out, ref.decode_attention_ref(q, k, v, pos))
+
+
+def test_decode_attention_reads_only_up_to_pos(cuda, rng):
+    """Keys past pos never reach the output: NaN there changes nothing."""
+    from repro_torch.kernels import decode_attention
+    b, s, hkv, h, d = 4, 700, 5, 15, 64
+    q = _randn(rng, (b, h, d), torch.bfloat16, cuda)
+    k = _randn(rng, (b, s, hkv, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, s, hkv, d), torch.bfloat16, cuda)
+    pos = torch.tensor([0, 5, 333, 698], dtype=torch.int32, device=cuda)
+    want = decode_attention.decode_attention(q, k, v, pos)
+    for i, p in enumerate(pos.tolist()):
+        k[i, p + 1:] = float("nan")
+        v[i, p + 1:] = float("nan")
+    assert torch.equal(decode_attention.decode_attention(q, k, v, pos), want)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda, rng):
+    from repro_torch.kernels import decode_attention, flash_attention
+    fa, da = flash_attention.flash_attention, decode_attention.decode_attention
+    q = _randn(rng, (1, 4, 10, 64), torch.float32, cuda)
+    kv = _randn(rng, (1, 2, 10, 64), torch.float32, cuda)
+    with pytest.raises(ValueError):                     # dtype
+        fa(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):                     # head dim
+        fa(q[..., :32], kv[..., :32], kv[..., :32])
+    with pytest.raises(ValueError):                     # H % Hkv
+        fa(q[:, :3], kv, kv)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        fa(q, kv.to(torch.bfloat16), kv)
+    qd = _randn(rng, (2, 4, 64), torch.float32, cuda)
+    cache = _randn(rng, (2, 16, 2, 64), torch.float32, cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                     # pos dtype
+        da(qd, cache, cache, pos.long())
+    with pytest.raises(ValueError):                     # contiguity
+        da(qd, cache.transpose(0, 1).contiguous().transpose(0, 1), cache,
+           pos)
+    with pytest.raises(ValueError):                     # head dim
+        da(qd[..., :32].contiguous(), cache[..., :32].contiguous(),
+           cache[..., :32].contiguous(), pos)
+    with pytest.raises(ValueError):                     # pos on the host
+        da(qd, cache, cache, pos.cpu())
+
+
+def test_attention_wrappers_never_take_the_plain_version_on_the_card(
+        cuda, rng, monkeypatch):
+    from repro_torch.kernels import ops, ref
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    for name in ("attention_ref", "decode_attention_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    ops.flash_attention(*(_randn(rng, (1, 2, 9, 64), torch.bfloat16, cuda)
+                          for _ in range(3)))
+    ops.decode_attention(_randn(rng, (1, 2, 64), torch.bfloat16, cuda),
+                         _randn(rng, (1, 9, 2, 64), torch.bfloat16, cuda),
+                         _randn(rng, (1, 9, 2, 64), torch.bfloat16, cuda),
+                         torch.tensor([4], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+
+
+def _card_model_cfg():
+    """A small dense config the card's kernels take (head dim 64, G = 3),
+    in fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke_variant
+    return dataclasses.replace(smoke_variant(get_config("paper")),
+                               n_heads=6, n_kv_heads=2, head_dim=64)
+
+
+def _move(tree, device):
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_move(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_model_on_the_card_matches_the_host(cuda):
+    """forward and teacher-forced decode_step on the card (B8, B9) against
+    the same parameters on the host (plain versions), fp32: logits within
+    1e-4; decode against forward at every position within 1e-4."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import Model
+    cfg = _card_model_cfg()
+    host = Model(cfg, "cpu")
+    params = host.init(torch.Generator().manual_seed(3))
+    card = Model(cfg, "cuda")
+    cparams = _move(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (2, 40)))
+    f0 = flash_attention.launches
+    full = card.forward(cparams, {"tokens": tokens})
+    assert flash_attention.launches == f0 + cfg.n_layers
+    want = host.forward(params, {"tokens": tokens})
+    assert float((full.cpu() - want).abs().max()) <= 1e-4
+    cache = card.init_cache(2, 48)
+    d0 = decode_attention.launches
+    for p in range(40):
+        logits, cache = card.decode_step(cparams, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((2,), p, dtype=torch.int32)})
+        assert float((logits - full[:, p]).abs().max()) <= 1e-4
+    assert decode_attention.launches == d0 + 40 * cfg.n_layers
+
+
+def test_engine_on_the_card_matches_the_host(cuda):
+    """The serving engine on the card (kernel backend, B1-B3 and B9) makes
+    the host engine's decisions and tokens (numpy backend, plain
+    versions), from the same fp32 parameters."""
+    from repro_torch.core import SynthConfig, synthetic_trace
+    from repro_torch.kernels import decode_attention
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = _card_model_cfg()
+    trace = synthetic_trace(SynthConfig(trace_len=40, n_topics=6, seed=2))
+    rng = np.random.default_rng(2)
+    reqs = [(r.cid, r.emb, list(rng.integers(2, cfg.vocab_size,
+                                             size=int(rng.integers(2, 9)))))
+            for r in trace.requests]
+    out = {}
+    params = None
+    for backend, device in (("numpy", "cpu"), ("kernel", "cuda")):
+        ecfg = EngineConfig(cache_capacity=12, max_new_tokens=4, max_batch=4,
+                            max_seq=32, cache_backend=backend, device=device)
+        eng = ServingEngine(cfg, ecfg,
+                            params=None if params is None
+                            else _move(params, device),
+                            generator=torch.Generator().manual_seed(5))
+        params = params or eng.params
+        d0 = decode_attention.launches
+        done = eng.run(reqs)
+        s = eng.stats
+        out[backend] = ([(r.rid, r.cached, tuple(r.out_tokens))
+                         for r in done],
+                        {k: s[k] for k in ("hits", "misses", "evictions",
+                                           "generated_tokens", "batches")})
+        if device == "cuda":
+            assert decode_attention.launches - d0 == \
+                s["batches"] * cfg.n_layers
+    assert out["kernel"] == out["numpy"]
+    assert out["numpy"][1]["hits"] > 0 and out["numpy"][1]["evictions"] > 0

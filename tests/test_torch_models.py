@@ -1,0 +1,225 @@
+"""The port's model stack against the JAX package's, on the CPU in fp32.
+
+The reference's parameters go through ``params_from_reference`` (both the
+scanned layout, blocks stacked on a leading L axis, and the unrolled
+list); ``forward``, ``prefill`` and ``decode_step`` logits must then agree
+with ``repro.models.Model``'s within 1e-4 (fp32 products summed in another
+order; the logits are O(1)).  Teacher-forced decode through the KV cache
+must reproduce the port's own forward at every position (1e-4, as
+``tests/test_models.py`` checks the reference's), and the families the port
+does not run raise ``NotImplementedError``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as R_ARCH_IDS
+from repro.configs import get_config as r_get_config
+from repro.configs import shape_cells as r_shape_cells
+from repro.models import SHAPES as R_SHAPES
+from repro.models import build_model as r_build_model
+from repro.models import smoke_variant as r_smoke
+from repro_torch.configs import ALIASES, ARCH_IDS, get_config, shape_cells
+from repro_torch.kernels import ops
+from repro_torch.models import (SHAPES, Model, build_model,
+                                make_decode_step, make_prefill_step,
+                                params_from_reference, smoke_variant)
+from repro_torch.models import layers as L
+
+ATOL = 1e-4
+DENSE = ["paper", "smollm-360m", "gemma-7b", "qwen1.5-110b",
+         "nemotron-4-340b"]
+
+
+def _cfgs(arch, **over):
+    """The reference's and the port's smoke config of ``arch``."""
+    rc = dataclasses.replace(r_smoke(r_get_config(arch)), **over)
+    tc = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+    return rc, tc
+
+
+def _reference_params(rc, seed=0):
+    params = r_build_model(rc).init(jax.random.PRNGKey(seed))
+    if rc.qkv_bias:
+        # the reference inits biases to zero: give them values to carry
+        rng = np.random.default_rng(seed)
+
+        def bias(a):
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape), a.dtype)
+        blocks = params["blocks"]
+        for blk in (blocks if isinstance(blocks, list) else [blocks]):
+            for name in ("bq", "bk", "bv"):
+                blk["attn"][name] = bias(blk["attn"][name])
+    return params
+
+
+def _tokens(cfg, b=2, s=12, seed=0):
+    return np.random.default_rng(seed).integers(2, cfg.vocab_size, (b, s))
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("arch", list(ALIASES))
+def test_configs_are_the_reference_configs(arch):
+    rc, tc = r_get_config(arch), get_config(arch)
+    assert dataclasses.asdict(rc) == dataclasses.asdict(tc)
+    assert tc.n_params() == rc.n_params()
+    assert tc.padded_vocab == rc.padded_vocab
+    assert shape_cells(tc) == r_shape_cells(rc)
+    rs, ts = _cfgs(arch)
+    assert dataclasses.asdict(rs) == dataclasses.asdict(ts)
+    assert tc.pdtype == getattr(torch, rc.param_dtype)
+
+
+def test_shapes_and_arch_ids_are_the_reference_ones():
+    assert ARCH_IDS == R_ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in R_SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_prefill_and_decode_match_the_reference(arch):
+    rc, tc = _cfgs(arch)
+    rparams = _reference_params(rc)
+    params = params_from_reference(jax.tree.map(np.asarray, rparams), tc,
+                                   "cpu")
+    rmodel, model = r_build_model(rc), build_model(tc, "cpu")
+    tok = _tokens(tc)
+    want = np.asarray(rmodel.forward(rparams, {"tokens": jnp.asarray(tok)}))
+    got = _np(model.forward(params, {"tokens": torch.from_numpy(tok)}))
+    assert got.shape == want.shape == (2, 12, tc.padded_vocab)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    last = _np(make_prefill_step(model)(params, {"tokens": tok}))
+    np.testing.assert_allclose(last, want[:, -1], atol=ATOL)
+
+    rcache, cache = rmodel.init_cache(2, 16), model.init_cache(2, 16)
+    step = make_decode_step(model)
+    for p in range(6):
+        batch = {"tokens": tok[:, p:p + 1],
+                 "pos": np.full(2, p, np.int32)}
+        rlogits, rcache = rmodel.decode_step(
+            rparams, rcache, {k: jnp.asarray(v) for k, v in batch.items()})
+        nxt, logits, cache = step(params, cache, batch)
+        np.testing.assert_allclose(_np(logits), np.asarray(rlogits),
+                                   atol=ATOL)
+        np.testing.assert_allclose(_np(logits), got[:, p], atol=ATOL)
+        assert np.array_equal(_np(nxt), _np(logits).argmax(-1))
+    # the caches hold the same K/V (reference (L,B,S,Hkv,D) layout)
+    np.testing.assert_allclose(_np(cache["kv"]["k"]),
+                               np.asarray(rcache["kv"]["k"]), atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ["paper", "qwen1.5-110b"])
+def test_scanned_reference_layout_carries_over(arch):
+    """The paper config's default layout: blocks stacked on a leading L
+    axis (``scan_layers=True``)."""
+    rc, tc = _cfgs(arch, scan_layers=True)
+    rparams = _reference_params(rc, seed=1)
+    assert isinstance(rparams["blocks"], dict)
+    params = params_from_reference(jax.tree.map(np.asarray, rparams), tc,
+                                   "cpu")
+    assert len(params["blocks"]) == tc.n_layers
+    tok = _tokens(tc, seed=1)
+    want = np.asarray(r_build_model(rc).forward(
+        rparams, {"tokens": jnp.asarray(tok)}))
+    got = _np(Model(tc, "cpu").forward(params, {"tokens": tok}))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_bf16_parameters_carry_over_exactly():
+    rc, tc = _cfgs("paper", param_dtype="bfloat16")
+    rparams = _reference_params(rc)
+    params = params_from_reference(jax.tree.map(np.asarray, rparams), tc,
+                                   "cpu")
+    w = params["blocks"][1]["attn"]["wq"]
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        w.to(torch.float32).numpy(),
+        np.asarray(rparams["blocks"][1]["attn"]["wq"], np.float32))
+
+
+def test_three_query_heads_per_kv_head():
+    """G = 3 (the paper model's 15/5 ratio) at smoke width."""
+    rc, tc = _cfgs("paper", n_heads=6, n_kv_heads=2)
+    rparams = _reference_params(rc, seed=2)
+    params = params_from_reference(jax.tree.map(np.asarray, rparams), tc,
+                                   "cpu")
+    tok = _tokens(tc, s=20, seed=2)
+    want = np.asarray(r_build_model(rc).forward(
+        rparams, {"tokens": jnp.asarray(tok)}))
+    got = _np(Model(tc, "cpu").forward(params, {"tokens": tok}))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_decode_matches_forward_over_a_long_prompt():
+    """Teacher forcing through the cache reproduces forward at every
+    position (tests/test_models.py's check, on the port alone)."""
+    tc = smoke_variant(get_config("paper"))
+    model = Model(tc, "cpu")
+    params = model.init(torch.Generator().manual_seed(4))
+    tok = torch.from_numpy(_tokens(tc, b=3, s=30, seed=4))
+    full = model.forward(params, {"tokens": tok})
+    cache = model.init_cache(3, 32)
+    d0 = ops.dispatch_stats["launches"]
+    for p in range(30):
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": tok[:, p:p + 1],
+            "pos": torch.full((3,), p, dtype=torch.int32)})
+        assert float((logits - full[:, p]).abs().max()) <= ATOL
+    # one decode-attention dispatch per layer and step
+    assert ops.dispatch_stats["launches"] - d0 == 30 * tc.n_layers
+
+
+def _shape_tree(t):
+    if isinstance(t, dict):
+        return {k: _shape_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_shape_tree(v) for v in t]
+    return tuple(t.shape)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_fresh_parameters_have_the_reference_shapes_and_scale(arch):
+    rc, tc = _cfgs(arch)
+    want = _shape_tree(r_build_model(rc).init(jax.random.PRNGKey(0)))
+    params = Model(tc, "cpu").init(torch.Generator().manual_seed(0))
+    assert _shape_tree(params) == want
+    std = float(params["blocks"][0]["mlp"]["wi"].std())
+    assert 0.018 < std < 0.022
+
+
+@pytest.mark.parametrize("arch", [a for a in R_ARCH_IDS
+                                  if r_get_config(a).family != "dense"])
+def test_other_families_raise(arch):
+    _, tc = _cfgs(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(tc, "cpu")
+    with pytest.raises(NotImplementedError):
+        params_from_reference({"emb": {}, "blocks": []}, tc, "cpu")
+
+
+def test_unported_attention_modes_raise():
+    tc = smoke_variant(get_config("paper"))
+    p = L.init_attention(tc, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    x = torch.zeros((1, 4, tc.d_model))
+    pos = torch.arange(4)[None]
+    for kw in ({"causal": False}, {"window": 2},
+               {"xattn_kv": torch.zeros((1, 3, tc.d_model))}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            L.attention_apply(p, tc, x, pos, **kw)
+
+
+def test_the_card_is_the_default_and_is_never_replaced(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tc = smoke_variant(get_config("paper"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(tc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_reference({"emb": {}, "blocks": []}, tc)
