@@ -61,8 +61,9 @@ Phases (any fault raises and exits non-zero; nothing is caught):
   9. attention - B8 (flash_attention) and B9 (decode_attention) against
                their plain versions on the card (bf16 within one bf16 ulp,
                2^-7 of the value plus 1e-6; fp32 within 2e-5), then timed
-               beside the library yardstick (scaled_dot_product_attention
-               for B8; none for B9): B8 at bf16 (B,H,Hkv,S,D) =
+               beside the library yardstick (scaled_dot_product_attention:
+               causal for B8, over a [0, pos] mask for B9, its max |err|
+               recorded): B8 at bf16 (B,H,Hkv,S,D) =
                (1,15,5,4096,64) and (2,15,5,1000,64), fp32 (1,8,2,513,128),
                and the kernel alone at S = 32,768; B9 at bf16
                (8,15,5,512,64), (8,15,5,2048,64) and (128,15,5,32768,64)
@@ -1180,14 +1181,32 @@ def phase_attention():
                decode_attention.decode_attention(q, k, v, pos))
         plain = (lambda q=q, k=k, v=v, pos=pos:
                  ref.decode_attention_ref(q, k, v, pos))
-        err = attn_err(run(), plain(), label)
+        # the library yardstick: one SDPA call over views of the same
+        # tensors, the G query heads of a KV head as its G query rows
+        # (head h = kv * G + g, as B9 maps them) and keys [0, pos[b]]
+        # through a boolean mask built once, outside the timed graph
+        qg, kt, vt = q.view(b, hkv, h // hkv, d), k.transpose(1, 2), \
+            v.transpose(1, 2)
+        mask = (torch.arange(s, device=DEVICE)
+                <= pos[:, None])[:, None, None, :]
+        library = (lambda qg=qg, kt=kt, vt=vt, mask=mask:
+                   F.scaled_dot_product_attention(qg, kt, vt,
+                                                  attn_mask=mask))
+        want = plain()
+        err = attn_err(run(), want, label)
+        # recorded, not held to the kernels' tolerance: the library may
+        # round the probabilities to bf16 before the product with V
+        lib_err = float((library().view(b, h, d).float()
+                         - want.float()).abs().max())
         keys = int(np.minimum(pos_np.astype(np.int64) + 1, s).sum())
         nb, op = bound(2 * keys * hkv * d * 2 + 2 * b * h * d * 2 + 4 * b,
                        4.0 * keys * h * d, PEAK_BF16)
         b9.append({"shape": label + f" sum(pos+1)={keys}",
-                   "max_abs_err": err, "bound_ms": nb, "bound_by": op,
-                   **timings(run, plain, None, reps,
-                                  3 if s > 4096 else reps)})
+                   "max_abs_err": err, "library_max_abs_err": lib_err,
+                   "bound_ms": nb, "bound_by": op,
+                   **timings(run, plain, library, reps,
+                             3 if s > 4096 else reps)})
+        del want, mask, qg, kt, vt
         log(f"decode_attention {label}: " + json.dumps(b9[-1]))
         del q, k, v
     torch.cuda.empty_cache()
@@ -1537,7 +1556,10 @@ def main():
             "torch.nn.functional.scaled_dot_product_attention(is_causal="
             "True, enable_gqa=True)"),
         row("decode_attention", "decode_attention.cu",
-            "decode_attention.py:53", serve["decode_attention"], b9, None)]
+            "decode_attention.py:53", serve["decode_attention"], b9,
+            "torch.nn.functional.scaled_dot_product_attention(q.view(B, "
+            "Hkv, G, D), k.transpose(1, 2), v.transpose(1, 2), attn_mask="
+            "arange(S_max) <= pos) (mask built outside the timing)")]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

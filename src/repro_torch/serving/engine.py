@@ -19,8 +19,9 @@ Request path (the paper's semantic-cache setting, §2):
      engine only observes via the ``"evict"`` event hook.
 
 ``EngineConfig.device`` places the model, its KV cache and the
-``"kernel"`` cache backend: the card by default, ``"cpu"`` for the host
-(the kernels' plain versions).  Asynchronous admission and the host/ghost
+``"kernel"`` cache backend (the default): the card by default, ``"cpu"``
+for the host (the kernels' plain versions).  ``cache_backend="numpy"``
+asks for the host oracle instead.  Asynchronous admission and the host/ghost
 tiers are not ported (``ROADMAP.md`` queue A items 3 and 4): setting them
 raises.
 """
@@ -47,7 +48,8 @@ class EngineConfig:
     max_batch: int = 8            # continuous-batching slot count
     max_seq: int = 256
     emb_dim: int = 64
-    cache_backend: str = "numpy"  # "numpy" | "kernel"
+    cache_backend: str = "kernel"  # "kernel" (placed by ``device``) |
+                                   # "numpy" (the host oracle)
     async_admit: bool = False     # not ported: True raises
     host_capacity: int = 0        # host-DRAM tier rows (not ported: > 0
                                   # raises)

@@ -612,7 +612,7 @@ def test_engine_on_the_card_matches_the_host(cuda):
     the host engine's decisions and tokens (numpy backend, plain
     versions), from the same fp32 parameters."""
     from repro_torch.core import SynthConfig, synthetic_trace
-    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import decision, decode_attention, similarity_topk
     from repro_torch.serving import EngineConfig, ServingEngine
     cfg = _card_model_cfg()
     trace = synthetic_trace(SynthConfig(trace_len=40, n_topics=6, seed=2))
@@ -623,14 +623,20 @@ def test_engine_on_the_card_matches_the_host(cuda):
     out = {}
     params = None
     for backend, device in (("numpy", "cpu"), ("kernel", "cuda")):
-        ecfg = EngineConfig(cache_capacity=12, max_new_tokens=4, max_batch=4,
-                            max_seq=32, cache_backend=backend, device=device)
+        # the card's run takes EngineConfig's defaults: the kernel backend
+        # on the card
+        ecfg = (EngineConfig(cache_capacity=12, max_new_tokens=4,
+                             max_batch=4, max_seq=32, cache_backend=backend,
+                             device=device) if device == "cpu" else
+                EngineConfig(cache_capacity=12, max_new_tokens=4,
+                             max_batch=4, max_seq=32))
         eng = ServingEngine(cfg, ecfg,
                             params=None if params is None
                             else _move(params, device),
                             generator=torch.Generator().manual_seed(5))
         params = params or eng.params
         d0 = decode_attention.launches
+        b0 = similarity_topk.launches, decision.launches
         done = eng.run(reqs)
         s = eng.stats
         out[backend] = ([(r.rid, r.cached, tuple(r.out_tokens))
@@ -640,5 +646,7 @@ def test_engine_on_the_card_matches_the_host(cuda):
         if device == "cuda":
             assert decode_attention.launches - d0 == \
                 s["batches"] * cfg.n_layers
+            assert similarity_topk.launches > b0[0]      # B1
+            assert decision.launches > b0[1]             # B2
     assert out["kernel"] == out["numpy"]
     assert out["numpy"][1]["hits"] > 0 and out["numpy"][1]["evictions"] > 0

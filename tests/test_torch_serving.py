@@ -88,6 +88,30 @@ def test_launch_serve_matches_the_reference_cli():
     assert {k: got[k] for k in STATS} == {k: want[k] for k in STATS}
 
 
+def test_engine_defaults_to_the_kernel_backend_on_the_card(monkeypatch):
+    """EngineConfig() places the model and the RAC cache (B1-B3) on the
+    card; device="cpu" keeps the kernel backend on its plain versions, and
+    the host oracle runs only when asked for."""
+    from repro_torch.cache import KernelBackend, NumpyBackend
+    from repro_torch.launch import serve
+    ecfg = EngineConfig()
+    assert (ecfg.cache_backend, ecfg.device) == ("kernel", "cuda")
+    cfg = smoke_variant(get_config("paper"))
+    gen = torch.Generator().manual_seed(0)
+    eng = ServingEngine(cfg, EngineConfig(**ENGINE, device="cpu"),
+                        generator=gen)
+    assert isinstance(eng.cache.backend, KernelBackend)
+    assert eng.cache.backend.device == torch.device("cpu")
+    eng = ServingEngine(cfg, EngineConfig(**ENGINE, cache_backend="numpy",
+                                          device="cpu"), generator=gen)
+    assert isinstance(eng.cache.backend, NumpyBackend)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, EngineConfig(**ENGINE), generator=gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "4"])
+
+
 def test_engine_checks_what_it_cannot_run():
     cfg = smoke_variant(get_config("paper"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
