@@ -60,7 +60,9 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                count on the card must have launched.
   9. attention - B8 (flash_attention) and B9 (decode_attention) against
                their plain versions on the card (bf16 within one bf16 ulp,
-               2^-7 of the value plus 1e-6; fp32 within 2e-5), then timed
+               2^-7 of the value plus 1e-6; fp32 within 2e-5; every bf16
+               B8 call served by the wgmma + TMA kernel, fp32 by the SIMT
+               one, each shape's row naming which), then timed
                beside the library yardstick (scaled_dot_product_attention:
                causal for B8, over a [0, pos] mask for B9, its max |err|
                recorded): B8 at bf16 (B,H,Hkv,S,D) =
@@ -74,7 +76,8 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                B8 against the same model on plain attention, then the same
                tokens teacher-forced one at a time through decode_step (B9,
                a 1,024-position cache) against forward at every position;
-               B8 32 launches per forward, B9 32 per step.
+               B8 32 launches per forward (all 32 of the prefill on the
+               wgmma kernel), B9 32 per step.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -1153,13 +1156,21 @@ def phase_attention():
         fits = s <= PLAIN_MAX_S
         plain = (lambda q=q, k=k, v=v: ref.attention_ref(q, k, v)) \
             if fits else None
+        wgmma = flash_attention.wgmma_launches
         out = run()
+        # every bf16 call goes to the wgmma + TMA kernel, fp32 to SIMT
+        kernel = "wgmma" if flash_attention.wgmma_launches > wgmma \
+            else "simt"
+        if kernel != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+            raise AssertionError(f"flash_attention {label}: served by the "
+                                 f"{kernel} kernel")
         err = attn_err(out, plain(), label) if fits else None
         elt = q.element_size()
         nb, op = bound((2 * b * h * s * d + 2 * b * hkv * s * d) * elt,
                        2.0 * b * h * d * s * (s + 1),
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
-        b8.append({"shape": label, "max_abs_err": err, "bound_ms": nb,
+        b8.append({"shape": label, "kernel": kernel, "max_abs_err": err,
+                   "bound_ms": nb,
                    "bound_by": op, **timings(
                        run, plain,
                        lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
@@ -1258,7 +1269,7 @@ def phase_model():
     prefill = make_prefill_step(model)
     prefill(params, batch)                    # warm-up (cuBLAS handles)
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.wgmma_launches = 0
     t0 = time.perf_counter()
     last = prefill(params, batch)
     torch.cuda.synchronize()
@@ -1267,6 +1278,11 @@ def phase_model():
     if prefill_launches != cfg.n_layers:
         raise AssertionError(f"prefill: B8 launched {prefill_launches} "
                              f"times, not {cfg.n_layers}")
+    if (cfg.compute_dtype == "bfloat16"
+            and flash_attention.wgmma_launches != cfg.n_layers):
+        raise AssertionError(f"prefill: the wgmma kernel launched "
+                             f"{flash_attention.wgmma_launches} times, "
+                             f"not {cfg.n_layers}")
     flash_attention.launches = 0
     full = model.forward(params, batch)
     if flash_attention.launches != cfg.n_layers:
@@ -1287,6 +1303,7 @@ def phase_model():
     if not d_plain <= LOGIT_TOL:
         raise AssertionError(f"prefill: logits {d_plain} off the plain "
                              "attention model's")
+    step_profile(lambda: prefill(params, batch), "prefill", "flash_kernel")
 
     cache = model.init_cache(PREFILL_B, DECODE_MAX_SEQ)
     decode_attention.launches = 0
@@ -1322,9 +1339,11 @@ def phase_model():
     return prefill_launches
 
 
-def step_profile(step) -> None:
-    """One decode step under torch.profiler: its CUDA kernels, their summed
-    device time against the step's wall (the card's busy share), and the
+def step_profile(step, label: str = "decode step",
+                 kernel: str | None = None) -> None:
+    """One call of ``step`` under torch.profiler: its CUDA kernels, their
+    summed device time against the call's wall (the card's busy share),
+    the device time of the kernels whose name holds ``kernel``, and the
     aten dispatches the host made."""
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1341,9 +1360,12 @@ def step_profile(step) -> None:
     aten = sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.name.startswith("aten::"))
-    log(f"model decode step (profiled): {len(kernels)} CUDA kernels, "
+    mine = "" if kernel is None else ", {} {:.3f} ms of it".format(
+        kernel, sum(e.time_range.elapsed_us() for e in kernels
+                    if kernel in e.name) / 1e3)
+    log(f"model {label} (profiled): {len(kernels)} CUDA kernels, "
         f"device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (busy "
-        f"share {busy / (wall * 1e3):.4f}), {aten} aten dispatches")
+        f"share {busy / (wall * 1e3):.4f}){mine}, {aten} aten dispatches")
 
 
 def serve_requests(vocab: int, n: int):

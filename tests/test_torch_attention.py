@@ -144,3 +144,44 @@ def test_attention_wrappers_check_their_inputs():
     out = tops.decode_attention(qd, cache, cache,
                                 torch.zeros(2, dtype=torch.int32))
     assert out.shape == qd.shape
+
+
+# The Hopper kernel's TMA loads, checked on the host before a launch: the
+# model's (B, S, H, D) projections seen as (B, H, S, D), a dense bf16
+# tensor, and views TMA cannot take (strides and base in bytes).
+_B, _S, _H, _D = 2, 1000, 15, 64
+_MODEL = (_S * _H * _D, _D, _H * _D, 1)          # transpose(1, 2) of BSHD
+_DENSE = (_H * _S * _D, _S * _D, _D, 1)
+
+
+@pytest.mark.parametrize("d,strides,ptr", [
+    (64, _MODEL, 0), (64, _DENSE, 4096), (128, (4 * 9 * 128, 9 * 128, 128,
+                                               1), 256),
+    (64, (_S * _H * _D, _D, _H * _D, 1), 1920)])      # k after q in one buffer
+def test_check_tma_takes_aligned_layouts(d, strides, ptr):
+    tfa.check_tma(d, [(n, strides, ptr) for n in ("q", "k", "v")])
+
+
+@pytest.mark.parametrize("d,strides,ptr,match", [
+    (32, _DENSE, 0, "head dim"),
+    (96, _DENSE, 0, "head dim"),
+    (64, (_H * _S * 65, _S * 65, 65, 1), 0, "sequence stride of 130"),
+    (64, (_H * _S * _D, 36, _D, 1), 0, "head stride of 72"),
+    (64, (_S * _D + 1, _S * _D, _D, 1), 0, "batch stride"),
+    (64, (_H * _S * _D, _S * _D, _D, 2), 0, "contiguous"),
+    (64, _DENSE, 8, "base address"),
+    (64, (2 ** 40, _S * _D, _D, 1), 0, "2\\^40")])
+def test_check_tma_refuses_what_tma_cannot_take(d, strides, ptr, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.check_tma(d, [("q", _DENSE, 0), ("k", strides, ptr)])
+
+
+def test_check_tma_size_one_axes_take_their_dense_stride():
+    """TMA reads only index 0 of a size-1 axis but checks its stride: the
+    wrapper gives such an axis its dense stride."""
+    t = torch.zeros(512, dtype=torch.bfloat16).as_strided((1, 2, 1, 64),
+                                                          (7, 64, 5, 1))
+    with pytest.raises(ValueError, match="TMA"):
+        tfa.check_tma(64, [("q", t.stride(), 0)])
+    assert tfa._tma_strides(t) == (128, 64, 64, 1)
+    tfa.check_tma(64, [("q", tfa._tma_strides(t), 0)])

@@ -447,7 +447,12 @@ def _randn(rng, shape, dtype, dev):
 @pytest.mark.parametrize("b,h,hkv,s,d", [
     (1, 1, 1, 1, 64), (1, 3, 1, 63, 64), (2, 15, 5, 200, 64),
     (1, 8, 2, 513, 128), (2, 4, 1, 65, 128), (1, 12, 3, 1000, 64),
-    (3, 4, 4, 130, 64)])
+    (3, 4, 4, 130, 64),
+    # the ring and the tiles: the model's heads at S = 4,096 (32 query
+    # tiles, 32 key stages), ragged S around D = 128's 64-key stages and
+    # the 128-row query tile, and G = 3 at B = 2
+    (1, 15, 5, 4096, 64), (1, 4, 2, 127, 128), (2, 4, 2, 129, 128),
+    (1, 6, 3, 255, 128), (2, 6, 2, 300, 64)])
 def test_flash_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
                                               dtype):
     from repro_torch.kernels import flash_attention, ref
@@ -455,8 +460,11 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
     k = _randn(rng, (b, hkv, s, d), dtype, cuda)
     v = _randn(rng, (b, hkv, s, d), dtype, cuda)
     before = flash_attention.launches
+    wgmma = flash_attention.wgmma_launches
     out = flash_attention.flash_attention(q, k, v)
     assert flash_attention.launches == before + 1
+    # every bf16 call takes the Hopper kernel, no fp32 call does
+    assert flash_attention.wgmma_launches == wgmma + (dtype == torch.bfloat16)
     assert out.shape == q.shape and out.dtype == dtype
     _attn_close(out, ref.attention_ref(q, k, v))
 
@@ -476,6 +484,27 @@ def test_flash_attention_kernel_takes_the_model_layout(cuda, rng):
     want = flash_attention.flash_attention(
         *(x.contiguous() for x in (qt, kt, vt)))
     assert torch.equal(out, want)
+
+
+def test_flash_attention_refuses_strides_tma_cannot_take(cuda, rng):
+    """A bf16 view whose sequence stride is 130 bytes (65 elements) is
+    refused, not copied; the fp32 (SIMT) kernel takes the same view."""
+    from repro_torch.kernels import flash_attention, ref
+    b, h, s, d = 1, 4, 40, 64
+    wide = _randn(rng, (b, h, s, d + 1), torch.bfloat16, cuda)
+    q = wide[..., :d]
+    assert q.stride(2) * q.element_size() % 16 != 0
+    kv = _randn(rng, (b, 2, s, d), torch.bfloat16, cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention.flash_attention(kv.repeat(1, 2, 1, 1), q[:, :2],
+                                        kv)
+    assert flash_attention.launches == before
+    q32, kv32 = q.float(), kv.float()
+    out = flash_attention.flash_attention(wide.float()[..., :d], kv32, kv32)
+    _attn_close(out, ref.attention_ref(q32, kv32, kv32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
