@@ -3,10 +3,12 @@ chip_smoke.py's bf16 FLASH_SHAPES (device ms per call, from a CUDA graph of
 many calls) and the paper LM's prefill of B=2 x 1,000 tokens (host wall ms
 and CUDA-event ms per call), the checkouts timed in turns, each in a process
 of its own that builds that checkout's kernels; one more prefill under
-torch.profiler gives the card's busy time and B8's part of it.
+torch.profiler gives the card's busy time and B8's part of it.  With
+``--top1`` the same for B1 (sim_top1, sim_top1_multi) at chip_smoke.py's
+shapes, on seeded unit rows.
 
-    python3 chip_ab_flash.py ROOT [ROOT ...]
-    python3 chip_ab_flash.py --ablate
+    python3 chip_ab_flash.py [--top1] ROOT [ROOT ...]
+    python3 chip_ab_flash.py [--top1] --ablate
 
 ROOT is a directory holding ``src/repro_torch``: to hold a change against
 its parent, unpack the parent's package into a directory ``.gitignore``
@@ -15,9 +17,13 @@ and run ``build/parent . . build/parent``.  ``--ablate`` writes variants of
 this checkout's ``csrc/flash_attention.cu`` under ``build/ablate/`` (one
 P.V product instead of three; P not split; no turns between the consumer
 warpgroups; a multiply in place of ex2; the first, second and fourth
-together) and times them in turns with the checkout.  A variant computes
-wrong values: it only says where the kernel's time goes.  Needs a CUDA
-card; prints one JSON line per run and the card's name and power limit.
+together) and times them in turns with the checkout; with ``--top1``,
+of ``csrc/sim_top1.cu`` (three stages and three blocks an SM instead of two
+and four; no split of the candidates; no split of the queries; no
+wgmma; only the candidates' copies).  A variant computes wrong values
+(but for the stage count): it only says where the kernel's time goes.
+Needs a CUDA card; prints one JSON line per run and the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -50,9 +56,41 @@ EDITS = {
 }
 EDITS["floor"] = EDITS["one_pv"] + EDITS["no_split"] + EDITS["no_ex2"]
 
+# B1: chip_smoke.py's shapes, (label, Q, N or (P, S)), graph reps
+TOP1_SRC = "src/repro_torch/csrc/sim_top1.cu"
+TOP1_SHAPES = [("Q=512 N=65,537", 512, 65_537, 20), ("Q=8 N=65,537", 8,
+                                                        65_537, 50),
+               ("Q=512 T=4,096", 512, 4_096, 50), ("union Q=1 N=8", 1, 8,
+                                                      200),
+               ("union Q=16 N=128", 16, 128, 200),
+               ("multi Q=512 P=15 S=6,852", 512, (15, 6_852), 10),
+               ("multi Q=16 P=15 S=6,852", 16, (15, 6_852), 20)]
+_T1_SPLIT = "    for (int it = 0; it < BN * KC / 4 / kThreads; ++it) {"
+_T1_FRAG = ("      const float x[4] = {qs[swz(r0, 8 * s + tig)], "
+            "qs[swz(r1, 8 * s + tig)],\n"
+            "                          qs[swz(r0, 8 * s + tig + 4)],\n"
+            "                          qs[swz(r1, 8 * s + tig + 4)]};")
+_T1_MMA = "      wgmma_tf32(acc, {}, sw128({} + 32 * s), {});"
+_T1_QCOPY = "      for (int e = tid; e < qrows * PER_ROW; e += kThreads) {"
+TOP1_EDITS = {
+    "three_stages": [("constexpr int NS = 2; ", "constexpr int NS = 3; "),
+                     ("__launch_bounds__(kThreads, 4)",
+                      "__launch_bounds__(kThreads, 3)")],
+    "no_split": [(_T1_SPLIT, "    for (int it = 0; it < 0; ++it) {")],
+    "no_afrag": [(_T1_FRAG, "      const float x[4] = {1.f, 2.f, 3.f, "
+                            "4.f};")],
+    "no_wgmma": [(_T1_MMA.format(a, b, c), "")
+                 for a, b, c in (("ah[s]", "hs", "s > 0"),
+                                 ("ah[s]", "ls", "1"),
+                                 ("al[s]", "hs", "1"))],
+}
+TOP1_EDITS["copies_only"] = (
+    TOP1_EDITS["no_split"] + TOP1_EDITS["no_afrag"] + TOP1_EDITS["no_wgmma"]
+    + [(_T1_QCOPY, "      for (int e = tid; e < 0; e += kThreads) {")])
 
-def child(root: str, prefill: bool) -> dict:
-    """Time one checkout's B8 (and prefill) in this process."""
+
+def child(root: str, prefill: bool, top1: bool) -> dict:
+    """Time one checkout's B8 (and prefill), or its B1, in this process."""
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     import torch
@@ -80,6 +118,27 @@ def child(root: str, prefill: bool) -> dict:
         return e0.elapsed_time(e1) / reps
 
     out = {"root": root, "build_s": _build.build_seconds}
+    if top1:
+        from repro_torch.kernels import similarity_topk as st
+        rng = np.random.default_rng(0)
+
+        def unit(*shape):
+            x = rng.standard_normal(shape).astype(np.float32)
+            x /= np.linalg.norm(x, axis=-1, keepdims=True)
+            return torch.from_numpy(x).to("cuda")
+        queries = unit(512, 768)
+        for label, nq, n, reps in TOP1_SHAPES:
+            q = queries[:nq].contiguous()
+            if isinstance(n, tuple):
+                slabs = unit(*n, 768)
+                counts = torch.full((n[0],), n[1], dtype=torch.int32,
+                                    device="cuda")
+                out[label] = graph_ms(
+                    lambda: st.sim_top1_multi(q, slabs, counts), reps)
+            else:
+                c = unit(n, 768)
+                out[label] = graph_ms(lambda: st.sim_top1(q, c, n), reps)
+        return out
     for (b, h, hkv, s, d), reps in SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16) for shape in ((b, h, s, d), (b, hkv, s, d),
@@ -127,12 +186,13 @@ def child(root: str, prefill: bool) -> dict:
     return out
 
 
-def ablation_roots() -> list[str]:
+def ablation_roots(top1: bool) -> list[str]:
     """Write the variants of this checkout's kernel; returns their roots."""
-    with open(os.path.join(HERE, _SRC)) as f:
+    path = TOP1_SRC if top1 else _SRC
+    with open(os.path.join(HERE, path)) as f:
         src = f.read()
     roots = []
-    for name, edits in EDITS.items():
+    for name, edits in (TOP1_EDITS if top1 else EDITS).items():
         text = src
         for old, new in edits:
             if old not in text:
@@ -144,7 +204,7 @@ def ablation_roots() -> list[str]:
         shutil.copytree(os.path.join(HERE, "src", "repro_torch"),
                         os.path.join(root, "src", "repro_torch"),
                         ignore=shutil.ignore_patterns("__pycache__"))
-        with open(os.path.join(root, _SRC), "w") as f:
+        with open(os.path.join(root, path), "w") as f:
             f.write(text)
         roots.append(root)
     return roots
@@ -154,8 +214,11 @@ def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--child"]:
         print(json.dumps(child(os.path.abspath(args[1]),
-                               "--no-prefill" not in args)), flush=True)
+                               "--no-prefill" not in args,
+                               "--top1" in args)), flush=True)
         return
+    top1 = "--top1" in args
+    args = [a for a in args if a != "--top1"]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab_flash.py: no CUDA card")
@@ -163,13 +226,15 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args == ["--ablate"]:
-        variants = ablation_roots()
+        variants = ablation_roots(top1)
         roots, extra = [HERE] + variants, ["--no-prefill"]
         roots = roots + roots
     elif args and not any(a.startswith("-") for a in args):
         roots, extra = [os.path.abspath(a) for a in args], []
     else:
         raise SystemExit(__doc__)
+    if top1:
+        extra = ["--top1"]
     runs = []
     for root in roots:
         res = subprocess.run([sys.executable, __file__, "--child", root,

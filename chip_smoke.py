@@ -18,6 +18,10 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                over the slab (Q = 8, k in {1, 8, 16, 257}), int8 Top-K over
                the slab (Q in {1, 512}, k = 8, scores bit-equal), and Top-1
                with a count read on the card (the fused rescore's shapes).
+               Top-1 scores in three-way TF32 (its bound: three TF32
+               products, B1_PRODUCTS); its winning pair scores over the
+               main replay's rows must be bit-equal across Q=512, Q=8,
+               Q=1 N=1 and 8-row union blocks with a count on the card.
                The policy-stacked kernels too, at the arena's shapes (P = 15
                slabs of S = 6,852 rows: 10% of the trace's 68,510 unique
                contents plus the spare, D = 768): Top-1 and int8 Top-K
@@ -67,9 +71,12 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                causal for B8, over a [0, pos] mask for B9, its max |err|
                recorded): B8 at bf16 (B,H,Hkv,S,D) =
                (1,15,5,4096,64) and (2,15,5,1000,64), fp32 (1,8,2,513,128),
-               and the kernel alone at S = 32,768; B9 at bf16
-               (8,15,5,512,64), (8,15,5,2048,64) and (128,15,5,32768,64)
-               with seeded pos including 0 and S_max - 1.
+               gemma-7b's heads (1,16,16,4096,256) and nemotron-4-340b's
+               (1,96,8,4096,192) in bf16, a smoke variant's (2,4,2,4096,32)
+               in fp32, and the kernel alone at S = 32,768; B9 at bf16
+               (8,15,5,512,64), (8,15,5,2048,64), (8,16,16,2048,256),
+               (8,96,8,2048,192) and (128,15,5,32768,64), and fp32
+               (8,4,2,2048,32), with seeded pos including 0 and S_max - 1.
  10. model   - the paper's served LM (configs/paper.py: 32 layers, d_model
                960, 15/5 heads of 64, bf16) on the card from a seeded
                generator: prefill and forward of B=2 x 1,000 tokens through
@@ -78,6 +85,13 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                a 1,024-position cache) against forward at every position;
                B8 32 launches per forward (all 32 of the prefill on the
                wgmma kernel), B9 32 per step.
+ 10b. gemma   - gemma-7b at full width and depth (28 layers, d_model 3,072,
+               16 heads of 256, GeGLU 24,576, vocab 256,000, bf16, 8.5 B
+               parameters drawn on the card from seed 0): prefill of B=1 x
+               1,024 tokens (28 B8 launches, all on the wgmma kernel at
+               D = 256) against the same model on plain attention, then 64
+               teacher-forced decode steps through B9 against forward,
+               both within LOGIT_TOL.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -130,12 +144,19 @@ APPROX = {
 }
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, int8 on the tensor cores, and HBM3 bandwidth
+# cores, TF32 and int8 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+# B1 scores in three-way TF32 (csrc/sim_top1.cu): three TF32 products of
+# 2 * Q * N * D each, so its bound is max(bytes / PEAK_BYTES,
+# 3 * 2 * Q * N * D / PEAK_TF32)
+B1_PRODUCTS = 3
 
 SIM_TOL = 1e-5             # fp32 dot products summed in another order
+                           # (three-way TF32 against IEEE fp32: within
+                           # ~1e-6, tests/test_torch_numerics.py)
 VALUE_RTOL = 1e-6          # exp2f and the product order match the plain one
 # attention outputs: fp32 sums in another order; in bf16 both round fp32
 # values that agree to ~1e-6, so at most one bf16 ulp apart (2^-7 |x|
@@ -143,17 +164,28 @@ VALUE_RTOL = 1e-6          # exp2f and the product order match the plain one
 ATT_F32_TOL = 2e-5
 PEAK_BF16 = 989e12         # dense bf16 on the tensor cores
 
-# B8 at the model's prefill shapes, (B, H, Hkv, S, D), dtype, timing reps;
-# the last is prefill_32k's length, where the plain version does not fit
+# B8 at the model's prefill shapes, (B, H, Hkv, S, D), dtype, timing reps:
+# the paper LM's heads (the last at prefill_32k's length, where the plain
+# version does not fit), gemma-7b's (16 of 256) and nemotron-4-340b's
+# (96/8 of 192) at S = 4,096, and a smoke variant's (4/2 of 32, fp32)
 FLASH_SHAPES = [((1, 15, 5, 4096, 64), torch.bfloat16, 5),
                 ((2, 15, 5, 1000, 64), torch.bfloat16, 20),
                 ((1, 8, 2, 513, 128), torch.float32, 20),
+                ((1, 16, 16, 4096, 256), torch.bfloat16, 5),
+                ((1, 96, 8, 4096, 192), torch.bfloat16, 3),
+                ((2, 4, 2, 4096, 32), torch.float32, 5),
                 ((1, 15, 5, 32768, 64), torch.bfloat16, 2)]
 PLAIN_MAX_S = 8192         # the plain B8 materialises (B, H, S, S) fp32
-# B9, bf16, (B, H, Hkv, S_max, D) and timing reps: the engine's 8 slots,
-# a longer cache, and SHAPES["decode_32k"]'s batch and length (one layer)
-DECODE_SHAPES = [((8, 15, 5, 512, 64), 50), ((8, 15, 5, 2048, 64), 50),
-                 ((128, 15, 5, 32768, 64), 5)]
+# B9, (B, H, Hkv, S_max, D), dtype and timing reps: the engine's 8 slots,
+# a longer cache, gemma-7b's and nemotron-4-340b's heads at 2,048
+# positions, a smoke variant's (fp32), and SHAPES["decode_32k"]'s batch
+# and length (one layer)
+DECODE_SHAPES = [((8, 15, 5, 512, 64), torch.bfloat16, 50),
+                 ((8, 15, 5, 2048, 64), torch.bfloat16, 50),
+                 ((8, 16, 16, 2048, 256), torch.bfloat16, 50),
+                 ((8, 96, 8, 2048, 192), torch.bfloat16, 50),
+                 ((8, 4, 2, 2048, 32), torch.float32, 50),
+                 ((128, 15, 5, 32768, 64), torch.bfloat16, 5)]
 MODEL_ARCH = "paper"       # configs/paper.py: the paper's served LM
 SMOKE_MODEL = False        # True: its smoke_variant (CPU rehearsals only)
 PREFILL_B, PREFILL_S = 2, 1_000
@@ -161,6 +193,11 @@ DECODE_MAX_SEQ = 1_024
 SERVE_LEN = 128            # requests the serve phase answers (3,314 decode
                            # steps at ~35-60 ms each, host-bound)
 SERVE_DIM = 768
+# the gemma-7b phase: the model at full width and depth (28 layers, head
+# dim 256), prefill of B=1 x 1,024 tokens and 64 teacher-forced decode
+# steps
+GEMMA_ARCH = "gemma-7b"
+GEMMA_S, GEMMA_STEPS = 1_024, 64
 # full-width bf16 logits (max |logit| ~3.3): the kernels' and the plain
 # versions' roundings, and decode's and forward's GEMM shapes, differ in
 # the last bf16 bit of some activations, and that spreads over 32 layers;
@@ -276,7 +313,7 @@ def check_sim_top1(q, c, n_valid, reps):
         raise AssertionError(f"sim_top1: {bad} argmax disagreements")
     nq, d = q.shape
     nb, op = bound((nq * d + n_valid * d) * 4 + nq * 8,
-                   2.0 * nq * n_valid * d)
+                   B1_PRODUCTS * 2.0 * nq * n_valid * d, PEAK_TF32)
     return {
         "shape": f"Q={nq} N={c.shape[0]} D={d} n_valid={n_valid}",
         "max_abs_err": err, "bound_ms": nb, "bound_by": op,
@@ -284,6 +321,37 @@ def check_sim_top1(q, c, n_valid, reps):
                   lambda: ref.sim_top1_ref(q, c, n_valid),
                   lambda: torch.mm(q, c.T), reps),
     }
+
+
+def check_pair_bits(chunk, slab) -> int:
+    """I1 on the rows the main replay holds: a (query, row) pair scores the
+    same fp32 bits whatever launches it.  The chunk's winners over the
+    whole slab (Q = 512) must reappear bit for bit at Q = 8 (other
+    splits), alone (Q = 1, N = 1), and in a union block of each query's 8
+    best rows in reverse order with its count on the card (the fused
+    rescore's launch).  Returns the number of pairs compared."""
+    from repro_torch.kernels import similarity_topk as st
+    n = slab.shape[0]
+    v, i = st.sim_top1(chunk, slab, n)
+    v8, i8 = st.sim_top1(chunk[:8].contiguous(), slab, n)
+    if not (torch.equal(v8, v[:8]) and torch.equal(i8, i[:8])):
+        raise AssertionError("sim_top1: Q=8 scores differ from Q=512's")
+    eight = torch.tensor([8], dtype=torch.int32, device=slab.device)
+    best8 = torch.mm(chunk[:32], slab.T).topk(8, dim=1).indices
+    pairs = 8
+    for r in range(32):
+        q = chunk[r:r + 1].contiguous()
+        w = int(i[r])
+        one, _ = st.sim_top1(q, slab[w:w + 1].contiguous(), 1)
+        rows = torch.cat([best8[r].flip(0), i[r:r + 1].long()])
+        bv, _ = st.sim_top1(q, slab[rows[-8:]].contiguous(), eight)
+        if not (torch.equal(one, v[r:r + 1]) and torch.equal(bv, v[r:r + 1])):
+            raise AssertionError(f"sim_top1: query {r}'s winning score "
+                                 "differs between launches")
+        pairs += 2
+    log(f"sim_top1: {pairs} winning pair scores bit-equal across Q=512, "
+        "Q=8, Q=1 N=1 and 8-row union blocks (count on the card)")
+    return pairs
 
 
 def _clear_ranks(pv: torch.Tensor) -> torch.Tensor:
@@ -386,7 +454,8 @@ def phase_topk(chunk, slab, reps_aug, q_aug):
         err = float((v - pv).abs().max())
         if not err <= SIM_TOL:
             raise AssertionError(f"sim_top1 (device n_valid): {err}")
-        nb, op = bound((nq * d + nu * d) * 4 + nq * 8, 2.0 * nq * nu * d)
+        nb, op = bound((nq * d + nu * d) * 4 + nq * 8,
+                       B1_PRODUCTS * 2.0 * nq * nu * d, PEAK_TF32)
         b1d.append({
             "shape": f"union Q={nq} N={nu} D={d}", "max_abs_err": err,
             "bound_ms": nb, "bound_by": op,
@@ -488,7 +557,7 @@ def phase_multi(trace):
                 raise AssertionError(f"sim_top1_multi Q={nq}: policy {p} "
                                      "differs from its single-slab launch")
         nb, op = bound((nq * d + n_live * d) * 4 + N_POL * nq * 8,
-                       2.0 * nq * n_live * d)
+                       B1_PRODUCTS * 2.0 * nq * n_live * d, PEAK_TF32)
         b1.append({
             "shape": f"Q={nq} P={N_POL} S={s} D={d}", "max_abs_err": err,
             "bound_ms": nb, "bound_by": op,
@@ -574,6 +643,7 @@ def phase_kernels(trace):
     slab = torch.from_numpy(embs[:CAPACITY + 1]).to(dev)
     chunk = torch.from_numpy(embs[-CHUNK:]).to(dev)
     reps = torch.from_numpy(unit_rows(rng, N_TOPICS, DIM)).to(dev)
+    check_pair_bits(chunk, slab)
     sim = [check_sim_top1(chunk, slab, CAPACITY + 1, 20),
            check_sim_top1(chunk[:8].contiguous(), slab, CAPACITY + 1, 50),
            check_sim_top1(chunk, reps, N_TOPICS, 50)]
@@ -1180,14 +1250,14 @@ def phase_attention():
         del q, k, v, out
     torch.cuda.empty_cache()
     b9 = []
-    for (b, h, hkv, s, d), reps in DECODE_SHAPES:
-        q = _randn(gen, (b, h, d), torch.bfloat16)
-        k = _randn(gen, (b, s, hkv, d), torch.bfloat16)
-        v = _randn(gen, (b, s, hkv, d), torch.bfloat16)
+    for (b, h, hkv, s, d), dtype, reps in DECODE_SHAPES:
+        q = _randn(gen, (b, h, d), dtype)
+        k = _randn(gen, (b, s, hkv, d), dtype)
+        v = _randn(gen, (b, s, hkv, d), dtype)
         pos_np = rng.integers(0, s, b).astype(np.int32)
         pos_np[0], pos_np[-1] = 0, s - 1
         pos = torch.from_numpy(pos_np).to(DEVICE)
-        label = f"B={b} H={h} Hkv={hkv} S_max={s} D={d} bf16"
+        label = f"B={b} H={h} Hkv={hkv} S_max={s} D={d} {str(dtype)[6:]}"
         run = (lambda q=q, k=k, v=v, pos=pos:
                decode_attention.decode_attention(q, k, v, pos))
         plain = (lambda q=q, k=k, v=v, pos=pos:
@@ -1207,11 +1277,13 @@ def phase_attention():
         err = attn_err(run(), want, label)
         # recorded, not held to the kernels' tolerance: the library may
         # round the probabilities to bf16 before the product with V
-        lib_err = float((library().view(b, h, d).float()
+        lib_err = float((library().reshape(b, h, d).float()
                          - want.float()).abs().max())
         keys = int(np.minimum(pos_np.astype(np.int64) + 1, s).sum())
-        nb, op = bound(2 * keys * hkv * d * 2 + 2 * b * h * d * 2 + 4 * b,
-                       4.0 * keys * h * d, PEAK_BF16)
+        elt = q.element_size()
+        nb, op = bound(2 * keys * hkv * d * elt + 2 * b * h * d * elt + 4 * b,
+                       4.0 * keys * h * d,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
         b9.append({"shape": label + f" sum(pos+1)={keys}",
                    "max_abs_err": err, "library_max_abs_err": lib_err,
                    "bound_ms": nb, "bound_by": op,
@@ -1337,6 +1409,217 @@ def phase_model():
     del params, cache, full, want
     torch.cuda.empty_cache()
     return prefill_launches
+
+
+def gemma_config():
+    """gemma-7b at full width and depth (in CPU rehearsals its smoke
+    variant with the head dim kept at 256)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke_variant
+    cfg = get_config(GEMMA_ARCH)
+    if SMOKE_MODEL:
+        return dataclasses.replace(smoke_variant(cfg), head_dim=cfg.head_dim)
+    return cfg
+
+
+def _attention_f64(q, k, v, causal=True):
+    """Causal GQA attention in float64, rounded once to q's dtype: a more
+    exact plain version, to measure the bf16 model's own logit noise."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.double().reshape(b, hkv, h // hkv, s, d) / d ** 0.5
+    sc = torch.einsum("bkgsd,bktd->bkgst", qf, k.double())
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    w = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bkgst,bktd->bkgsd", w, v.double()).reshape(
+        b, h, s, d).to(q.dtype)
+
+
+@contextlib.contextmanager
+def attention_as(prefill=None, decode=None, record=None):
+    """The model's attention through other functions, or through the
+    kernels with each call's inputs recorded in ``record``."""
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention, ops.decode_attention
+
+    def rec(fn):
+        def call(*args):
+            record.append((fn, tuple(a.clone() for a in args)))
+            return fn(*args)
+        return call
+    ops.flash_attention = prefill or (rec(saved[0]) if record is not None
+                                      else saved[0])
+    ops.decode_attention = decode or (rec(saved[1]) if record is not None
+                                      else saved[1])
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def _teacher_forced(model, params, tokens, steps: int, full):
+    """``steps`` decode steps of ``tokens``; max |logits - full| a step."""
+    cache = model.init_cache(tokens.shape[0], steps)
+    errs = torch.zeros(steps, device=DEVICE)
+    for p in range(steps):
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((tokens.shape[0],), p, dtype=torch.int32,
+                              device=DEVICE)})
+        errs[p] = (logits.float() - full[:, p].float()).abs().max()
+    return errs
+
+
+def phase_gemma() -> dict:
+    """gemma-7b (28 layers, d_model 3,072, 16 heads of 256, GeGLU 24,576,
+    vocab 256,000, bf16) from seeded random weights on the card.
+
+    In bf16 (its configuration): prefill of B=1 x GEMMA_S tokens through
+    B8 (every launch on the wgmma kernel, D = 256) and GEMMA_STEPS
+    teacher-forced decode steps through B9; every layer's B8 and B9
+    output is held to its plain version on that layer's own inputs within
+    the kernels' tolerance (one bf16 ulp).  The bf16 logits' distance
+    from the plain-attention model is recorded beside that model's own
+    distance from float64 attention: at gemma's logit scale it is ~0.2,
+    above LOGIT_TOL, whatever computes the attention.  So the logit gates
+    (LOGIT_TOL against plain attention, decode against forward) hold the
+    same weights at fp32 compute, where B8 and B9 run in fp32."""
+    import dataclasses
+
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     ref)
+    from repro_torch.models import Model, make_prefill_step
+    t_phase = time.perf_counter()
+    cfg = gemma_config()
+    model = Model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for blk in params["blocks"] for p in blk.values()
+                for t in p.values()) + sum(
+        t.numel() if torch.is_tensor(t) else t["scale"].numel()
+        for t in params["emb"].values())
+    log(f"gemma: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff {cfg.d_ff} "
+        f"vocab {cfg.vocab_size} {cfg.param_dtype}, {n_par} parameters, "
+        f"init {time.perf_counter() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated()} bytes")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (1, GEMMA_S))).to(DEVICE)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    prefill(params, batch)                    # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    if launches != cfg.n_layers or (
+            cfg.compute_dtype == "bfloat16"
+            and flash_attention.wgmma_launches != cfg.n_layers):
+        raise AssertionError(f"gemma prefill: B8 launched {launches} times, "
+                             f"{flash_attention.wgmma_launches} on wgmma, "
+                             f"not {cfg.n_layers}")
+    calls: list = []
+    with attention_as(record=calls):
+        full = model.forward(params, batch)
+    with attention_as(prefill=ref.attention_ref):
+        want = model.forward(params, batch)
+    with attention_as(prefill=_attention_f64):
+        want64 = model.forward(params, batch)
+    torch.cuda.synchronize()
+    if not torch.equal(last, full[:, -1]):
+        raise AssertionError("gemma: prefill differs from forward's last row")
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("gemma forward: non-finite logits")
+    layer_err = max(attn_err(fn(*args), ref.attention_ref(*args),
+                             f"gemma B8 layer {i}")
+                    for i, (fn, args) in enumerate(calls))
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+    d_plain, floor = gap(full, want), gap(want, want64)
+    log(f"gemma prefill: B=1 S={GEMMA_S} {GEMMA_S / prefill_s:.0f} "
+        f"tokens/s ({prefill_s * 1e3:.1f} ms), max |logit| "
+        f"{float(want.float().abs().max()):.3f}; {len(calls)} B8 outputs "
+        f"within one bf16 ulp of plain on their own inputs (max |err| "
+        f"{layer_err:.3g}); bf16 logits: max |B8 - plain| {d_plain:.5f}, "
+        f"max |plain - float64 attention| {floor:.5f} (the bf16 model's "
+        f"own floor), max |B8 - float64 attention| "
+        f"{gap(full, want64):.5f}")
+    del want, want64
+    step_profile(lambda: prefill(params, batch), "gemma prefill",
+                 "flash_kernel")
+
+    decode_attention.launches = 0
+    calls.clear()
+    cache = model.init_cache(1, GEMMA_STEPS)
+    errs = torch.zeros(GEMMA_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(GEMMA_STEPS):           # the last step's calls recorded
+        with attention_as(record=calls if p == GEMMA_STEPS - 1 else None):
+            logits, cache = model.decode_step(params, cache, {
+                "tokens": tokens[:, p:p + 1],
+                "pos": torch.full((1,), p, dtype=torch.int32,
+                                  device=DEVICE)})
+        errs[p] = (logits.float() - full[:, p].float()).abs().max()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if decode_attention.launches != cfg.n_layers * GEMMA_STEPS:
+        raise AssertionError(f"gemma decode: B9 launched "
+                             f"{decode_attention.launches} times")
+    d_dec = float(errs.max())
+    dec_err = max(attn_err(fn(*args), ref.decode_attention_ref(*args),
+                           f"gemma B9 layer {i}")
+                  for i, (fn, args) in enumerate(calls))
+    with attention_as(decode=ref.decode_attention_ref):
+        dec_floor = float(_teacher_forced(model, params, tokens,
+                                          GEMMA_STEPS, full).max())
+    log(f"gemma decode: {GEMMA_STEPS} teacher-forced steps of B=1 in "
+        f"{decode_s:.2f}s ({decode_s / GEMMA_STEPS * 1e3:.2f} ms/step); "
+        f"{len(calls)} B9 outputs of the last step within one "
+        f"bf16 ulp of plain (max |err| {dec_err:.3g}); bf16 logits: max "
+        f"|decode - forward| {d_dec:.5f}, with plain decode attention "
+        f"{dec_floor:.5f}")
+    step_profile(lambda: model.decode_step(params, cache, {
+        "tokens": tokens[:, :1], "pos": torch.full(
+            (1,), GEMMA_STEPS - 1, dtype=torch.int32, device=DEVICE)}),
+        "gemma decode step", "decode_kernel")
+    del cache, full
+
+    # the logit gates: the same weights at fp32 compute (B8, B9 in fp32)
+    model32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                    DEVICE)
+    flash_attention.launches = 0
+    full32 = model32.forward(params, batch)
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError("gemma fp32: B8 did not launch once per layer")
+    with attention_as(prefill=ref.attention_ref):
+        want32 = model32.forward(params, batch)
+    d32 = gap(full32, want32)
+    del want32
+    dec32 = float(_teacher_forced(model32, params, tokens, GEMMA_STEPS,
+                                  full32).max())
+    log(f"gemma fp32 compute: max |logit| "
+        f"{float(full32.abs().max()):.3f}, max |B8 - plain| {d32:.6f}, "
+        f"max |decode - forward| over {GEMMA_STEPS} steps {dec32:.6f} "
+        f"(tolerance {LOGIT_TOL})")
+    if not (d32 <= LOGIT_TOL and dec32 <= LOGIT_TOL):
+        raise AssertionError(f"gemma fp32: logits {d32} / decode {dec32} "
+                             "beyond the tolerance")
+    del params, full32
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"gemma: phase {wall:.1f}s")
+    return {"b8": launches, "prefill_ms": prefill_s * 1e3,
+            "d_plain_bf16": d_plain, "floor_bf16": floor,
+            "d_plain_fp32": d32, "d_decode_fp32": dec32, "seconds": wall}
 
 
 def step_profile(step, label: str = "decode step",
@@ -1531,6 +1814,8 @@ def main():
     log(f"approx main: {time.perf_counter() - t_start:.1f}s")
     fa_launches = phase_model()
     log(f"model: {time.perf_counter() - t_start:.1f}s")
+    phase_gemma()
+    log(f"gemma: {time.perf_counter() - t_start:.1f}s")
     serve = phase_serve()
     log(f"serve: {time.perf_counter() - t_start:.1f}s")
 

@@ -33,6 +33,11 @@
 //    are skipped (they would contribute exp(-1e30 - m) = 0).  An empty row
 //    (pos < 0) gives 0, as the TPU kernel's zero-trip loop does.
 //  - expf (no fast math), so the weights stay close to XLA's exp.
+//  - Any D of the configs: 32, 64, 128, 192, 256.  Shared memory
+//    (smem_floats) is largest at nemotron-4-340b's G = 12, D = 192:
+//    17,348 floats, 68 KB of the 227 KB a block may use; gemma-7b's G = 1,
+//    D = 256 needs 16,963.  The merge kernel's D threads (32 to 256) fit a
+//    block at every D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -222,9 +227,9 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 extern "C" {
 
 // q (B, Hkv*G, D), k/v (B, S, Hkv, D), out (B, Hkv*G, D), all contiguous;
-// pos (B,) int32 on the card.  is_bf16: T = bf16, else fp32; D in {64, 128}.
-// part_acc (B*H*n_split*D) and part_ml (B*H*n_split*2) fp32 scratch when
-// n_split > 1.
+// pos (B,) int32 on the card.  is_bf16: T = bf16, else fp32; D in {32, 64,
+// 128, 192, 256}.  part_acc (B*H*n_split*D) and part_ml (B*H*n_split*2)
+// fp32 scratch when n_split > 1.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* pos, void* out, float* part_acc,
                             float* part_ml, int b, int s_max, int hkv, int g,
@@ -236,20 +241,22 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (smem_floats(g, d) * (int)sizeof(float) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, pos, out, part_acc,
-                                               part_ml, b, s_max, hkv, g,
-                                               n_split, scale, stream)
-                   : launch<float, 64>(q, k, v, pos, out, part_acc, part_ml,
-                                       b, s_max, hkv, g, n_split, scale,
-                                       stream);
-  if (d == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, pos, out, part_acc,
-                                                part_ml, b, s_max, hkv, g,
-                                                n_split, scale, stream)
-                   : launch<float, 128>(q, k, v, pos, out, part_acc, part_ml,
-                                        b, s_max, hkv, g, n_split, scale,
-                                        stream);
+#define DECODE_CASE(D)                                                      \
+  case D:                                                                   \
+    return is_bf16 ? launch<__nv_bfloat16, D>(q, k, v, pos, out, part_acc,  \
+                                              part_ml, b, s_max, hkv, g,    \
+                                              n_split, scale, stream)       \
+                   : launch<float, D>(q, k, v, pos, out, part_acc, part_ml, \
+                                      b, s_max, hkv, g, n_split, scale,     \
+                                      stream);
+  switch (d) {
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(128)
+    DECODE_CASE(192)
+    DECODE_CASE(256)
+  }
+#undef DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
 

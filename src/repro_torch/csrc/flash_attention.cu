@@ -41,8 +41,12 @@
 // row sums take the fp32 p.
 //
 // Design:
-//  - Grid (H, B, ceil(S / 128)): block z takes query tile n - 1 - z, so the
-//    longest causal rows of every head start first.  288 threads: two
+//  - Grid (H * D / DV, B, ceil(S / 128)): block z takes query tile
+//    n - 1 - z, so the longest causal rows of every head start first;
+//    block x takes head x / (D / DV) and DV of its D output columns (DV =
+//    D up to D = 128; 128 at D = 256 and 64 at D = 192, whose whole O
+//    accumulators do not fit beside the scores and the P pieces, so each
+//    column block repeats the Q.K^T and the softmax).  288 threads: two
 //    consumer warpgroups of 64 query rows each and one producer warp.
 //  - The producer (one thread) loads the block's 128 x D Q tile once, then
 //    the K and V tiles of BK = 64 keys into a ring of NS stages, with
@@ -54,7 +58,9 @@
 //    the wrapper raises otherwise).  TMA fills keys and rows past S with
 //    zeros and the kernel masks them.  SWIZZLE_128B: a 64-column bf16 row
 //    is exactly one 128-byte span, tiles sit on 1,024-byte boundaries, and
-//    D = 128 loads each tile as two 64-column boxes.
+//    wider rows load as D / 64 boxes of 64 columns (V as DV / 64: the
+//    block's columns only).  D = 32 rows are 64 bytes: SWIZZLE_64B, one
+//    32-column box, descriptors in the 64-byte mode.
 //  - A consumer warpgroup, at step kt, issues S = Q.K^T of tile kt (wgmma
 //    m64n64k16, both operands K-major in shared memory) and O += P.V of
 //    tile kt - 1 (wgmma m64nDk16, P from registers: for 16 keys the
@@ -69,11 +75,13 @@
 //    32,768).  Both run every tile of the
 //    block (a tile past a row's diagonal is all masked and adds nothing),
 //    so their turns pair up.
-//  - BK = 64 keys per stage, NS = 6 stages at D = 64 (4 at D = 128), in
-//    the 168 registers a thread has with 9 warps on the SM: with 128 keys
-//    per stage the P pieces of the tile in flight and the scores of the
-//    next no longer fit, and ptxas spills.  At D = 128 the O accumulators
-//    double: ptxas spills a little and serialises the wgmmas.
+//  - BK = 64 keys per stage, NS = 6 stages at D <= 64 (4 at D = 128 and
+//    192, 3 at D = 256, whose 64 KB Q tile and 48 KB stages leave room for
+//    no more), in the 168 registers a thread has with 9 warps on the SM:
+//    with 128 keys per stage the P pieces of the tile in flight and the
+//    scores of the next no longer fit, and ptxas spills.  At DV = 128 the
+//    O accumulators double: ptxas spills a little and serialises the
+//    wgmmas (the -Xptxas -v counts are in PERF.md).
 //  - The output, divided by max(l, 1e-30), is stored as bf16 pairs straight
 //    from the accumulators; rows past S are not stored.
 #include <cuda.h>
@@ -96,19 +104,32 @@ constexpr int BQ = 128;                    // query rows per block
 constexpr int BK = 64;                     // keys per stage
 constexpr int kConsumers = 256;            // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
-constexpr int kSpan = 128;                 // bytes of a swizzled row
 constexpr int kEncodeError = 1000;         // + the CUresult of the encode
 
+// D = 32 rows are 64 bytes (64-byte swizzle); wider rows are read as
+// 64-column boxes of 128 bytes (128-byte swizzle).  A block owns DV of
+// the D output columns: the O accumulators of D = 192 or 256 do not fit a
+// thread's registers beside the scores and the P pieces, so those head
+// dims take D / DV column blocks, each with the whole Q.K^T and softmax.
 template <int D>
 struct Cfg {
-  static constexpr int NS = D == 64 ? 6 : 4;  // stages in the ring
-  static constexpr int HALVES = D / 64;       // 64-column boxes
+  static constexpr int SPAN = D == 32 ? 64 : 128;  // bytes of a swizzled row
+  static constexpr int BOXC = SPAN / 2;            // columns of a box
+  static constexpr int BOXES = D / BOXC;           // boxes of a Q or K row
+  static constexpr int DV = D == 256 ? 128 : D == 192 ? 64 : D;
+  static constexpr int NCOL = D / DV;              // column blocks
+  static constexpr int VBOXES = DV / BOXC;         // boxes of a V row
+  static constexpr int ATOM = 8 * SPAN;            // 8 swizzled rows
+  static constexpr uint64_t LAYOUT = SPAN == 128 ? 1 : 2;  // descriptor mode
+  static constexpr int NS = D <= 64 ? 6 : D == 256 ? 3 : 4;  // ring stages
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // K or V of one stage
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int V_BYTES = BK * DV * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + NS * STAGE_BYTES;
   // 1,024 of slack to align the tiles, the tiles, 2 NS + 1 mbarriers
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * NS + 1);
+  static_assert(SMEM <= 232448, "over the 227 KB a block can use");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -159,12 +180,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (each >> 4), layout 1 (B128)
-__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
+// wgmma shared-memory descriptor for a swizzled operand: start address,
+// leading and stride byte offsets (each >> 4), layout (1: 128-byte
+// swizzle, 2: 64-byte)
+template <int D>
+__device__ __forceinline__ uint64_t swz(uint32_t addr, uint32_t lbo,
+                                       uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+         (uint64_t)(sbo >> 4) << 32 | Cfg<D>::LAYOUT << 62;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -210,6 +233,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32, fp32) += a (64 x 16, bf16 pairs in registers) . b (16 x 32,
+// smem, N-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 64, fp32) += a (64 x 16, bf16 pairs in registers) . b (16 x 64,
@@ -295,30 +336,36 @@ __device__ __forceinline__ void turn_pass(int wg) {
 }
 
 // S = Q.K^T of one key tile: both operands K-major in shared memory, D/16
-// steps of 32 bytes along a swizzled row, the second 64 columns in the
-// second box
+// steps of 32 bytes along a swizzled row, box after box
 template <int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[BK / 2], uint32_t qa,
                                              uint32_t ks) {
+  using C = Cfg<D>;
+  constexpr int PER = C::SPAN / 32;  // k16 steps in a box
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(sc, sw128(qa + (kk / 4) * BQ * kSpan + (kk % 4) * 32, 16, 1024),
-             sw128(ks + (kk / 4) * BK * kSpan + (kk % 4) * 32, 16, 1024),
+    wgmma_ss(sc,
+             swz<D>(qa + (kk / PER) * BQ * C::SPAN + (kk % PER) * 32, 16,
+                    C::ATOM),
+             swz<D>(ks + (kk / PER) * BK * C::SPAN + (kk % PER) * 32, 16,
+                    C::ATOM),
              kk > 0);
 }
 
-// O += P.V of one key tile, P in three bf16 pieces: 16 keys per step,
-// V N-major (8-key groups 1,024 bytes apart, the second 64 columns BK
-// rows on)
+// O += P.V of one key tile over the block's DV columns, P in three bf16
+// pieces: 16 keys per step, V N-major (8-key groups one swizzle atom
+// apart, each further box of columns BK rows on)
 template <int D>
-__device__ __forceinline__ void issue_values(float (&acc)[D / 2],
+__device__ __forceinline__ void issue_values(float (&acc)[Cfg<D>::DV / 2],
                                              const uint32_t (&ph)[BK / 4],
                                              const uint32_t (&pm)[BK / 4],
                                              const uint32_t (&pl)[BK / 4],
                                              uint32_t vs) {
+  using C = Cfg<D>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t vd = sw128(vs + kk * 16 * kSpan, BK * kSpan, 1024);
+    const uint64_t vd =
+        swz<D>(vs + kk * 16 * C::SPAN, BK * C::SPAN, C::ATOM);
     wgmma_rs(acc, ph + 4 * kk, vd);
     wgmma_rs(acc, pm + 4 * kk, vd);
     wgmma_rs(acc, pl + 4 * kk, vd);
@@ -402,12 +449,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) &
       ~1023u;
-  const uint32_t q_sm = base;                // [half][BQ rows][128 B]
+  const uint32_t q_sm = base;                // [box][BQ rows][SPAN]
   const uint32_t kv_sm = base + C::Q_BYTES;  // stage i: K, then V
   const uint32_t full = base + C::BAR_OFF, empty = full + 8 * NS,
                  qbar = empty + 8 * NS;
 
-  const int hh = blockIdx.x, b = blockIdx.y, kh = hh / g;
+  // block x: head x / NCOL, output columns col0 .. col0 + DV - 1
+  const int hh = blockIdx.x / C::NCOL, b = blockIdx.y, kh = hh / g;
+  const int col0 = (blockIdx.x % C::NCOL) * C::DV;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int n_kt = (min(q0 + BQ, s) - 1) / BK + 1;  // causal bound
   // the warpgroup, broadcast from lane 0 so that the compiler sees it is
@@ -427,20 +476,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {  // the producer warp
     if (threadIdx.x == kConsumers) {  // one thread issues every load
       mbar_expect_tx(qbar, C::Q_BYTES);
-      for (int hf = 0; hf < C::HALVES; ++hf)
-        tma_load(q_sm + hf * BQ * kSpan, &qmap, qbar, hf * 64, q0, hh, b);
+      for (int bx = 0; bx < C::BOXES; ++bx)
+        tma_load(q_sm + bx * BQ * C::SPAN, &qmap, qbar, bx * C::BOXC, q0, hh,
+                 b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % NS;
         if (kt >= NS) mbar_wait(empty + 8 * st, (kt / NS - 1) & 1);
         const uint32_t ks = kv_sm + st * C::STAGE_BYTES,
-                       vs = ks + C::KV_BYTES;
+                       vs = ks + C::K_BYTES;
         mbar_expect_tx(full + 8 * st, C::STAGE_BYTES);
-        for (int hf = 0; hf < C::HALVES; ++hf) {
-          tma_load(ks + hf * BK * kSpan, &kmap, full + 8 * st, hf * 64,
-                   kt * BK, kh, b);
-          tma_load(vs + hf * BK * kSpan, &vmap, full + 8 * st, hf * 64,
-                   kt * BK, kh, b);
-        }
+        for (int bx = 0; bx < C::BOXES; ++bx)
+          tma_load(ks + bx * BK * C::SPAN, &kmap, full + 8 * st,
+                   bx * C::BOXC, kt * BK, kh, b);
+        for (int bx = 0; bx < C::VBOXES; ++bx)
+          tma_load(vs + bx * BK * C::SPAN, &vmap, full + 8 * st,
+                   col0 + bx * C::BOXC, kt * BK, kh, b);
       }
     }
   } else {  // the consumer warpgroups
@@ -451,13 +501,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = threadIdx.x % 128, lane = t % 32, quad = lane % 4;
     const int qw0 = q0 + wg * 64;
     const int r0 = qw0 + (t / 32) * 16 + lane / 4, r1 = r0 + 8;
-    const uint32_t qa = q_sm + wg * 64 * kSpan;
+    const uint32_t qa = q_sm + wg * 64 * C::SPAN;
     // exp(scale * (x - m)) = exp2(x * c - m * c) on the raw scores x
     const float c = scale * 1.44269504088896341f;
 
-    float acc[D / 2];
+    float acc[C::DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::DV / 2; ++i) acc[i] = 0.f;
     float m0 = kNeg, m1 = kNeg;  // running max of the raw scores
     float l0 = 0.f, l1 = 0.f;    // this thread's part of the row sums
     float al0, al1;
@@ -488,7 +538,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue_scores<D>(sc, qa, kv_sm + st * C::STAGE_BYTES);
       wg_commit();
       issue_values<D>(acc, ph, pm, pl,
-                      kv_sm + prev * C::STAGE_BYTES + C::KV_BYTES);
+                      kv_sm + prev * C::STAGE_BYTES + C::K_BYTES);
       wg_commit();
       turn_pass(wg);
       wg_wait<1>();
@@ -502,7 +552,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * prev);  // tile kt - 1 is read
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+      for (int i = 0; i < C::DV / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
       split_weights(sc, ph, pm, pl);
     }
 
@@ -511,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     turn_wait(wg);
     wg_fence();
     issue_values<D>(acc, ph, pm, pl,
-                    kv_sm + last * C::STAGE_BYTES + C::KV_BYTES);
+                    kv_sm + last * C::STAGE_BYTES + C::K_BYTES);
     wg_commit();
     if (wg == 0) turn_pass(wg);
     wg_wait<0>();
@@ -526,9 +576,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       l1 += __shfl_xor_sync(~0u, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = o + b * os_.b + hh * os_.h;
+    __nv_bfloat16* ob = o + b * os_.b + hh * os_.h + col0;
 #pragma unroll
-    for (int c8 = 0; c8 < D / 8; ++c8) {
+    for (int c8 = 0; c8 < C::DV / 8; ++c8) {
       const int col = c8 * 8 + 2 * quad;
       if (r0 < s)
         *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os_.s + col) =
@@ -568,19 +618,23 @@ EncodeTiled encode_tiled() {
 }
 
 // a (D, S, heads, B) bf16 operand with strides st = (batch, head, seq) in
-// elements, read in boxes of 64 columns x rows, 128-byte swizzled
+// elements, read in boxes of Cfg<D>::BOXC columns x rows, swizzled as
+// the descriptors expect
+template <int D>
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  int d, int s, int heads, int b, const long long* st,
-                  int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s,
+                  int s, int heads, int b, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s,
                               (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)Cfg<D>::BOXC, (cuuint32_t)rows, 1,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Cfg<D>::SPAN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -593,16 +647,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  CUresult r = make_map(encode, &qm, q, D, s, h, b, st, BQ);
+  CUresult r = make_map<D>(encode, &qm, q, s, h, b, st, BQ);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &km, k, D, s, hkv, b, st + 3, BK);
+    r = make_map<D>(encode, &km, k, s, hkv, b, st + 3, BK);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &vm, v, D, s, hkv, b, st + 6, BK);
+    r = make_map<D>(encode, &vm, v, s, hkv, b, st + 6, BK);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(h, b, (s + BQ - 1) / BQ);
+  const dim3 grid(h * C::NCOL, b, (s + BQ - 1) / BQ);
   flash_kernel<D><<<grid, kThreads, C::SMEM, stream>>>(
       qm, km, vm, (__nv_bfloat16*)o, s, h / hkv,
       Strides{st[9], st[10], st[11]}, scale);
@@ -795,8 +849,8 @@ extern "C" {
 // q (B, H, S, D), k/v (B, Hkv, S, D), o (B, H, S, D), each given by its
 // batch, head and sequence strides in elements (12 values: q, k, v, o),
 // the head dim contiguous.  is_bf16: the Hopper kernel (q, k, v and their
-// strides 16-byte aligned), else fp32 on the SIMT kernel; D in {64, 128};
-// H a multiple of Hkv.
+// strides 16-byte aligned), else fp32 on the SIMT kernel; D in {32, 64,
+// 128, 192, 256}; H a multiple of Hkv.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int h, int hkv, int s, int d,
                            const long long* strides, int is_bf16,
@@ -804,20 +858,25 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || s <= 0 || hkv <= 0 || h % hkv != 0 || b > 65535 ||
-      h > 65535 || (d != 64 && d != 128))
+      h > 65535)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    if ((s + hopper::BQ - 1) / hopper::BQ > 65535)
-      return (int)cudaErrorInvalidValue;
-    return d == 64 ? hopper::launch<64>(q, k, v, o, b, h, hkv, s, strides,
-                                        scale, stream)
-                   : hopper::launch<128>(q, k, v, o, b, h, hkv, s, strides,
-                                         scale, stream);
-  }
-  return d == 64 ? simt::launch<64>(q, k, v, o, b, h, hkv, s, strides, scale,
-                                    stream)
-                 : simt::launch<128>(q, k, v, o, b, h, hkv, s, strides,
+  if (is_bf16 && (s + hopper::BQ - 1) / hopper::BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+#define FLASH_CASE(D)                                                    \
+  case D:                                                                \
+    return is_bf16 ? hopper::launch<D>(q, k, v, o, b, h, hkv, s, strides, \
+                                       scale, stream)                    \
+                   : simt::launch<D>(q, k, v, o, b, h, hkv, s, strides,   \
                                      scale, stream);
+  switch (d) {
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(128)
+    FLASH_CASE(192)
+    FLASH_CASE(256)
+  }
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

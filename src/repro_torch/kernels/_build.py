@@ -10,7 +10,8 @@ checkout builds itself and an edited source rebuilds.  Every pointer and the str
 :func:`check` raises when it is not 0.
 
 No ``--use_fast_math``: ``exp2f`` has to stay close to XLA's ``exp2``,
-and the similarity dots must stay IEEE fp32.
+and the similarity dots keep their fixed split-TF32 arithmetic
+(``csrc/sim_top1.cu``).
 """
 from __future__ import annotations
 
@@ -39,12 +40,12 @@ build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
-                        _P, _I, _P],
+    "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                        _I, _P],
     "sim_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P, _I, _P],
-    "sim_top1_multi_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P,
-                              _P, _P, _P, _I, _P],
+    "sim_top1_multi_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                              _P, _P, _I, _P],
     "sim_topk_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "victim_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P],

@@ -19,7 +19,8 @@ from . import _build, ref
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128)
+# the head dims of configs/ and of every smoke_variant (32)
+_HEAD_DIMS = (32, 64, 128, 192, 256)
 # splits of each row's keys: enough blocks for a few per SM, at most this
 _MAX_SPLIT = 32
 _KEY_TILE = 32          # keys per tile in the kernel
@@ -65,8 +66,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor) -> torch.Tensor:
     """q (B,H,D); k/v (B,S,Hkv,D); pos (B,) int32, the newest valid cache
     index of each row (keys ``[0, pos]``).  Returns (B,H,D) in q's dtype
-    (fp32 or bf16; fp32 arithmetic).  On the card D is 64 or 128 and every
-    tensor contiguous; ``pos`` past the cache attends to all of it."""
+    (fp32 or bf16; fp32 arithmetic).  On the card D is 32, 64, 128, 192
+    or 256 and every tensor contiguous; ``pos`` past the cache attends to
+    all of it."""
     global launches
     b, h, d, s_max, hkv = _check(q, k, v, pos)
     dev = q.device

@@ -27,7 +27,8 @@ launches = 0
 wgmma_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128)
+# the head dims of configs/ and of every smoke_variant (32)
+_HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def _check(q, k, v) -> tuple[int, int, int, int, int]:
@@ -52,7 +53,7 @@ def _check(q, k, v) -> tuple[int, int, int, int, int]:
 
 
 def _check_head(d: int, operands) -> None:
-    """D in {64, 128} and the head dim contiguous, for both kernels;
+    """D in ``_HEAD_DIMS`` and the head dim contiguous, for both kernels;
     ``operands`` holds ``(name, strides)`` pairs, strides over (B,H,S,D)."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in "
@@ -66,9 +67,10 @@ def _check_head(d: int, operands) -> None:
 def check_tma(d: int, operands) -> None:
     """Raise ValueError where the Hopper kernel's TMA loads cannot take an
     operand: ``operands`` holds ``(name, strides, data_ptr)`` of q, k and v,
-    strides in bf16 elements over (B,H,S,D).  D must be 64 or 128 and the head
-    dim contiguous; the base address and the batch, head and sequence
-    strides must be multiples of 16 bytes, the strides below 2^40 bytes."""
+    strides in bf16 elements over (B,H,S,D).  D must be one of
+    ``_HEAD_DIMS`` and the head dim contiguous; the base address and the
+    batch, head and sequence strides must be multiples of 16 bytes, the
+    strides below 2^40 bytes."""
     _check_head(d, operands)
     for name, strides, ptr in operands:
         if ptr % 16:
@@ -98,9 +100,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal attention: q (B,H,S,D), k/v (B,Hkv,S,D), H a multiple of
     Hkv (query head ``h`` reads kv head ``h // (H/Hkv)``), scale
     1/sqrt(D).  Returns (B,H,S,D) in q's dtype (fp32 or bf16; fp32
-    arithmetic) with q's strides.  On the card D is 64 or 128 and the
-    head dim of every operand is contiguous; bf16 operands also pass
-    :func:`check_tma`."""
+    arithmetic) with q's strides.  On the card D is 32, 64, 128, 192 or
+    256 and the head dim of every operand is contiguous; bf16 operands
+    also pass :func:`check_tma`."""
     global launches, wgmma_launches
     b, h, s, d, hkv = _check(q, k, v)
     dev = q.device

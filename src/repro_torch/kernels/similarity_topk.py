@@ -10,6 +10,10 @@ its CUDA kernel for CUDA tensors and takes the plain version
 (:mod:`~repro_torch.kernels.ref`) for CPU tensors; anything else raises.
 The kernels need no padding: they mask the ragged query, candidate and
 depth edges themselves.  Each wrapper counts its own launches.
+
+The Top-1 kernels score in three-way TF32 on the tensor cores (the split
+and its error bound in ``csrc/sim_top1.cu``): one arithmetic for every
+shape, so a (query, row) pair scores the same bits whatever launched it.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ topk_q8_multi_launches = 0
 
 # blocks to aim for: a few waves over the H100's 132 SMs
 _TARGET_BLOCKS = 4 * 132
-# the two tile shapes of the kernels (query rows x candidate cols)
+# the two tile shapes of the Top-K kernels (query rows x candidate cols);
+# the Top-1 kernel has one, the wide one
 _SMALL_TILE, _WIDE_TILE = (8, 128), (64, 64)
 # a Top-K block keeps its K-lists in shared memory up to this many bytes
 _LIST_SMEM = 16384
@@ -101,15 +106,14 @@ def sim_top1(queries: torch.Tensor, candidates: torch.Tensor,
         return vals, idx
     if nc == 0:
         return vals.fill_(float("-inf")), idx.zero_()
-    small = nq <= 16
-    nsplit, per = split_plan(nq, nc, small)
+    nsplit, per = split_plan(nq, nc, small=False)
     part_v = torch.empty((nsplit, nq), dtype=torch.float32, device=dev)
     part_i = torch.empty((nsplit, nq), dtype=torch.int32, device=dev)
     host_nv = nc if on_dev else max(-1, min(int(n_valid), nc))
     lib = _build.library()
     _build.check(lib.sim_top1_launch(
         queries.data_ptr(), candidates.data_ptr(), nq, nc, d, host_nv,
-        n_valid.data_ptr() if on_dev else None, int(small), nsplit, per,
+        n_valid.data_ptr() if on_dev else None, nsplit, per,
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), dev.index, _build.stream_of(candidates)), "sim_top1")
     launches += 1
@@ -254,18 +258,17 @@ def sim_top1_multi(queries: torch.Tensor, slabs: torch.Tensor,
         return vals, idx
     if n_slots == 0:
         return vals.fill_(float("-inf")), idx.zero_()
-    small = nq <= 16
     # each policy gets the splits a single-slab launch would: P times the
     # blocks, so the grid's last wave is a small share of it (fewer,
     # longer splits measured slower on an H100, ``PERF.md``)
-    nsplit, per = split_plan(nq, n_slots, small)
+    nsplit, per = split_plan(nq, n_slots, small=False)
     part_v = torch.empty((n_pol, nsplit, nq), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((n_pol, nsplit, nq), dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.check(lib.sim_top1_multi_launch(
         queries.data_ptr(), slabs.data_ptr(), nq, n_slots, d,
-        n_valid.data_ptr(), n_pol, int(small), nsplit, per,
+        n_valid.data_ptr(), n_pol, nsplit, per,
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), dev.index, _build.stream_of(slabs)), "sim_top1_multi")
     multi_launches += 1

@@ -7,8 +7,9 @@ tensors with the reference's shapes; ``*_apply`` consumes it.  Attention
 runs on the hand-written kernels through :mod:`repro_torch.kernels.ops`:
 prefill and full-sequence passes through ``flash_attention`` (B8), decode
 through an in-place write of the new K/V at ``pos`` followed by
-``decode_attention`` (B9) over ``[0, pos]``.  On CPU tensors those take
-their plain PyTorch versions.
+``decode_attention`` (B9) over ``[0, pos]``; on the card both take every
+head dim ``configs/`` and the smoke variants use (32, 64, 128, 192, 256).
+On CPU tensors those take their plain PyTorch versions.
 
 Not ported (``NotImplementedError``): MLA, MoE, sliding-window, non-causal
 and cross attention (``ROADMAP.md`` queue A item 11).

@@ -157,13 +157,17 @@ _DENSE = (_H * _S * _D, _S * _D, _D, 1)
 @pytest.mark.parametrize("d,strides,ptr", [
     (64, _MODEL, 0), (64, _DENSE, 4096), (128, (4 * 9 * 128, 9 * 128, 128,
                                                1), 256),
-    (64, (_S * _H * _D, _D, _H * _D, 1), 1920)])      # k after q in one buffer
+    (64, (_S * _H * _D, _D, _H * _D, 1), 1920),       # k after q in one buffer
+    # the other head dims of configs/ and the smoke variants
+    (32, (4 * 9 * 32, 9 * 32, 32, 1), 64), (192, (4 * 9 * 192, 9 * 192,
+                                                   192, 1), 0),
+    (256, (4 * 9 * 256, 9 * 256, 256, 1), 512)])
 def test_check_tma_takes_aligned_layouts(d, strides, ptr):
     tfa.check_tma(d, [(n, strides, ptr) for n in ("q", "k", "v")])
 
 
 @pytest.mark.parametrize("d,strides,ptr,match", [
-    (32, _DENSE, 0, "head dim"),
+    (48, _DENSE, 0, "head dim"),
     (96, _DENSE, 0, "head dim"),
     (64, (_H * _S * 65, _S * 65, 65, 1), 0, "sequence stride of 130"),
     (64, (_H * _S * _D, 36, _D, 1), 0, "head stride of 72"),

@@ -60,9 +60,70 @@ def test_sim_top1_kernel_ties_go_low(cuda, rng):
     from repro_torch.kernels import similarity_topk
     row = _unit(rng, 1, 64, cuda)
     c = torch.cat([-_unit(rng, 5, 64, cuda), row.repeat(9_000, 1)])
-    for nq in (3, 200):                          # both tile shapes
+    for nq in (3, 200):                  # one query tile and four
         v, i = similarity_topk.sim_top1(row.repeat(nq, 1), c, c.shape[0])
         assert (i == 5).all()
+
+
+def test_sim_top1_pair_scores_do_not_depend_on_the_launch(cuda, rng):
+    """I1: a (query, row) pair scores the same fp32 bits whatever launches
+    it: Q = 512 over the slab, Q = 8 (other splits), the winner alone
+    (Q = 1, N = 1), the winner at every place of an 8-row union block with
+    its count on the card (the fused rescore's shape), and a slice of a
+    stacked launch."""
+    from repro_torch.kernels import similarity_topk as st
+    q, c = _unit(rng, 512, 768, cuda), _unit(rng, 4_096, 768, cuda)
+    v, i = st.sim_top1(q, c, 4_096)
+    v8, i8 = st.sim_top1(q[:8].contiguous(), c, 4_096)
+    assert torch.equal(v8, v[:8]) and torch.equal(i8, i[:8])
+    mv, mi = st.sim_top1_multi(q, torch.stack([c.flip(0), c]),
+                               _counts((4_096, 4_096), cuda))
+    assert torch.equal(mv[1], v) and torch.equal(mi[1], i)
+    eight = torch.tensor([8], dtype=torch.int32, device=cuda)
+    for r in range(8):
+        w = int(i[r])
+        one, _ = st.sim_top1(q[r:r + 1].contiguous(), c[w:w + 1].contiguous(),
+                             1)
+        assert torch.equal(one, v[r:r + 1])
+        for at in range(8):
+            blk = -c[w].repeat(8, 1)     # every other row scores below
+            blk[at] = c[w]
+            bv, bi = st.sim_top1(q[r:r + 1].contiguous(), blk, eight)
+            assert torch.equal(bv, v[r:r + 1]) and int(bi) == at
+
+
+def _fmaf_chain(q: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The IEEE fp32 fmaf chain in ascending k (the kernel it replaced):
+    each product is exact in float64, the sum rounds once to fp32."""
+    acc = np.zeros((q.shape[0], c.shape[0]), np.float32)
+    for k in range(q.shape[1]):
+        acc = (acc.astype(np.float64) + np.outer(
+            q[:, k].astype(np.float64), c[:, k])).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("d", [768, 770])
+def test_sim_top1_error_against_float64(cuda, rng, d):
+    """I2: against a float64 product of the same inputs, the three-way TF32
+    scores err no more than twice as much as the IEEE fp32 fmaf chain, in
+    the largest and in the mean error; half the rows are near duplicates
+    of queries (scores near tau_hit and above)."""
+    from repro_torch.kernels import similarity_topk as st
+    q = _unit(rng, 256, d, cuda)
+    noise = _unit(rng, 64, d, cuda)
+    c = torch.cat([q[:32] + 0.3 * noise[:32], noise[32:]])
+    c = (c / c.norm(dim=1, keepdim=True)).contiguous()
+    # each row alone (N = 1) gives one column of pair scores (I1: the same
+    # bits as in any other launch)
+    got = torch.stack([st.sim_top1(q, c[j:j + 1].contiguous(), 1)[0]
+                       for j in range(c.shape[0])], dim=1).cpu().numpy()
+    qn, cn = q.cpu().numpy(), c.cpu().numpy()
+    exact = qn.astype(np.float64) @ cn.astype(np.float64).T
+    assert float(exact[:32, :32].diagonal().min()) > 0.9
+    err = np.abs(got - exact)
+    chain = np.abs(_fmaf_chain(qn, cn) - exact)
+    assert err.max() <= 2 * chain.max(), (err.max(), chain.max())
+    assert err.mean() <= 2 * chain.mean(), (err.mean(), chain.mean())
 
 
 @pytest.mark.parametrize("n,t", [(1, 1), (777, 33), (65_537, 4_096)])
@@ -165,7 +226,7 @@ def test_sim_topk_kernel_ties_go_low(cuda, rng):
     from repro_torch.kernels import similarity_topk
     row = _unit(rng, 1, 64, cuda)
     c = torch.cat([-_unit(rng, 5, 64, cuda), row.repeat(9_000, 1)])
-    for nq in (3, 200):                          # both tile shapes
+    for nq in (3, 200):                  # one query tile and four
         for k in (4, 40):                        # shared and device lists
             v, i = similarity_topk.sim_topk(row.repeat(nq, 1), c,
                                             c.shape[0], k)
@@ -452,7 +513,14 @@ def _randn(rng, shape, dtype, dev):
     # tiles, 32 key stages), ragged S around D = 128's 64-key stages and
     # the 128-row query tile, and G = 3 at B = 2
     (1, 15, 5, 4096, 64), (1, 4, 2, 127, 128), (2, 4, 2, 129, 128),
-    (1, 6, 3, 255, 128), (2, 6, 2, 300, 64)])
+    (1, 6, 3, 255, 128), (2, 6, 2, 300, 64),
+    # the other head dims of configs/: the smoke variants' 32 (64-byte
+    # rows), nemotron's 192 (three column blocks, G = 12) and gemma's 256
+    # (two column blocks, three stages), S ragged around the 64-key
+    # stages and the 128-row query tiles
+    (1, 4, 2, 63, 32), (2, 4, 2, 129, 32), (1, 4, 4, 1000, 32),
+    (1, 24, 2, 65, 192), (2, 4, 2, 191, 192), (1, 12, 1, 257, 192),
+    (1, 4, 4, 127, 256), (2, 2, 1, 129, 256), (1, 16, 16, 600, 256)])
 def test_flash_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
                                               dtype):
     from repro_torch.kernels import flash_attention, ref
@@ -511,7 +579,11 @@ def test_flash_attention_refuses_strides_tma_cannot_take(cuda, rng):
 @pytest.mark.parametrize("b,h,hkv,s,d", [
     (1, 1, 1, 1, 64), (8, 15, 5, 512, 64), (3, 4, 1, 257, 128),
     (2, 8, 2, 33, 128), (5, 12, 3, 2048, 64), (128, 15, 5, 300, 64),
-    (4, 4, 4, 100, 64)])
+    (4, 4, 4, 100, 64),
+    # the smoke variants' 32, nemotron's 192 at its G = 12 and gemma's 256
+    # at G = 1 (the merge kernel launches D threads)
+    (3, 4, 2, 33, 32), (8, 4, 4, 2048, 32), (2, 24, 2, 257, 192),
+    (4, 12, 1, 1000, 192), (8, 16, 16, 512, 256), (1, 2, 1, 31, 256)])
 def test_decode_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
                                                dtype):
     from repro_torch.kernels import decode_attention, ref
@@ -552,7 +624,7 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda, rng):
     with pytest.raises(ValueError):                     # dtype
         fa(q.half(), kv.half(), kv.half())
     with pytest.raises(ValueError):                     # head dim
-        fa(q[..., :32], kv[..., :32], kv[..., :32])
+        fa(q[..., :48], kv[..., :48], kv[..., :48])
     with pytest.raises(ValueError):                     # H % Hkv
         fa(q[:, :3], kv, kv)
     with pytest.raises(ValueError):                     # mixed dtypes
@@ -566,8 +638,8 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda, rng):
         da(qd, cache.transpose(0, 1).contiguous().transpose(0, 1), cache,
            pos)
     with pytest.raises(ValueError):                     # head dim
-        da(qd[..., :32].contiguous(), cache[..., :32].contiguous(),
-           cache[..., :32].contiguous(), pos)
+        da(qd[..., :48].contiguous(), cache[..., :48].contiguous(),
+           cache[..., :48].contiguous(), pos)
     with pytest.raises(ValueError):                     # pos on the host
         da(qd, cache, cache, pos.cpu())
 
@@ -634,6 +706,46 @@ def test_model_on_the_card_matches_the_host(cuda):
             "pos": torch.full((2,), p, dtype=torch.int32)})
         assert float((logits - full[:, p]).abs().max()) <= 1e-4
     assert decode_attention.launches == d0 + 40 * cfg.n_layers
+
+
+_DENSE = ["paper", "smollm-360m", "gemma-7b", "qwen1.5-110b",
+          "nemotron-4-340b"]
+
+
+@pytest.mark.parametrize("own_head_dim", [False, True])
+@pytest.mark.parametrize("arch", _DENSE)
+def test_every_dense_arch_runs_on_the_card(cuda, arch, own_head_dim):
+    """Each dense arch at its smoke variant (head dim 32) and at the smoke
+    variant with the arch's own head dim (64 to 256), fp32: forward on the
+    card (B8) within 1e-4 of the same parameters on the host, and
+    teacher-forced decode (B9) within 1e-4 of forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import Model, smoke_variant
+    cfg = smoke_variant(get_config(arch))
+    if own_head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=get_config(arch).head_dim)
+    host = Model(cfg, "cpu")
+    params = host.init(torch.Generator().manual_seed(7))
+    card = Model(cfg, "cuda")
+    cparams = _move(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (2, 24)))
+    f0 = flash_attention.launches
+    full = card.forward(cparams, {"tokens": tokens})
+    assert flash_attention.launches == f0 + cfg.n_layers
+    want = host.forward(params, {"tokens": tokens})
+    assert float((full.cpu() - want).abs().max()) <= 1e-4
+    cache = card.init_cache(2, 32)
+    d0 = decode_attention.launches
+    for p in range(24):
+        logits, cache = card.decode_step(cparams, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((2,), p, dtype=torch.int32)})
+        assert float((logits - full[:, p]).abs().max()) <= 1e-4
+    assert decode_attention.launches == d0 + 24 * cfg.n_layers
 
 
 def test_engine_on_the_card_matches_the_host(cuda):

@@ -115,6 +115,34 @@ def test_forward_prefill_and_decode_match_the_reference(arch):
                                np.asarray(rcache["kv"]["k"]), atol=ATOL)
 
 
+@pytest.mark.parametrize("arch", ["gemma-7b", "nemotron-4-340b"])
+def test_own_head_dims_match_the_reference(arch):
+    """gemma's head dim 256 and nemotron's 192 (the card's widest B8/B9
+    cases) at smoke width and two layers, reference weights carried over:
+    forward and teacher-forced decode within 1e-4 of the reference."""
+    rc, tc = _cfgs(arch, head_dim=get_config(arch).head_dim)
+    assert tc.hd in (192, 256) and tc.n_layers == 2
+    rparams = _reference_params(rc, seed=5)
+    params = params_from_reference(jax.tree.map(np.asarray, rparams), tc,
+                                   "cpu")
+    rmodel, model = r_build_model(rc), build_model(tc, "cpu")
+    tok = _tokens(tc, s=10, seed=5)
+    want = np.asarray(rmodel.forward(rparams, {"tokens": jnp.asarray(tok)}))
+    got = _np(model.forward(params, {"tokens": torch.from_numpy(tok)}))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    rcache, cache = rmodel.init_cache(2, 12), model.init_cache(2, 12)
+    step = make_decode_step(model)
+    for p in range(4):
+        batch = {"tokens": tok[:, p:p + 1],
+                 "pos": np.full(2, p, np.int32)}
+        rlogits, rcache = rmodel.decode_step(
+            rparams, rcache, {k: jnp.asarray(v) for k, v in batch.items()})
+        _, logits, cache = step(params, cache, batch)
+        np.testing.assert_allclose(_np(logits), np.asarray(rlogits),
+                                   atol=ATOL)
+        np.testing.assert_allclose(_np(logits), got[:, p], atol=ATOL)
+
+
 @pytest.mark.parametrize("arch", ["paper", "qwen1.5-110b"])
 def test_scanned_reference_layout_carries_over(arch):
     """The paper config's default layout: blocks stacked on a leading L
