@@ -5,10 +5,14 @@ and CUDA-event ms per call), the checkouts timed in turns, each in a process
 of its own that builds that checkout's kernels; one more prefill under
 torch.profiler gives the card's busy time and B8's part of it.  With
 ``--top1`` the same for B1 (sim_top1, sim_top1_multi) at chip_smoke.py's
-shapes, on seeded unit rows.
+shapes, on seeded unit rows.  With ``--q8`` the same for B5 and B5-multi
+(sim_topk_q8, sim_topk_q8_multi) at chip_smoke.py's shapes on seeded,
+quantized unit rows, with B4 (sim_topk) at three of its shapes beside them
+as a guard (its kernel must not move), and each checkout's ptxas register
+and spill counts for the Top-K kernels.
 
-    python3 chip_ab_flash.py [--top1] ROOT [ROOT ...]
-    python3 chip_ab_flash.py [--top1] --ablate
+    python3 chip_ab_flash.py [--top1 | --q8] ROOT [ROOT ...]
+    python3 chip_ab_flash.py [--top1 | --q8] --ablate
 
 ROOT is a directory holding ``src/repro_torch``: to hold a change against
 its parent, unpack the parent's package into a directory ``.gitignore``
@@ -20,8 +24,13 @@ warpgroups; a multiply in place of ex2; the first, second and fourth
 together) and times them in turns with the checkout; with ``--top1``,
 of ``csrc/sim_top1.cu`` (three stages and three blocks an SM instead of two
 and four; no split of the candidates; no split of the queries; no
-wgmma; only the candidates' copies).  A variant computes wrong values
-(but for the stage count): it only says where the kernel's time goes.
+wgmma; only the candidates' copies); with ``--q8``, of
+``csrc/sim_topk_q8.cu`` (no wgmma; no insertions, the scores still
+computed, filtered and stashed; only the copies; no merge pass; four and
+eight ring stages instead of six, eight leaving one block an SM; splits
+for two waves of blocks and for half a wave instead of one).  A variant
+computes wrong values (but for the stage counts and the wave sizes): it
+only says where the kernel's time goes.
 Needs a CUDA card; prints one JSON line per run and the card's name and
 power limit.
 """
@@ -88,9 +97,121 @@ TOP1_EDITS["copies_only"] = (
     TOP1_EDITS["no_split"] + TOP1_EDITS["no_afrag"] + TOP1_EDITS["no_wgmma"]
     + [(_T1_QCOPY, "      for (int e = tid; e < 0; e += kThreads) {")])
 
+# B5 and B5-multi: chip_smoke.py's shapes, (label, Q, N or (P, S), k,
+# graph reps); B4 beside them as a guard, (label, Q, N, D, k, reps)
+Q8_SRC = "src/repro_torch/csrc/sim_topk_q8.cu"
+_Q8_WRAP = "src/repro_torch/kernels/similarity_topk.py"
+Q8_SHAPES = [("Q=1 N=65,537", 1, 65_537, 20), ("Q=512 N=65,537", 512,
+                                                  65_537, 20),
+             ("multi Q=512 P=15 S=6,852", 512, (15, 6_852), 10),
+             ("multi Q=16 P=15 S=6,852", 16, (15, 6_852), 20)]
+B4_SHAPES = [("B4 slab Q=8 N=65,537 k=8", 8, 65_537, 768, 8, 20),
+             ("B4 slab Q=8 N=65,537 k=257", 8, 65_537, 768, 257, 20),
+             ("B4 route Q=512 T=4,096 k=3", 512, 4_096, 769, 3, 50)]
+_Q8_MMA = ("        wgmma_s8(acc, sw128(q_sm + c * CHUNK + kk * 32),\n"
+           "                 sw128(ring + st * CHUNK + kk * 32), "
+           "c > 0 || kk > 0);")
+_Q8_NS = "constexpr int NS = 6; "
+_Q8_FILL = "    fill = wave // q_tiles if wave else"
+# (path, old, new); path None is Q8_SRC
+Q8_EDITS = {
+    "no_wgmma": [(None, _Q8_MMA, "        acc[kk] += c;")],
+    "no_insert": [(None, "      m |= 1u << j;\n", "")],
+    "no_merge": [(None, "  const size_t heads = (size_t)nsplit * sizeof(int);",
+                  "  return 0;\n"
+                  "  const size_t heads = (size_t)nsplit * sizeof(int);")],
+    "stages4": [(None, _Q8_NS, "constexpr int NS = 4; ")],
+    "stages8": [(None, _Q8_NS, "constexpr int NS = 8; ")],
+    "two_waves": [(_Q8_WRAP, _Q8_FILL,
+                   "    fill = 2 * wave // q_tiles if wave else")],
+    "half_wave": [(_Q8_WRAP, _Q8_FILL,
+                   "    fill = wave // 2 // q_tiles if wave else")],
+}
+Q8_EDITS["copies_only"] = Q8_EDITS["no_wgmma"] + [
+    (None, "      fold_rows<0>(acc, qsa, cs, q0 + ra < nq ? live : 0u, va, ia, "
+           "stash,\n                   c0 + 2 * quad);\n"
+           "      fold_rows<2>(acc, qsb, cs, q0 + rb < nq ? live : 0u, vb, ib, "
+           "stash,\n                   c0 + 2 * quad);\n", "")]
 
-def child(root: str, prefill: bool, top1: bool) -> dict:
-    """Time one checkout's B8 (and prefill), or its B1, in this process."""
+
+def ptxas_registers(log: str, keep: str) -> dict:
+    """{kernel (mangled name): (registers, spill stores + loads in bytes)}
+    for the entry functions whose names hold ``keep``, from a build's
+    ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif name and keep in name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1] + nums[2]
+        elif name and keep in name and "Used" in line and "registers" in line:
+            out[name] = (int(line.split("Used")[1].split()[0]), spill)
+            name = None
+    return out
+
+
+def child_q8(out: dict) -> dict:
+    """B5, B5-multi and the B4 guard of the checkout just built."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import similarity_topk as st
+    from repro_torch.kernels.quant import quantize_rows_int8
+    out["registers"] = ptxas_registers(_build.build_log, "topk")
+    rng = np.random.default_rng(0)
+
+    def unit(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    def q8(x):
+        a, s, _ = quantize_rows_int8(x.reshape(-1, x.shape[-1]))
+        return (torch.from_numpy(a).to("cuda").view(x.shape),
+                torch.from_numpy(s).to("cuda").view(x.shape[:-1]))
+    queries = q8(unit(512, 768))
+    slab = q8(unit(65_537, 768))
+    slabs = q8(unit(15, 6_852, 768))
+    counts = torch.full((15,), 6_852, dtype=torch.int32, device="cuda")
+    for label, nq, n, reps in Q8_SHAPES:
+        q, qs = (x[:nq].contiguous() for x in queries)
+        if isinstance(n, tuple):
+            out[label] = graph_ms(lambda: st.sim_topk_q8_multi(
+                q, qs, *slabs, counts, 8), reps)
+        else:
+            out[label] = graph_ms(lambda: st.sim_topk_q8(
+                q, qs, *slab, n, 8), reps)
+    for label, nq, n, d, k, reps in B4_SHAPES:
+        q = torch.from_numpy(unit(nq, d)).to("cuda")
+        c = torch.from_numpy(unit(n, d)).to("cuda")
+        out[label] = graph_ms(lambda: st.sim_topk(q, c, n, k), reps)
+    return out
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``, from a CUDA graph of ``reps`` calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def child(root: str, prefill: bool, mode: str) -> dict:
+    """Time one checkout's B8 (and prefill), its B1, or its B5, in this
+    process."""
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     import torch
@@ -99,26 +220,10 @@ def child(root: str, prefill: bool, top1: bool) -> dict:
         raise RuntimeError(f"imported {fa.__file__}, not {root}'s")
     _build.library()
     gen = torch.Generator("cuda").manual_seed(2)
-
-    def graph_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     out = {"root": root, "build_s": _build.build_seconds}
-    if top1:
+    if mode == "q8":
+        return child_q8(out)
+    if mode == "top1":
         from repro_torch.kernels import similarity_topk as st
         rng = np.random.default_rng(0)
 
@@ -186,39 +291,41 @@ def child(root: str, prefill: bool, top1: bool) -> dict:
     return out
 
 
-def ablation_roots(top1: bool) -> list[str]:
+def ablation_roots(mode: str) -> list[str]:
     """Write the variants of this checkout's kernel; returns their roots."""
-    path = TOP1_SRC if top1 else _SRC
-    with open(os.path.join(HERE, path)) as f:
-        src = f.read()
+    path, variants = {"flash": (_SRC, EDITS), "top1": (TOP1_SRC, TOP1_EDITS),
+                      "q8": (Q8_SRC, Q8_EDITS)}[mode]
     roots = []
-    for name, edits in (TOP1_EDITS if top1 else EDITS).items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"--ablate {name}: the kernel no longer "
-                                   f"holds {old!r}")
-            text = text.replace(old, new)
+    for name, edits in variants.items():
         root = os.path.join(HERE, "build", "ablate", name)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(os.path.join(HERE, "src", "repro_torch"),
                         os.path.join(root, "src", "repro_torch"),
                         ignore=shutil.ignore_patterns("__pycache__"))
-        with open(os.path.join(root, path), "w") as f:
-            f.write(text)
+        for edit in edits:
+            where, old, new = edit if len(edit) == 3 else (None, *edit)
+            file = os.path.join(root, where or path)
+            with open(file) as f:
+                text = f.read()
+            if old not in text:
+                raise RuntimeError(f"--ablate {name}: {where or path} no "
+                                   f"longer holds {old!r}")
+            with open(file, "w") as f:
+                f.write(text.replace(old, new))
         roots.append(root)
     return roots
 
 
 def main() -> None:
     args = sys.argv[1:]
+    mode = "top1" if "--top1" in args else "q8" if "--q8" in args \
+        else "flash"
     if args[:1] == ["--child"]:
         print(json.dumps(child(os.path.abspath(args[1]),
-                               "--no-prefill" not in args,
-                               "--top1" in args)), flush=True)
+                               "--no-prefill" not in args, mode)),
+              flush=True)
         return
-    top1 = "--top1" in args
-    args = [a for a in args if a != "--top1"]
+    args = [a for a in args if a not in ("--top1", "--q8")]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab_flash.py: no CUDA card")
@@ -226,15 +333,15 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if args == ["--ablate"]:
-        variants = ablation_roots(top1)
+        variants = ablation_roots(mode)
         roots, extra = [HERE] + variants, ["--no-prefill"]
         roots = roots + roots
     elif args and not any(a.startswith("-") for a in args):
         roots, extra = [os.path.abspath(a) for a in args], []
     else:
         raise SystemExit(__doc__)
-    if top1:
-        extra = ["--top1"]
+    if mode != "flash":
+        extra = [f"--{mode}"]
     runs = []
     for root in roots:
         res = subprocess.run([sys.executable, __file__, "--child", root,

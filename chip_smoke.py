@@ -270,17 +270,22 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def timings(kernel, plain, library, reps: int,
-            plain_reps: int | None = None) -> dict:
+            plain_reps: int | None = None, calls=None) -> dict:
     """Device time per call of the kernel, its plain version (None where it
     does not fit) and the library yardstick (CUDA graphs), and the
-    kernel's eager time."""
-    for fn in (plain, library):
+    kernel's eager time; with ``calls``, a second yardstick that computes
+    the whole function in several PyTorch calls."""
+    for fn in (plain, library, calls):
         if fn is not None:
             fn()                                # warm-up off the capture
-    return {"eager_ms": event_ms(kernel, reps), "ms": graph_ms(kernel, reps),
-            "plain_ms": None if plain is None
-            else graph_ms(plain, plain_reps or reps),
-            "library_ms": None if library is None else graph_ms(library, reps)}
+    out = {"eager_ms": event_ms(kernel, reps), "ms": graph_ms(kernel, reps),
+           "plain_ms": None if plain is None
+           else graph_ms(plain, plain_reps or reps),
+           "library_ms": None if library is None
+           else graph_ms(library, reps)}
+    if calls is not None:
+        out["library_calls_ms"] = graph_ms(calls, reps)
+    return out
 
 
 def bound(nbytes: float, flops: float,
@@ -364,10 +369,13 @@ def _clear_ranks(pv: torch.Tensor) -> torch.Tensor:
 
 
 def check_topk(label: str, run, plain, library, nbytes: float, ops_: float,
-               peak: float, exact: bool, reps: int) -> dict:
+               peak: float, exact: bool, reps: int, calls=None) -> dict:
     """A Top-K kernel against its plain version: the same -inf tail, then
     values bit-equal with equal indices (int8, ``exact``) or within
-    SIM_TOL with equal indices at clear ranks (fp32)."""
+    SIM_TOL with equal indices at clear ranks (fp32).  For int8 the shape
+    also names the kernel that ran (``q8_route``)."""
+    from repro_torch.kernels import similarity_topk as st
+    w0 = st.topk_q8_wgmma_launches + st.topk_q8_multi_wgmma_launches
     v, i = run()
     pv, pi = plain()
     torch.cuda.synchronize()
@@ -385,8 +393,12 @@ def check_topk(label: str, run, plain, library, nbytes: float, ops_: float,
         if not torch.equal(i[clear], pi[clear]):
             raise AssertionError(f"{label}: index disagreements")
     nb, op = bound(nbytes, ops_, peak)
-    return {"shape": label, "max_abs_err": err, "bound_ms": nb,
-            "bound_by": op, **timings(run, plain, library, reps)}
+    out = {"shape": label, "max_abs_err": err, "bound_ms": nb,
+           "bound_by": op}
+    if exact:
+        wgmma = st.topk_q8_wgmma_launches + st.topk_q8_multi_wgmma_launches
+        out["q8_route"] = "wgmma" if wgmma > w0 else "dp4a"
+    return {**out, **timings(run, plain, library, reps, calls=calls)}
 
 
 def phase_topk(chunk, slab, reps_aug, q_aug):
@@ -423,21 +435,27 @@ def phase_topk(chunk, slab, reps_aug, q_aug):
     # the yardstick takes the queries padded to 32 rows (at Q = 1) and the
     # slab's first 65,536 rows
     c8t = c8[: n - n % 8].T
+    cst = cs[: n - n % 8]
     b5 = []
     for nq in (1, 512):
         q8n, qsn, _ = quantize_rows_int8(chunk[:nq].cpu().numpy())
         q8, qs = torch.from_numpy(q8n).to(dev), torch.from_numpy(qsn).to(dev)
         q8p = torch.cat([q8, q8.new_zeros((max(0, 32 - nq), d))])
+        qsp = torch.cat([qs, qs.new_zeros(max(0, 32 - nq))])
 
         def library(q8p=q8p):
             return torch._int_mm(q8p, c8t)
+
+        def calls(q8p=q8p, qsp=qsp):
+            return torch.topk((torch._int_mm(q8p, c8t).float()
+                               * qsp[:, None]) * cst[None, :], 8, dim=1)
         b5.append(check_topk(
             f"slab Q={nq} N={n} D={d} k=8",
             lambda q8=q8, qs=qs: similarity_topk.sim_topk_q8(
                 q8, qs, c8, cs, n, 8),
             lambda q8=q8, qs=qs: ref.sim_topk_q8_ref(q8, qs, c8, cs, n, 8),
             library, nq * (d + 4) + n * (d + 4) + nq * 8 * 8,
-            2.0 * nq * n * d, PEAK_INT8, True, 20))
+            2.0 * nq * n * d, PEAK_INT8, True, 20, calls=calls))
 
     b1d = []
     for nq, nu in ((1, 8), (16, 128)):
@@ -571,11 +589,25 @@ def phase_multi(trace):
     cs = torch.from_numpy(csn).to(dev).view(N_POL, s)
     # cuBLASLt's int8 product wants at least 17 rows and widths in 8s
     c8t = c8.view(n_live, d)[: n_live - n_live % 8].T
+    # the whole function in PyTorch calls takes each slab padded to S' rows
+    # (a multiple of 8), the padding masked to -inf before the Top-K
+    sp = -(-s // 8) * 8
+    c8pt = torch.cat([c8, c8.new_zeros((N_POL, sp - s, d))], 1).view(
+        N_POL * sp, d).T
+    cspad = torch.cat([cs, cs.new_zeros((N_POL, sp - s))], 1).view(-1)
+    pad = (torch.arange(sp, device=dev) >= s).repeat(N_POL)
     for nq, reps in ((512, 10), (16, 20)):
         q8n, qsn, _ = quantize_rows_int8(chunk[:nq].cpu().numpy())
         nq = q8n.shape[0]
         q8, qs = torch.from_numpy(q8n).to(dev), torch.from_numpy(qsn).to(dev)
         q8p = torch.cat([q8, q8.new_zeros((max(0, 32 - nq), d))])
+        qsp = torch.cat([qs, qs.new_zeros(max(0, 32 - nq))])
+
+        def calls(q8p=q8p, qsp=qsp):
+            sc = (torch._int_mm(q8p, c8pt).float() * qsp[:, None]) \
+                * cspad[None, :]
+            return torch.topk(sc.masked_fill_(pad, float("-inf")).view(
+                -1, N_POL, sp), 8, dim=2)
 
         def run(q8=q8, qs=qs):
             return st.sim_topk_q8_multi(q8, qs, c8, cs, counts, 8)
@@ -594,7 +626,7 @@ def phase_multi(trace):
                     q8, qs, c8, cs, counts, 8)),
             lambda q8p=q8p: torch._int_mm(q8p, c8t),
             nq * (d + 4) + n_live * (d + 4) + N_POL * nq * 8 * 8,
-            2.0 * nq * n_live * d, PEAK_INT8, True, reps))
+            2.0 * nq * n_live * d, PEAK_INT8, True, reps, calls=calls))
     log(f"sim_topk_q8_multi: bit-equal to {N_POL} single-slab launches")
 
     t = N_TOPICS
@@ -834,6 +866,7 @@ def _arena_replay(task):
         made.append(get_backend(*a, **kw))
         return made[-1]
     st.multi_launches = st.topk_q8_multi_launches = 0
+    st.topk_q8_multi_wgmma_launches = 0
     backends.get_backend = keep
     try:
         t0 = time.perf_counter()
@@ -849,7 +882,8 @@ def _arena_replay(task):
     be = made[0]
     return (name, backend, _counts(stats), wall,
             {"sim_top1_multi": st.multi_launches,
-             "sim_topk_q8_multi": st.topk_q8_multi_launches},
+             "sim_topk_q8_multi": st.topk_q8_multi_launches,
+             "sim_topk_q8_multi (wgmma)": st.topk_q8_multi_wgmma_launches},
             {"quant": be.quant_stats, "prune": be.prune_stats})
 
 
@@ -1004,11 +1038,17 @@ def phase_arena(trace):
     if q8_launches != n_chunks2:
         raise AssertionError(f"arena quantized: {q8_launches} stacked int8 "
                              f"launches for {n_chunks2} chunks")
+    on_wgmma = results[1][4]["sim_topk_q8_multi (wgmma)"]
+    if on_wgmma != q8_launches:
+        raise AssertionError(f"arena quantized: {q8_launches - on_wgmma} of "
+                             f"{q8_launches} stacked int8 launches at "
+                             f"D={DIM} missed the wgmma kernel")
     log(f"arena: the quantized, pruned and composed arenas made the exact "
         f"arena's Stats for all {N_POL} policies")
     return {"sim_top1_multi": launches["similarity_topk.multi_launches"],
             "victim_value_multi": launches["decision.multi_launches"],
-            "sim_topk_q8_multi": q8_launches}
+            "sim_topk_q8_multi": q8_launches,
+            "sim_topk_q8_multi (wgmma)": on_wgmma}
 
 
 def phase_main(trace):
@@ -1115,8 +1155,8 @@ def phase_approx_main(trace, warm):
     cont = trace.requests[MAIN_LEN:MAIN_LEN + CONT_LEN]
     peek = np.stack([r.emb for r in trace.requests[MAIN_LEN:MAIN_LEN + PEEK]]
                     ).astype(np.float32)
-    counters = ("topk_launches", "topk_q8_launches", "launches",
-                "dev_n_valid_launches")
+    counters = ("topk_launches", "topk_q8_launches",
+                "topk_q8_wgmma_launches", "launches", "dev_n_valid_launches")
     runs = {}
     for name, kw in (("exact", {}),
                      ("approx", dict(quantized_lookup=True,
@@ -1178,6 +1218,11 @@ def phase_approx_main(trace, warm):
     if missing:
         raise AssertionError(f"approx main: kernels never launched: "
                              f"{missing}")
+    if kl["topk_q8_wgmma_launches"] != kl["topk_q8_launches"]:
+        raise AssertionError(
+            f"approx main: {kl['topk_q8_launches'] - kl['topk_q8_wgmma_launches']}"
+            f" of {kl['topk_q8_launches']} int8 Top-K launches at D={DIM} "
+            "missed the wgmma kernel")
     # kernels and host syncs of one fused lookup at b = 1
     cache = ap["cache"]
     q = cont[-1].emb[None, :].astype(np.float32)
@@ -1823,13 +1868,19 @@ def main():
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
-    def row(name, source, replaces, n_launch, shapes, library_call):
+    def row(name, source, replaces, n_launch, shapes, library_call,
+            **extra):
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": "src/repro/kernels/" + replaces,
                 "launches": n_launch, **{k: shapes[0][k] for k in keys},
                 "max_abs_err": max(x["max_abs_err"] for x in shapes
                                    if x["max_abs_err"] is not None),
-                "library_call": library_call, "shapes": shapes}
+                "library_call": library_call, **extra, "shapes": shapes}
+
+    q8_extra = dict(
+        kernel="int8 wgmma fed by a TMA ring (sim_topk_q8.cu); rows TMA "
+               "cannot read take __dp4a (sim_topk.cu)",
+        library_calls="torch._int_mm + float + 2 mul + torch.topk (5 calls)")
 
     rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
                 launches["sim_top1"], sim,
@@ -1842,20 +1893,27 @@ def main():
         row("sim_topk", "sim_topk.cu", "similarity_topk.py:170",
             approx["topk_launches"], b4,
             "torch.mm + torch.topk (IEEE fp32)"),
-        row("sim_topk_q8", "sim_topk.cu", "similarity_topk.py:197",
+        row("sim_topk_q8", "sim_topk_q8.cu", "similarity_topk.py:197",
             approx["topk_q8_launches"], b5,
             "torch._int_mm (product only; Q padded to 32 rows at Q=1, "
-            "the slab's first 65,536 rows)"),
+            "the slab's first 65,536 rows)",
+            wgmma_launches=approx["topk_q8_wgmma_launches"],
+            library_calls_ms=b5[0]["library_calls_ms"], **q8_extra),
         row("sim_top1 (device n_valid)", "sim_top1.cu",
             "similarity_topk.py:67", approx["dev_n_valid_launches"], b1d,
             "torch.mm (product only, IEEE fp32)"),
         row("sim_top1_multi", "sim_top1.cu", "ops.py:306",
             arena["sim_top1_multi"], m1,
             "torch.mm over the flat (P*S, D) slab (product only, IEEE fp32)"),
-        row("sim_topk_q8_multi", "sim_topk.cu", "ops.py:260",
+        row("sim_topk_q8_multi", "sim_topk_q8.cu", "ops.py:260",
             arena["sim_topk_q8_multi"], m5,
             "torch._int_mm over the flat (P*S, D) int8 slab (product only; "
-            "Q padded to 32 rows at Q=16, the first rows in 8s)"),
+            "Q padded to 32 rows at Q=16, the first rows in 8s)",
+            wgmma_launches=arena["sim_topk_q8_multi (wgmma)"],
+            library_calls_ms=m5[0]["library_calls_ms"],
+            **{**q8_extra, "library_calls": "torch._int_mm over each slab "
+               "padded to a multiple of 8 rows + float + 2 mul + "
+               "masked_fill_ + torch.topk (6 calls)"}),
         row("victim_value_multi", "victim_value.cu", "decision.py:79",
             arena["victim_value_multi"], m2, None),
         row("flash_attention", "flash_attention.cu", "flash_attention.py:56",

@@ -7,8 +7,8 @@ every scan.  With ``CacheConfig.quantized_lookup`` the backends instead:
      journal dirty-row machinery as the device mirrors
      (:class:`QuantizedSlabMirror`);
   2. scan it with the quantized Top-K kernel (``ops.sim_topk_q8``, the
-     ``csrc/sim_topk.cu`` int8 kernel on the card) — 4× fewer slab bytes
-     moved;
+     ``csrc/sim_topk_q8.cu`` int8 tensor-core kernel on the card) — 4×
+     fewer slab bytes moved;
   3. **rescore the ≤k survivors in fp32** against the exact rows (the
      backend's own ``top1_rows`` engine) and certify the result with
      :func:`resolve_topk`'s safety predicate;

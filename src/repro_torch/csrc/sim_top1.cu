@@ -84,6 +84,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // one warpgroup
@@ -125,29 +127,8 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// wgmma descriptor of a K-major, 128-byte-swizzled operand: start address,
-// leading offset (unused), 8-row groups 1,024 bytes apart, layout 1
-__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving, or reusing, registers that an
-// asynchronous wgmma writes or reads across the wait for it
-__device__ __forceinline__ void reg_fence(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+// the A fragments: reg_fence for a [4][4] array (hopper.cuh has the
+// one-dimensional ones)
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");

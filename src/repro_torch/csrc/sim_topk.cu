@@ -10,6 +10,10 @@
 // (_make_sim_topk_q8_kernel): the topic routing of the pruned lookup
 // (ops.route_topics over the (T, D+1) [rep | spread] matrix), the int8
 // candidate scan of the quantized lookup, and KernelBackend.topk_rows.
+// The int8 calls whose rows TMA can read (D a multiple of 16 up to 1,024,
+// 16-byte-aligned bases: every embedder width the repo runs) go to the
+// tensor-core kernel of sim_topk_q8.cu instead; this file's int8 body
+// serves the rest (similarity_topk.q8_route).
 //
 // What bounds it on an H100: the fp32 product is the same work as B1's,
 // 2*Q*N*D operations at 67 TFLOP/s outside the tensor cores, so wide query
@@ -19,7 +23,8 @@
 // of the bytes (50 MB for the 65,537 x 768 slab: 0.015 ms) and, at 512
 // queries, does 51.5 G int8 operations: 0.026 ms at the tensor cores'
 // 1,979 TOPS.  This kernel uses __dp4a on the CUDA cores, not the tensor
-// cores, so it stays well above that bound (IMMA is later work).
+// cores, so it stays well above that bound; sim_topk_q8.cu takes those
+// calls to the tensor cores.
 //
 // Design:
 //  - The TPU kernel folds candidate tiles in order through a revisited
@@ -37,7 +42,8 @@
 //    and each is inserted behind every entry with a score >= its own (the
 //    list holds only lower indices of this split, so equal scores stay
 //    ahead).  Columns are visited in ascending order, so the tie rule
-//    holds inside the block.
+//    holds inside the block.  The fold and the merge pass live in
+//    topk_fold.cuh, shared with sim_topk_q8.cu.
 //  - Any K up to N is served: the lists live in shared memory when
 //    BQ * K * 8 bytes fit in 16 KB, else in the partial output buffer in
 //    device memory (same code through a generic pointer).  The wrapper
@@ -68,18 +74,13 @@
 #include <climits>
 #include <type_traits>
 
+#include "topk_fold.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlice = 16;  // 32-bit words of depth per shared-memory slice
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // One depth slice (kSlice floats) of rows [r0, r0 + ROWS) into the
 // k-major shared tile dst.
@@ -127,55 +128,6 @@ __device__ __forceinline__ void load_i8(const signed char* __restrict__ src,
       dst[w][r] = (int)word;
     }
   }
-}
-
-// Fold one row of the score tile into that row's sorted list (one warp).
-// lv/li: the list (shared or device memory), *cnt: its length.
-__device__ void fold_row(const float* srow, int c0, int bc, int limit, int k,
-                         float* lv, int* li, int* cnt, int lane) {
-  int n = *cnt;
-  float thr = n < k ? -CUDART_INF_F : lv[k - 1];
-  for (int base = 0; base < bc; base += 32) {
-    const int col = base + lane;
-    const float v = (col < bc && c0 + col < limit) ? srow[col] : -CUDART_INF_F;
-    unsigned m = __ballot_sync(kFull, v > thr);
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cv = __shfl_sync(kFull, v, src);
-      if (!(cv > thr)) continue;  // the threshold rose since the ballot
-      // entries scoring >= cv have lower indices: they stay ahead
-      int p = 0;
-      for (int j = lane; j < n; j += 32) p += lv[j] >= cv;
-      p = warp_sum(p);
-      const int n_new = min(n + 1, k);
-      // shift [p, n_new - 1) one place back, 32 entries a step, from the end
-      for (int end = n_new; end > p + 1; end -= 32) {
-        const int j = end - 1 - lane;
-        float tv = 0.f;
-        int ti = 0;
-        if (j > p) {
-          tv = lv[j - 1];
-          ti = li[j - 1];
-        }
-        __syncwarp();
-        if (j > p) {
-          lv[j] = tv;
-          li[j] = ti;
-        }
-        __syncwarp();
-      }
-      if (lane == 0) {
-        lv[p] = cv;
-        li[p] = c0 + base + src;
-      }
-      __syncwarp();
-      n = n_new;
-      thr = n < k ? -CUDART_INF_F : lv[k - 1];
-    }
-  }
-  __syncwarp();
-  if (lane == 0) *cnt = n;
 }
 
 // The body of both partial kernels.  MULTI: grid.z is the policy, whose
@@ -337,90 +289,6 @@ sim_topk_multi_partial(const void* __restrict__ qv,
   topk_partial<BQ, BC, TM, TN, true, VEC, true>(
       qv, cv, qscale, cscale, nq, nc, d, 0, n_valid_dev, k, tiles_per_split,
       list_in_smem, part_val, part_idx);
-}
-
-// One block per (policy, query) row of the (P, Q, K) output: K rounds,
-// each taking the best head of the nsplit sorted partial lists, by (value
-// descending, split ascending).
-template <bool MULTI>
-__global__ void sim_topk_merge(const float* __restrict__ part_val,
-                               const int* __restrict__ part_idx, int nsplit,
-                               int nq, int k, float* __restrict__ out_val,
-                               int* __restrict__ out_idx) {
-  extern __shared__ int head[];
-  __shared__ float wv[32];
-  __shared__ int ws[32];
-  __shared__ float win_v;
-  __shared__ int win_s;
-  const int row = blockIdx.x;
-  // partial list s of this row: part + (s * nq) * k
-  const size_t prow =
-      (MULTI ? (size_t)(row / nq) * nsplit * nq + row % nq : row) * (size_t)k;
-  part_val += prow;
-  part_idx += prow;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) / 32;
-  for (int s = threadIdx.x; s < nsplit; s += blockDim.x) head[s] = 0;
-  __syncthreads();
-  int j = 0;
-  for (; j < k; ++j) {
-    float bv = -CUDART_INF_F;
-    int bs = INT_MAX;
-    for (int s = threadIdx.x; s < nsplit; s += blockDim.x) {
-      const int h = head[s];
-      if (h < k) {
-        const float v = part_val[(size_t)s * nq * k + h];
-        if (v > bv) {  // s ascends within a thread: ties keep the lower
-          bv = v;
-          bs = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int os = __shfl_xor_sync(kFull, bs, off);
-      if (ov > bv || (ov == bv && os < bs)) {
-        bv = ov;
-        bs = os;
-      }
-    }
-    if (lane == 0) {
-      wv[warp] = bv;
-      ws[warp] = bs;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? wv[lane] : -CUDART_INF_F;
-      bs = lane < nwarps ? ws[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, off);
-        const int os = __shfl_xor_sync(kFull, bs, off);
-        if (ov > bv || (ov == bv && os < bs)) {
-          bv = ov;
-          bs = os;
-        }
-      }
-      if (lane == 0) {
-        win_v = bv;
-        win_s = bs;
-      }
-    }
-    __syncthreads();
-    if (win_s == INT_MAX) break;  // every list is exhausted
-    if (threadIdx.x == 0) {
-      const int s = win_s;
-      out_val[(size_t)row * k + j] = win_v;
-      out_idx[(size_t)row * k + j] = part_idx[(size_t)s * nq * k + head[s]];
-      head[s] += 1;
-    }
-    __syncthreads();
-  }
-  for (int t = j + threadIdx.x; t < k; t += blockDim.x) {
-    out_val[(size_t)row * k + t] = -CUDART_INF_F;
-    out_idx[(size_t)row * k + t] = 0;
-  }
 }
 
 template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>

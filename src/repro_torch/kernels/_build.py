@@ -4,8 +4,9 @@ Each source is compiled for ``sm_90a`` by its own ``nvcc`` process, all
 started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use, into ``build/repro_torch/<hash>/`` at the root of
-the checkout, keyed on a hash of the sources and flags, so a fresh
-checkout builds itself and an edited source rebuilds.  Every pointer and the stream are passed as
+the checkout, keyed on a hash of the sources, the ``csrc/*.cuh`` headers
+and the flags, so a fresh checkout builds itself and an edited source or
+header rebuilds.  Every pointer and the stream are passed as
 ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
@@ -24,8 +25,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("sim_top1.cu", "sim_topk.cu", "victim_value.cu", "rac_value.cu",
-           "decode_attention.cu", "flash_attention.cu")
+SOURCES = ("sim_top1.cu", "sim_topk.cu", "sim_topk_q8.cu", "victim_value.cu",
+           "rac_value.cu", "decode_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +36,9 @@ _LOCK = threading.Lock()
 
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
-#: what ``nvcc`` printed for the last build (register and spill report)
+#: what ``nvcc`` printed when the library in use was built (register and
+#: spill report; kept beside the library, so a process that finds it built
+#: reads it too)
 build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +51,9 @@ _SIGNATURES = {
                               _P, _P, _I, _P],
     "sim_topk_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "sim_topk_q8_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
+                                 _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "sim_topk_q8_wgmma_slots": [_I, _I, _I, _I, _I, _P],
     "victim_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P],
     "victim_value_multi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _P, _I, _P],
@@ -75,8 +81,10 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """The sources, every header they may include and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in _CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -89,8 +97,10 @@ def build() -> Path:
     global build_seconds, build_log
     out_dir = _BUILD_ROOT / _source_hash()
     lib = out_dir / "librepro_torch_kernels.so"
+    log_file = out_dir / "build.log"
     if lib.exists():
         build_seconds = 0.0
+        build_log = log_file.read_text() if log_file.exists() else ""
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f".build-{os.getpid()}-{threading.get_ident()}"
@@ -119,6 +129,9 @@ def build() -> Path:
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    log_tmp = out_dir / f"{tag}.log"
+    log_tmp.write_text(build_log)
+    os.replace(log_tmp, log_file)
     os.replace(tmp, lib)
     return lib
 

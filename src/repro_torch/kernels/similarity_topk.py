@@ -1,6 +1,8 @@
 """Cosine retrieval kernels and their wrappers: Top-1 (``csrc/sim_top1.cu``)
-and Top-K in fp32 and int8 (``csrc/sim_topk.cu``), each also stacked over
-a policy grid axis for the multi-policy arena.
+and Top-K in fp32 (``csrc/sim_topk.cu``) and int8 (``csrc/sim_topk_q8.cu``
+on the tensor cores where TMA can read the rows, else ``csrc/sim_topk.cu``
+on ``__dp4a``: :func:`q8_route`), each also stacked over a policy grid axis
+for the multi-policy arena.
 
 Replace ``repro/kernels/similarity_topk.py::sim_top1_pallas``,
 ``::sim_topk_pallas`` and ``::sim_topk_q8_pallas``, and the ``lax.map``
@@ -17,6 +19,8 @@ shape, so a (query, row) pair scores the same bits whatever launched it.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build, ref
@@ -29,10 +33,14 @@ dev_n_valid_launches = 0
 topk_launches = 0
 #: kernel launches made by :func:`sim_topk_q8` (int8 Top-K)
 topk_q8_launches = 0
+#: the part of ``topk_q8_launches`` that ran on the ``wgmma`` kernel
+topk_q8_wgmma_launches = 0
 #: kernel launches made by :func:`sim_top1_multi` (one per stacked call)
 multi_launches = 0
 #: kernel launches made by :func:`sim_topk_q8_multi` (one per stacked call)
 topk_q8_multi_launches = 0
+#: the part of ``topk_q8_multi_launches`` that ran on the ``wgmma`` kernel
+topk_q8_multi_wgmma_launches = 0
 
 # blocks to aim for: a few waves over the H100's 132 SMs
 _TARGET_BLOCKS = 4 * 132
@@ -41,20 +49,38 @@ _TARGET_BLOCKS = 4 * 132
 _SMALL_TILE, _WIDE_TILE = (8, 128), (64, 64)
 # a Top-K block keeps its K-lists in shared memory up to this many bytes
 _LIST_SMEM = 16384
+# the int8 wgmma kernel keeps its query tile resident: D up to this
+_WGMMA_MAX_D = 1024
+
+
+def q8_route(d: int, *ptrs: int) -> str:
+    """The kernel an int8 Top-K call of depth ``d`` over operands at the
+    data pointers ``ptrs`` runs on: ``"wgmma"`` (``csrc/sim_topk_q8.cu``)
+    where TMA can read the rows, i.e. ``d`` a multiple of 16 (the row
+    stride TMA takes), at most 1,024 (the resident query tile) and every
+    base 16-byte aligned; ``"dp4a"`` (``csrc/sim_topk.cu``) otherwise.  By
+    shape alone, never on a failure."""
+    if d % 16 == 0 and 0 < d <= _WGMMA_MAX_D \
+            and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "dp4a"
 
 
 def split_plan(nq: int, nc: int, small: bool, min_cols: int = 1,
-               groups: int = 1) -> tuple[int, int]:
+               groups: int = 1, wave: int | None = None) -> tuple[int, int]:
     """(splits, candidate tiles per split) for the split-N grid: enough
     splits that ``query tiles x groups x splits`` fills the card, never
     more than there are candidate tiles, and none with fewer than
     ``min_cols`` candidates (a Top-K split should hold more than its K).
-    ``groups`` is the number of stacked slabs sharing the grid."""
+    ``groups`` is the number of stacked slabs sharing the grid.  With
+    ``wave`` (the blocks the card holds at once) the grid stops at one
+    wave where the query tiles leave room: the longest splits that fill
+    it, and no block waits for a second wave."""
     rows, cols = _SMALL_TILE if small else _WIDE_TILE
     q_tiles = -(-nq // rows) * groups
     c_tiles = max(1, -(-nc // cols))
-    want = max(1, min(c_tiles, -(-_TARGET_BLOCKS // q_tiles),
-                      nc // max(1, min_cols)))
+    fill = wave // q_tiles if wave else -(-_TARGET_BLOCKS // q_tiles)
+    want = max(1, min(c_tiles, fill, nc // max(1, min_cols)))
     per = -(-c_tiles // want)
     return -(-c_tiles // per), per
 
@@ -121,10 +147,31 @@ def sim_top1(queries: torch.Tensor, candidates: torch.Tensor,
     return vals, idx
 
 
+_WAVES: dict = {}
+
+
+def _wgmma_wave(dev: torch.device, d: int, k: int, in_smem: bool,
+                multi: bool) -> int:
+    """The blocks of the int8 wgmma kernel the card holds at once for this
+    depth and K (its shared memory bounds the blocks an SM), asked of the
+    card once per shape."""
+    key = (dev.index, d, k, in_smem, multi)
+    if key not in _WAVES:
+        slots = ctypes.c_int(0)
+        _build.check(_build.library().sim_topk_q8_wgmma_slots(
+            d, k, int(in_smem), int(multi), dev.index,
+            ctypes.addressof(slots)), "sim_topk_q8_wgmma_slots")
+        _WAVES[key] = max(1, slots.value)
+    return _WAVES[key]
+
+
 def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
     """Shared launch of the fp32 (``qscale is None``) and int8 Top-K.  With
     ``counts`` (a (P,) int32 tensor on the card; int8 only) ``c`` is a
-    (P, S, D) stack, ``cscale`` (P, S), and the outputs are (P, Q, K)."""
+    (P, S, D) stack, ``cscale`` (P, S), and the outputs are (P, Q, K).
+    Returns the outputs and the kernel that ran: ``"fp32"``, ``"dp4a"``,
+    ``"wgmma"`` (:func:`q8_route`), or None when there was nothing to
+    launch."""
     dev = c.device
     nq, d = q.shape
     n_pol = 1 if counts is None else c.shape[0]
@@ -132,33 +179,45 @@ def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
     shape = (nq, k) if counts is None else (n_pol, nq, k)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    q8 = qscale is not None
+    route = q8_route(d, q.data_ptr(), c.data_ptr()) if q8 else "fp32"
+    wgmma = route == "wgmma"
     if nq == 0:
-        return vals, idx
-    small = nq <= 16
+        return (vals, idx), None
+    # the wgmma kernel has one tile shape, the wide one
+    small = nq <= 16 and not wgmma
     # stacked counts live on the card: plan the splits for full slabs, the
     # P slabs sharing one grid's worth of blocks (a Top-K block folds many
     # tiles into its lists, so long splits pay; measured on an H100,
     # ``PERF.md``)
     limit = nc if counts is not None else max(0, min(int(n_valid), nc))
-    nsplit, per = split_plan(nq, max(limit, 1), small, min_cols=2 * k,
-                             groups=n_pol)
     rows = (_SMALL_TILE if small else _WIDE_TILE)[0]
     in_smem = rows * k * 8 <= _LIST_SMEM
+    wave = _wgmma_wave(dev, d, k, in_smem, counts is not None) if wgmma \
+        else None
+    nsplit, per = split_plan(nq, max(limit, 1), small, min_cols=2 * k,
+                             groups=n_pol, wave=wave)
     part_v = torch.empty((n_pol, nsplit, nq, k), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((n_pol, nsplit, nq, k), dtype=torch.int32,
                          device=dev)
-    q8 = qscale is not None
     # 16-byte int8 loads need whole 16-byte rows on 16-byte boundaries
     vec = q8 and d % 16 == 0 and q.data_ptr() % 16 == 0 \
         and c.data_ptr() % 16 == 0
     lib = _build.library()
     scales = (qscale.data_ptr() if q8 else None,
               cscale.data_ptr() if q8 else None)
-    tail = (k, int(small), nsplit, per, int(in_smem), part_v.data_ptr(),
-            part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
-            _build.stream_of(c))
-    if counts is None:
+    outs = (part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), dev.index, _build.stream_of(c))
+    tail = (k, int(small), nsplit, per, int(in_smem), *outs)
+    if wgmma:
+        err = lib.sim_topk_q8_wgmma_launch(
+            q.data_ptr(), c.data_ptr(), *scales, nq, nc, d,
+            limit if counts is None else 0,
+            None if counts is None else counts.data_ptr(),
+            0 if counts is None else n_pol, k, nsplit, per, int(in_smem),
+            *outs)
+    elif counts is None:
         err = lib.sim_topk_launch(q.data_ptr(), c.data_ptr(), *scales,
                                   int(q8), int(vec), nq, nc, d, limit, *tail)
     else:
@@ -166,7 +225,7 @@ def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
                                         int(vec), nq, nc, d,
                                         counts.data_ptr(), n_pol, *tail)
     _build.check(err, "sim_topk")
-    return vals, idx
+    return (vals, idx), route
 
 
 def _check_k(k: int, nc: int) -> None:
@@ -190,8 +249,8 @@ def sim_topk(queries: torch.Tensor, candidates: torch.Tensor, n_valid: int,
         return ref.sim_topk_ref(queries, candidates, int(n_valid), k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk: unsupported device {dev}")
-    out = _topk_launch(queries, candidates, None, None, n_valid, k)
-    topk_launches += 1
+    out, route = _topk_launch(queries, candidates, None, None, n_valid, k)
+    topk_launches += route is not None
     return out
 
 
@@ -202,7 +261,7 @@ def sim_topk_q8(q8: torch.Tensor, qscale: torch.Tensor, c8: torch.Tensor,
     ``qscale`` (Q,) f32, ``c8`` (N, D) int8 with ``cscale`` (N,) f32.
     Scores are ``(float(q8 . c8) * qscale) * cscale``, bit-equal to the
     plain version; order, ties and masking as :func:`sim_topk`."""
-    global topk_q8_launches
+    global topk_q8_launches, topk_q8_wgmma_launches
     dev = c8.device
     _check("q8", q8, torch.int8, 2, dev)
     _check("qscale", qscale, torch.float32, 1, dev)
@@ -216,8 +275,9 @@ def sim_topk_q8(q8: torch.Tensor, qscale: torch.Tensor, c8: torch.Tensor,
         return ref.sim_topk_q8_ref(q8, qscale, c8, cscale, int(n_valid), k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk_q8: unsupported device {dev}")
-    out = _topk_launch(q8, c8, qscale, cscale, n_valid, k)
-    topk_q8_launches += 1
+    out, route = _topk_launch(q8, c8, qscale, cscale, n_valid, k)
+    topk_q8_launches += route is not None
+    topk_q8_wgmma_launches += route == "wgmma"
     return out
 
 
@@ -284,7 +344,7 @@ def sim_topk_q8_multi(q8: torch.Tensor, qscale: torch.Tensor,
     the slabs' device -> (vals (P, B, K) f32, idx (P, B, K) i32).  Slice p
     is :func:`sim_topk_q8` of slab p under count ``n_valid[p]``, from ONE
     launch (the policy is a grid axis)."""
-    global topk_q8_multi_launches
+    global topk_q8_multi_launches, topk_q8_multi_wgmma_launches
     dev = slabs8.device
     _check("q8", q8, torch.int8, 2, dev)
     _check("qscale", qscale, torch.float32, 1, dev)
@@ -304,6 +364,8 @@ def sim_topk_q8_multi(q8: torch.Tensor, qscale: torch.Tensor,
                                          n_valid, k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk_q8_multi: unsupported device {dev}")
-    out = _topk_launch(q8, slabs8, qscale, cscales, 0, k, counts=n_valid)
-    topk_q8_multi_launches += 1
+    out, route = _topk_launch(q8, slabs8, qscale, cscales, 0, k,
+                              counts=n_valid)
+    topk_q8_multi_launches += route is not None
+    topk_q8_multi_wgmma_launches += route == "wgmma"
     return out

@@ -274,6 +274,127 @@ def test_sim_topk_q8_kernel_unaligned_rows(cuda, rng):
     _assert_topk(v, i, pv, pi, exact_values=True)
 
 
+# B5 on the int8 wgmma kernel (csrc/sim_topk_q8.cu): bit-equal to the plain
+# version across the query-tile edges (64), the candidate-tile edges (64)
+# and the split edges, every k path (register lists for k <= 8, the
+# parked fold beyond), counts 0, 1 and N
+_Q8_EDGES = [
+    (1, 1, 1, 1), (1, 64, 64, 64), (1, 65_537, 65_537, 8),
+    (8, 129, 129, 1), (8, 65_537, 65_537, 257), (16, 128, 0, 8),
+    (16, 4_097, 4_097, 257), (17, 65, 65, 65), (17, 4_096, 1, 8),
+    (63, 127, 127, 8), (64, 1_000, 1_000, 1), (64, 4_097, 4_096, 8),
+    (65, 129, 129, 129), (65, 20_000, 19_999, 8), (512, 65_537, 65_537, 8),
+    (512, 4_096, 0, 257), (513, 8_193, 8_193, 8), (513, 300, 1, 257)]
+
+
+def _q8_rows(rng, n, d, dev):
+    from repro_torch.kernels.quant import quantize_rows_int8
+    q8, qs, _ = quantize_rows_int8(rng.standard_normal((n, d)))
+    return torch.from_numpy(q8).to(dev), torch.from_numpy(qs).to(dev)
+
+
+def _assert_q8_exact(v, i, pv, pi):
+    """Bit-equal values and equal indices wherever the plain value is
+    finite; the kernel's -inf tail carries index 0."""
+    _assert_topk(v, i, pv, pi, exact_values=True)
+    assert int(i[torch.isneginf(v)].abs().sum()) == 0
+
+
+def _q8_launch(args, n_valid, k, route):
+    from repro_torch.kernels import ref, similarity_topk as st
+    before = (st.topk_q8_launches, st.topk_q8_wgmma_launches)
+    v, i = st.sim_topk_q8(*args, n_valid, k)
+    assert st.topk_q8_launches == before[0] + 1
+    assert st.topk_q8_wgmma_launches == before[1] + (route == "wgmma")
+    pv, pi = ref.sim_topk_q8_ref(*args, n_valid, k)
+    _assert_q8_exact(v, i, pv, pi)
+    return v, i
+
+
+@pytest.mark.parametrize("nq,nc,n_valid,k", _Q8_EDGES)
+def test_sim_topk_q8_wgmma_bit_equal_at_the_edges(cuda, rng, nq, nc,
+                                                  n_valid, k):
+    q8, qs = _q8_rows(rng, nq, 768, cuda)
+    c8, cs = _q8_rows(rng, nc, 768, cuda)
+    _q8_launch((q8, qs, c8, cs), n_valid, k, "wgmma")
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 768, 1_024])
+@pytest.mark.parametrize("nq,nc,k", [(37, 1_000, 8), (5, 300, 40)])
+def test_sim_topk_q8_wgmma_takes_every_depth_in_16s(cuda, rng, d, nq, nc,
+                                                   k):
+    _q8_launch((*_q8_rows(rng, nq, d, cuda), *_q8_rows(rng, nc, d, cuda)),
+               nc - 3, k, "wgmma")
+
+
+def test_sim_topk_q8_other_rows_stay_on_dp4a(cuda, rng):
+    """D = 130, D past the resident query tile and rows off 16-byte
+    boundaries take the __dp4a kernel, with the same bits."""
+    for d in (130, 1_040):
+        _q8_launch((*_q8_rows(rng, 9, d, cuda), *_q8_rows(rng, 600, d, cuda)),
+                   570, 5, "dp4a")
+    q8, qs = _q8_rows(rng, 6, 64, cuda)
+    c8, cs = _q8_rows(rng, 401, 64, cuda)
+    _q8_launch((q8[:, 3:].contiguous(), qs, c8[:, 3:].contiguous(), cs), 401,
+               6, "dp4a")
+    # whole 64-byte rows whose base sits 3 bytes past a 16-byte boundary
+    buf = torch.empty(401 * 64 + 3, dtype=torch.int8, device=cuda)
+    off = buf[3:].view(401, 64)
+    off.copy_(c8)
+    _q8_launch((q8, qs, off, cs), 401, 6, "dp4a")
+
+
+@pytest.mark.parametrize("nq,k", [(3, 8), (64, 1), (70, 8), (200, 40)])
+def test_sim_topk_q8_wgmma_ties_come_back_ascending(cuda, rng, nq, k):
+    """A slab of a few rows repeated (every score tied many times over):
+    equal scores come back in ascending index order, as the plain stable
+    sort has them, across lanes, tiles and splits."""
+    q8, qs = _q8_rows(rng, nq, 768, cuda)
+    c8, cs = _q8_rows(rng, 7, 768, cuda)
+    c8, cs = c8.repeat(1_300, 1), cs.repeat(1_300)
+    v, i = _q8_launch((q8, qs, c8, cs), c8.shape[0], k, "wgmma")
+    assert bool((i[:, 0] < 7).all())        # the first copy of the best row
+    tied = v[:, 1:] == v[:, :-1]
+    assert bool((i[:, 1:] > i[:, :-1])[tied].all())
+    assert k == 1 or bool(tied.any())
+
+
+def test_sim_topk_q8_wgmma_largest_sums(cuda, rng):
+    """All-+-127 rows: |q8 . c8| reaches D * 127^2, the largest int32 sum
+    (exact in fp32 below 2^24 at D = 768)."""
+    sign = torch.from_numpy(rng.integers(0, 2, (40, 768))).to(cuda)
+    q8 = (sign * 254 - 127).to(torch.int8)
+    c8 = torch.cat([q8, -q8, q8.flip(1)]).repeat(30, 1)
+    qs = torch.ones(40, device=cuda)
+    cs = torch.from_numpy(rng.uniform(0.5, 1, c8.shape[0]).astype(
+        np.float32)).to(cuda)
+    v, _ = _q8_launch((q8, qs, c8, cs), c8.shape[0], 8, "wgmma")
+    assert float(v[:, 0].max()) >= 768 * 127 ** 2 * 0.5
+
+
+@pytest.mark.parametrize("s,nv,k", [
+    (65, (0, 65, 1, 64), 8), (4_097, (4_097, 0, 4_096), 1),
+    (700, (700, 699, 0, 1, 350), 40), (6_852, (6_852,) * 3, 8)])
+def test_sim_topk_q8_multi_wgmma_slices_equal_single_launches(cuda, rng, s,
+                                                              nv, k):
+    from repro_torch.kernels import ref, similarity_topk as st
+    n_pol = len(nv)
+    q8, qs = _q8_rows(rng, 70, 768, cuda)
+    c8, cs = _q8_rows(rng, 5, 768, cuda)      # few rows: many ties
+    c8 = c8.repeat(-(-n_pol * s // 5), 1)[:n_pol * s].view(n_pol, s, 768)
+    cs = cs.repeat(-(-n_pol * s // 5))[:n_pol * s].view(n_pol, s)
+    counts = _counts(nv, cuda)
+    before = st.topk_q8_multi_wgmma_launches
+    v, i = st.sim_topk_q8_multi(q8, qs, c8, cs, counts, k)
+    assert st.topk_q8_multi_wgmma_launches == before + 1
+    pv, pi = ref.sim_topk_q8_multi_ref(q8, qs, c8, cs, counts, k)
+    for p, n in enumerate(nv):
+        _assert_q8_exact(v[p], i[p], pv[p], pi[p])
+        sv, si = st.sim_topk_q8(q8, qs, c8[p].contiguous(),
+                                cs[p].contiguous(), n, k)
+        assert torch.equal(v[p], sv) and torch.equal(i[p], si)
+
+
 def test_sim_top1_device_n_valid_matches_host_int(cuda, rng):
     from repro_torch.kernels import similarity_topk
     q, c = _unit(rng, 9, 96, cuda), _unit(rng, 3_000, 96, cuda)
