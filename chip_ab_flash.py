@@ -8,11 +8,17 @@ torch.profiler gives the card's busy time and B8's part of it.  With
 shapes, on seeded unit rows.  With ``--q8`` the same for B5 and B5-multi
 (sim_topk_q8, sim_topk_q8_multi) at chip_smoke.py's shapes on seeded,
 quantized unit rows, with B4 (sim_topk) at three of its shapes beside them
-as a guard (its kernel must not move), and each checkout's ptxas register
-and spill counts for the Top-K kernels.
+as a guard, and each checkout's ptxas register and spill counts for the
+Top-K kernels.  With ``--topk`` the same for B4 (sim_topk, fp32) at
+chip_smoke.py's shapes (the routing matrix at Q in {1, 512}, the slab at
+Q = 8 and k in {1, 8, 16, 257}) on seeded unit rows, the routing rows at
+the mirror's 16-byte pitch where the checkout takes a row stride, and
+whether each checkout's outputs are bit-equal to the first root's; with
+``--decode`` the same for B9 (decode_attention) at chip_smoke.py's
+DECODE_SHAPES, with each output's max |difference| from the first root's.
 
-    python3 chip_ab_flash.py [--top1 | --q8] ROOT [ROOT ...]
-    python3 chip_ab_flash.py [--top1 | --q8] --ablate
+    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode] ROOT ...
+    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode] --ablate
 
 ROOT is a directory holding ``src/repro_torch``: to hold a change against
 its parent, unpack the parent's package into a directory ``.gitignore``
@@ -28,9 +34,16 @@ wgmma; only the candidates' copies); with ``--q8``, of
 ``csrc/sim_topk_q8.cu`` (no wgmma; no insertions, the scores still
 computed, filtered and stashed; only the copies; no merge pass; four and
 eight ring stages instead of six, eight leaving one block an SM; splits
-for two waves of blocks and for half a wave instead of one).  A variant
-computes wrong values (but for the stage counts and the wave sizes): it
-only says where the kernel's time goes.
+for two waves of blocks and for half a wave instead of one); with
+``--topk``, of ``csrc/sim_topk_f32.cu`` and its wrapper (one ring stage;
+the replaced kernel's grid at Q = 1, 32 blocks of 128 rows; the K > 32
+lists in device memory; no ballot filter, every live column visited; no
+fold at all; no split merge);
+with ``--decode``, of ``csrc/decode_attention.cu`` and its wrapper (one
+ring stage; 32-key stages; the replaced kernel's split plan; no lane
+split of the dot, a lane a key; only the copies, no key scored).  A variant computes wrong values (but
+for the stage counts, the wave sizes, the grids, the lists' place and the
+filter): it only says where the kernel's time goes.
 Needs a CUDA card; prints one JSON line per run and the card's name and
 power limit.
 """
@@ -134,6 +147,70 @@ Q8_EDITS["copies_only"] = Q8_EDITS["no_wgmma"] + [
            "stash,\n                   c0 + 2 * quad);\n", "")]
 
 
+# B4: chip_smoke.py's shapes, (label, Q, N, D, k, graph reps); "route" rows
+# are the (T, D+1) routing matrix and norm-augmented queries
+TOPK_SRC = "src/repro_torch/csrc/sim_topk_f32.cu"
+TOPK_SHAPES = [("route Q=1 T=4,096 D+1=769 k=3", 1, 4_096, 769, 3, 200),
+               ("route Q=512 T=4,096 D+1=769 k=3", 512, 4_096, 769, 3, 50),
+               ("slab Q=8 N=65,537 D=768 k=1", 8, 65_537, 768, 1, 20),
+               ("slab Q=8 N=65,537 D=768 k=8", 8, 65_537, 768, 8, 20),
+               ("slab Q=8 N=65,537 D=768 k=16", 8, 65_537, 768, 16, 20),
+               ("slab Q=8 N=65,537 D=768 k=257", 8, 65_537, 768, 257, 10)]
+TOPK_EDITS = {
+    "one_stage": [(None, "constexpr int NS = 4; ", "constexpr int NS = 1; "),
+                  (None, "constexpr int WNS = 4; ",
+                   "constexpr int WNS = 1; ")],
+    "old_grid": [(_Q8_WRAP,
+                  "    warps = max(1, min(_F32_MAX_WARPS, tiles // n_sm)) "
+                  "if skinny else 1",
+                  "    warps = _F32_MAX_WARPS if skinny else 1")],
+    "device_lists": [(None, "  return k > KREG && smem_bytes(nq, d, k, warps, "
+                            "true) <= (size_t)kSmemMax;",
+                      "  return false;")],
+    "no_filter": [(None, "  unsigned m = __ballot_sync(kFull, live && s > thr);",
+                   "  unsigned m = __ballot_sync(kFull, live);"),
+                  (None, "    m &= (m - 1) & __ballot_sync(kFull, live && s > thr);",
+                   "    m &= m - 1;"),
+                  (None, "    const bool pass = v > thr;",
+                   "    const bool pass = v > -CUDART_INF_F;")],
+    "no_fold": [(None, "  unsigned m = __ballot_sync(kFull, live && s > thr);",
+                 "  unsigned m = 0u & __ballot_sync(kFull, live && s > thr);"),
+                (None, "  if (m == 0) return;", "  return;")],
+    "no_merge": [(None, "  const int mw = merge_warps(k);",
+                  "  return 0;\n  const int mw = merge_warps(k);")],
+}
+# B9: chip_smoke.py's DECODE_SHAPES, (B, H, Hkv, S_max, D), bf16?, reps
+DECODE_SRC = "src/repro_torch/csrc/decode_attention.cu"
+_DA_WRAP = "src/repro_torch/kernels/decode_attention.py"
+DECODE_SHAPES = [((8, 15, 5, 512, 64), True, 50),
+                 ((8, 15, 5, 2048, 64), True, 50),
+                 ((8, 16, 16, 2048, 256), True, 50),
+                 ((8, 96, 8, 2048, 192), True, 50),
+                 ((8, 4, 2, 2048, 32), False, 50),
+                 ((128, 15, 5, 32768, 64), True, 5)]
+DECODE_EDITS = {
+    "one_stage": [(None, "  static constexpr int NS = 65536 / SB < 1 ? 1 :",
+                   "  static constexpr int NS = 1 ? 1 :")],
+    "keys32": [(None, "  static constexpr int KS = RB <= 128 ? 128 : RB <= 512 "
+                      "? 64 : 32;",
+                "  static constexpr int KS = 32;"),
+               (_DA_WRAP, "    return 128 if row <= 128 else 64 if row <= 512 "
+                          "else 32",
+                "    return 32")],
+    "old_split": [(_DA_WRAP,
+                   "    want = max(-(-_WAVES * wave // rows), "
+                   "-(-s_max // _MAX_KEYS))",
+                   "    want = min(32, -(-8 * 132 // rows))")],
+    "no_lane_split": [(None, "  static constexpr int L = RB <= 128 ? 1 : "
+                             "pow2_part(NSL) < 8 ? pow2_part(NSL)",
+                       "  static constexpr int L = 1 ? 1 : pow2_part(NSL) < 8 "
+                       "? pow2_part(NSL)")],
+    "copies_only": [(None, "    const int nk = max(0, min(kw_n, hi - (lo + s * "
+                           "S::KS + k0)));",
+                     "    const int nk = 0;")],
+}
+
+
 def ptxas_registers(log: str, keep: str) -> dict:
     """{kernel (mangled name): (registers, spill stores + loads in bytes)}
     for the entry functions whose names hold ``keep``, from a build's
@@ -189,6 +266,83 @@ def child_q8(out: dict) -> dict:
     return out
 
 
+def _unit_rows(rng, *shape):
+    import numpy as np
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def child_topk(out: dict, save: str) -> dict:
+    """B4 of the checkout just built, and its outputs saved to ``save``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import similarity_topk as st
+    out["registers"] = ptxas_registers(_build.build_log, "topk")
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    d = 768
+    reps = torch.from_numpy(_unit_rows(rng, 4_096, d)).to(dev)
+    spread = torch.from_numpy(rng.uniform(0.05, 0.6, 4_096).astype(
+        np.float32)).to(dev)
+    chunk = torch.from_numpy(_unit_rows(rng, 512, d)).to(dev)
+    slab = torch.from_numpy(_unit_rows(rng, 65_537, d)).to(dev)
+    # a checkout that takes a row stride gets the mirror's 16-byte pitch
+    pitch = -(-(d + 1) // 4) * 4 if hasattr(st, "topk_f32_launches") \
+        else d + 1
+    aug = torch.zeros((4_096, pitch), device=dev)
+    aug[:, :d], aug[:, d] = reps, spread
+    q_aug = torch.zeros((512, pitch), device=dev)
+    q_aug[:, :d], q_aug[:, d] = chunk, chunk.norm(dim=1)
+    results = {}
+    for label, nq, n, width, k, reps_ in TOPK_SHAPES:
+        if label.startswith("route"):
+            q, c = q_aug[:nq, :width], aug[:, :width]
+        else:
+            q, c = chunk[:nq], slab
+        out[label] = graph_ms(lambda: st.sim_topk(q, c, n, k), reps_)
+        results[label] = [x.cpu() for x in st.sim_topk(q, c, n, k)]
+    torch.save(results, save)
+    return out
+
+
+def child_decode(out: dict, save: str) -> dict:
+    """B9 of the checkout just built, and its outputs saved to ``save``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    out["registers"] = ptxas_registers(_build.build_log, "decode")
+    gen = torch.Generator("cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    results = {}
+    for (b, h, hkv, s, d), bf16, reps in DECODE_SHAPES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+        pos_np = rng.integers(0, s, b).astype(np.int32)
+        pos_np[0], pos_np[-1] = 0, s - 1
+        pos = torch.from_numpy(pos_np).to("cuda")
+        label = f"B={b} H={h} Hkv={hkv} S_max={s} D={d} {str(dtype)[6:]}"
+        out[label] = graph_ms(lambda: da.decode_attention(q, k, v, pos),
+                              reps)
+        results[label] = da.decode_attention(q, k, v, pos).float().cpu()
+        del q, k, v
+    torch.save(results, save)
+    return out
+
+
+def compare(mode: str, first: str, other: str) -> dict:
+    """Each shape of ``other``'s outputs against ``first``'s: bit-equal
+    (B4) or the max |difference| (B9)."""
+    import torch
+    a, b = torch.load(first), torch.load(other)
+    if mode == "topk":
+        return {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+                for k in a}
+    return {k: float((a[k] - b[k]).abs().max()) for k in a}
+
+
 def graph_ms(fn, reps: int) -> float:
     """Device ms per call of ``fn``, from a CUDA graph of ``reps`` calls."""
     import torch
@@ -209,8 +363,8 @@ def graph_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def child(root: str, prefill: bool, mode: str) -> dict:
-    """Time one checkout's B8 (and prefill), its B1, or its B5, in this
+def child(root: str, prefill: bool, mode: str, save: str) -> dict:
+    """Time one checkout's B8 (and prefill), its B1, B5, B4 or B9, in this
     process."""
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
@@ -223,6 +377,10 @@ def child(root: str, prefill: bool, mode: str) -> dict:
     out = {"root": root, "build_s": _build.build_seconds}
     if mode == "q8":
         return child_q8(out)
+    if mode == "topk":
+        return child_topk(out, save)
+    if mode == "decode":
+        return child_decode(out, save)
     if mode == "top1":
         from repro_torch.kernels import similarity_topk as st
         rng = np.random.default_rng(0)
@@ -294,7 +452,9 @@ def child(root: str, prefill: bool, mode: str) -> dict:
 def ablation_roots(mode: str) -> list[str]:
     """Write the variants of this checkout's kernel; returns their roots."""
     path, variants = {"flash": (_SRC, EDITS), "top1": (TOP1_SRC, TOP1_EDITS),
-                      "q8": (Q8_SRC, Q8_EDITS)}[mode]
+                      "q8": (Q8_SRC, Q8_EDITS),
+                      "topk": (TOPK_SRC, TOPK_EDITS),
+                      "decode": (DECODE_SRC, DECODE_EDITS)}[mode]
     roots = []
     for name, edits in variants.items():
         root = os.path.join(HERE, "build", "ablate", name)
@@ -318,14 +478,16 @@ def ablation_roots(mode: str) -> list[str]:
 
 def main() -> None:
     args = sys.argv[1:]
-    mode = "top1" if "--top1" in args else "q8" if "--q8" in args \
-        else "flash"
+    modes = ("--top1", "--q8", "--topk", "--decode")
+    mode = next((m[2:] for m in modes if m in args), "flash")
     if args[:1] == ["--child"]:
         print(json.dumps(child(os.path.abspath(args[1]),
-                               "--no-prefill" not in args, mode)),
+                               "--no-prefill" not in args, mode,
+                               args[args.index("--save") + 1]
+                               if "--save" in args else "")),
               flush=True)
         return
-    args = [a for a in args if a not in ("--top1", "--q8")]
+    args = [a for a in args if a not in modes]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab_flash.py: no CUDA card")
@@ -343,14 +505,20 @@ def main() -> None:
     if mode != "flash":
         extra = [f"--{mode}"]
     runs = []
-    for root in roots:
+    saved = os.path.join(HERE, "build", "ab_out")
+    os.makedirs(saved, exist_ok=True)
+    for i, root in enumerate(roots):
+        save = os.path.join(saved, f"{mode}-{i}.pt")
         res = subprocess.run([sys.executable, __file__, "--child", root,
-                              *extra], capture_output=True, text=True,
-                             timeout=600)
+                              *extra, "--save", save], capture_output=True,
+                             text=True, timeout=600)
         if res.returncode != 0:
             raise SystemExit(f"{root}: exit {res.returncode}\n"
                              f"{res.stderr[-4000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        if mode in ("topk", "decode") and i > 0:
+            runs[-1]["vs_first_root"] = compare(
+                mode, os.path.join(saved, f"{mode}-0.pt"), save)
         print(json.dumps(runs[-1]), flush=True)
 
 

@@ -14,8 +14,10 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                the kernel's time per eager call, host issue included),
                printed as one JSON line {"kernels": [...]}.
                The Top-K kernels are checked too: fp32 Top-K at the routing
-               shape (Q in {1, 512} x 4,096 topics x D+1 = 769, k = 3) and
-               over the slab (Q = 8, k in {1, 8, 16, 257}), int8 Top-K over
+               shape (Q in {1, 512} x 4,096 topics x D+1 = 769, k = 3, rows
+               at the routing mirror's 16-byte pitch of 772 floats) and
+               over the slab (Q = 8, k in {1, 8, 16, 257}), every launch on
+               the ring kernels of sim_topk_f32.cu; int8 Top-K over
                the slab (Q in {1, 512}, k = 8, scores bit-equal), and Top-1
                with a count read on the card (the fused rescore's shapes).
                Top-1 scores in three-way TF32 (its bound: three TF32
@@ -61,7 +63,8 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                the next 500 requests one by one (the fused path
                at b = 1) and then peek 512 queries at once (the staged
                path): identical events and hit cids; B4, B5 and B1 with a
-               count on the card must have launched.
+               count on the card must have launched, every B4 launch on
+               sim_topk_f32.cu's kernels.
   9. attention - B8 (flash_attention) and B9 (decode_attention) against
                their plain versions on the card (bf16 within one bf16 ulp,
                2^-7 of the value plus 1e-6; fp32 within 2e-5; every bf16
@@ -402,16 +405,19 @@ def check_topk(label: str, run, plain, library, nbytes: float, ops_: float,
 
 
 def phase_topk(chunk, slab, reps_aug, q_aug):
-    """B4 at the routing and slab shapes, B5 over the slab, and B1 with a
-    count read on the card at the fused rescore's shapes."""
+    """B4 at the routing and slab shapes (every launch on the ring kernels
+    of sim_topk_f32.cu), B5 over the slab, and B1 with a count read on the
+    card at the fused rescore's shapes."""
     from repro_torch.kernels import ref, similarity_topk
     from repro_torch.kernels.quant import quantize_rows_int8
     dev = slab.device
     n, d = slab.shape
     t = reps_aug.shape[0]
     b4 = []
+    f32_0 = similarity_topk.topk_f32_launches
+    all_0 = similarity_topk.topk_launches
     for nq in (1, 512):
-        q = q_aug[:nq].contiguous()
+        q = q_aug[:nq]
         b4.append(check_topk(
             f"route Q={nq} T={t} D+1={d + 1} k=3",
             lambda q=q: similarity_topk.sim_topk(q, reps_aug, t, 3),
@@ -428,6 +434,11 @@ def phase_topk(chunk, slab, reps_aug, q_aug):
             lambda k=k: torch.topk(torch.mm(q8rows, slab.T), k, dim=1),
             (8 * d + n * d) * 4 + 8 * k * 8, 2.0 * 8 * n * d, PEAK_FP32,
             False, 20))
+    f32 = similarity_topk.topk_f32_launches - f32_0
+    if f32 != similarity_topk.topk_launches - all_0 or f32 == 0:
+        raise AssertionError(f"sim_topk: {f32} of "
+                             f"{similarity_topk.topk_launches - all_0} "
+                             "launches on the sim_topk_f32.cu kernels")
 
     c8n, csn, _ = quantize_rows_int8(slab.cpu().numpy())
     c8, cs = torch.from_numpy(c8n).to(dev), torch.from_numpy(csn).to(dev)
@@ -690,11 +701,18 @@ def phase_kernels(trace):
     if int(i.abs().sum()) != 0:
         raise AssertionError("ties must go to the lower index")
     values = check_values(rng, CAPACITY + 1, N_TOPICS, 200)
-    # the routing matrix [rep | spread] and norm-augmented queries
-    spread = torch.from_numpy(rng.uniform(0.05, 0.6, (N_TOPICS, 1)).astype(
+    # the routing matrix [rep | spread] and norm-augmented queries, their
+    # rows 772 floats apart as the routing mirror and route_topics keep
+    # them (a 16-byte pitch)
+    spread = torch.from_numpy(rng.uniform(0.05, 0.6, N_TOPICS).astype(
         np.float32)).to(dev)
-    q_aug = torch.cat([chunk, chunk.norm(dim=1, keepdim=True)], dim=1)
-    topk = phase_topk(chunk, slab, torch.cat([reps, spread], dim=1), q_aug)
+    pitch = -(-(DIM + 1) // 4) * 4
+    reps_aug = torch.zeros((N_TOPICS, pitch), device=dev)
+    reps_aug[:, :DIM], reps_aug[:, DIM] = reps, spread
+    q_aug = torch.zeros((CHUNK, pitch), device=dev)
+    q_aug[:, :DIM], q_aug[:, DIM] = chunk, chunk.norm(dim=1)
+    topk = phase_topk(chunk, slab, reps_aug[:, :DIM + 1],
+                      q_aug[:, :DIM + 1])
     return sim, values, topk
 
 
@@ -1155,7 +1173,7 @@ def phase_approx_main(trace, warm):
     cont = trace.requests[MAIN_LEN:MAIN_LEN + CONT_LEN]
     peek = np.stack([r.emb for r in trace.requests[MAIN_LEN:MAIN_LEN + PEEK]]
                     ).astype(np.float32)
-    counters = ("topk_launches", "topk_q8_launches",
+    counters = ("topk_launches", "topk_f32_launches", "topk_q8_launches",
                 "topk_q8_wgmma_launches", "launches", "dev_n_valid_launches")
     runs = {}
     for name, kw in (("exact", {}),
@@ -1218,6 +1236,11 @@ def phase_approx_main(trace, warm):
     if missing:
         raise AssertionError(f"approx main: kernels never launched: "
                              f"{missing}")
+    if kl["topk_f32_launches"] != kl["topk_launches"]:
+        raise AssertionError(
+            f"approx main: {kl['topk_launches'] - kl['topk_f32_launches']} of "
+            f"{kl['topk_launches']} fp32 Top-K launches missed the "
+            "sim_topk_f32.cu kernels")
     if kl["topk_q8_wgmma_launches"] != kl["topk_q8_launches"]:
         raise AssertionError(
             f"approx main: {kl['topk_q8_launches'] - kl['topk_q8_wgmma_launches']}"
@@ -1635,7 +1658,7 @@ def phase_gemma() -> dict:
     step_profile(lambda: model.decode_step(params, cache, {
         "tokens": tokens[:, :1], "pos": torch.full(
             (1,), GEMMA_STEPS - 1, dtype=torch.int32, device=DEVICE)}),
-        "gemma decode step", "decode_kernel")
+        "gemma decode step", "decode_ring_kernel")
     del cache, full
 
     # the logit gates: the same weights at fp32 compute (B8, B9 in fp32)
@@ -1890,9 +1913,12 @@ def main():
         rows.append(row(name, name + ".cu", replaces, launches[name],
                         [values[name]], None))
     rows += [
-        row("sim_topk", "sim_topk.cu", "similarity_topk.py:170",
+        row("sim_topk", "sim_topk_f32.cu", "similarity_topk.py:170",
             approx["topk_launches"], b4,
-            "torch.mm + torch.topk (IEEE fp32)"),
+            "torch.mm + torch.topk (IEEE fp32)",
+            f32_launches=approx["topk_f32_launches"],
+            kernel="fp32 SIMT, cp.async rings: Q <= 16 a warp's 32-row "
+                   "tiles, Q > 16 128 x 128 tiles of 8 x 8 micro-tiles"),
         row("sim_topk_q8", "sim_topk_q8.cu", "similarity_topk.py:197",
             approx["topk_q8_launches"], b5,
             "torch._int_mm (product only; Q padded to 32 rows at Q=1, "

@@ -177,11 +177,18 @@ class _DeviceMirror:
     answerable small delta → ``index_copy_`` of those rows into the
     resident tensors (in place, on the launch stream, so later kernels see
     it); anything else (foreign lineage, aged-out journal, array growth,
-    bulk churn) → full upload."""
+    bulk churn) → full upload.
 
-    def __init__(self, dtypes: dict, device: torch.device):
+    ``row_align``: a 2-D array's device rows start a multiple of this many
+    elements apart; the mirror keeps it in a zero-padded tensor and hands
+    out the view of its first columns (the fp32 Top-K copies 16-byte row
+    pieces, so the (T, D+1) routing matrix takes ``row_align=4``)."""
+
+    def __init__(self, dtypes: dict, device: torch.device,
+                 row_align: int = 1):
         self.dtypes = dtypes
         self.device = device
+        self.row_align = row_align
         self.version = None
         self.arrays: Optional[dict] = None
         # "bytes" = host->device traffic this mirror moved (copied rows
@@ -190,6 +197,16 @@ class _DeviceMirror:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _upload_rows(self, a: np.ndarray) -> torch.Tensor:
+        t = self._upload(a)
+        cols = t.shape[1] if t.dim() == 2 else 0
+        if cols % self.row_align == 0:
+            return t
+        padded = t.new_zeros((t.shape[0], -(-cols // self.row_align)
+                              * self.row_align))
+        padded[:, :cols] = t
+        return padded[:, :cols]
 
     def sync(self, version: int, dirty_since, host_fn) -> dict:
         if self.arrays is not None and version == self.version:
@@ -213,7 +230,8 @@ class _DeviceMirror:
                 self.stats["incremental"] += 1
                 self.stats["rows"] += len(dirty)
         else:
-            self.arrays = {k: self._upload(np.asarray(v, self.dtypes[k]))
+            self.arrays = {k: self._upload_rows(np.asarray(v,
+                                                           self.dtypes[k]))
                            for k, v in host.items()}
             self.stats["full"] += 1
             self.stats["bytes"] += sum(
@@ -601,7 +619,8 @@ class KernelBackend:
                                             "tl": np.int32}, dev)
         # the (T, D+1) augmented routing matrix [rep | spread], mirrored
         # against the bucket index's own journal
-        self._route_mirror = _DeviceMirror({"aug": np.float32}, dev)
+        self._route_mirror = _DeviceMirror({"aug": np.float32}, dev,
+                                           row_align=4)
         # host int8 requantizer + its device mirror, keyed on the store's
         # journal like the fp32 slab
         self._qhost = QuantizedSlabMirror()
@@ -1175,7 +1194,8 @@ class KernelBackend:
 
             idx = self._pidx_arena.setdefault(p, TopicBucketIndex())
             route_m = self._route_arena.setdefault(
-                p, _DeviceMirror({"aug": np.float32}, self.device))
+                p, _DeviceMirror({"aug": np.float32}, self.device,
+                                 row_align=4))
 
             def aug_dev(idx=idx, route_m=route_m):
                 return route_m.sync(idx.version, idx.dirty_since,

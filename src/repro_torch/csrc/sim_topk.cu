@@ -1,30 +1,22 @@
-// Top-K similarity: (Q, D) queries x (N, D) candidates -> per query the K
-// best scores sorted descending, ties toward the lower candidate index.
-// Two score types share everything but the tile product:
-//   fp32 - IEEE fp32 cosine dots (fmaf in ascending k, no TF32);
-//   int8 - exact int8 x int8 -> int32 dots (__dp4a), then the score
-//          (float(acc) * qscale[row]) * cscale[col] in that order.
+// Int8 Top-K on __dp4a: (Q, D) int8 queries with per-row fp32 scales x
+// (N, D) int8 candidates with per-row fp32 scales -> per query the K best
+// scores sorted descending, ties toward the lower candidate index: exact
+// int8 x int8 -> int32 dots (__dp4a), then the score
+// (float(acc) * qscale[row]) * cscale[col] in that order.
 //
-// Replaces: repro/kernels/similarity_topk.py::sim_topk_pallas
-// (_make_sim_topk_kernel, _topk_fold) and ::sim_topk_q8_pallas
-// (_make_sim_topk_q8_kernel): the topic routing of the pruned lookup
-// (ops.route_topics over the (T, D+1) [rep | spread] matrix), the int8
-// candidate scan of the quantized lookup, and KernelBackend.topk_rows.
-// The int8 calls whose rows TMA can read (D a multiple of 16 up to 1,024,
-// 16-byte-aligned bases: every embedder width the repo runs) go to the
-// tensor-core kernel of sim_topk_q8.cu instead; this file's int8 body
-// serves the rest (similarity_topk.q8_route).
+// Replaces: repro/kernels/similarity_topk.py::sim_topk_q8_pallas
+// (_make_sim_topk_q8_kernel), the int8 candidate scan of the quantized
+// lookup, for the calls TMA cannot read.  The int8 calls
+// whose rows TMA can read (D a multiple of 16 up to 1,024, 16-byte-aligned
+// bases: every embedder width the repo runs) go to the tensor-core kernel
+// of sim_topk_q8.cu instead; this file serves the rest (D = 130, offset
+// rows: similarity_topk.q8_route).  The fp32 Top-K is sim_topk_f32.cu.
 //
-// What bounds it on an H100: the fp32 product is the same work as B1's,
-// 2*Q*N*D operations at 67 TFLOP/s outside the tensor cores, so wide query
-// blocks are compute-bound (routing 512 queries over 4,096 topics at
-// D+1 = 769: 3.2 GFLOP, 0.048 ms) and a few queries are memory-bound (the
-// 201 MB fp32 slab at 3.35 TB/s: 0.060 ms).  The int8 scan reads a quarter
-// of the bytes (50 MB for the 65,537 x 768 slab: 0.015 ms) and, at 512
-// queries, does 51.5 G int8 operations: 0.026 ms at the tensor cores'
-// 1,979 TOPS.  This kernel uses __dp4a on the CUDA cores, not the tensor
-// cores, so it stays well above that bound; sim_topk_q8.cu takes those
-// calls to the tensor cores.
+// What bounds it on an H100: the int8 scan reads a quarter of the fp32
+// bytes (50 MB for the 65,537 x 768 slab: 0.015 ms) and, at 512 queries,
+// does 51.5 G int8 operations: 0.026 ms at the tensor cores' 1,979 TOPS.
+// This kernel uses __dp4a on the CUDA cores, not the tensor cores, so it
+// stays well above that bound.
 //
 // Design:
 //  - The TPU kernel folds candidate tiles in order through a revisited
@@ -48,13 +40,13 @@
 //    BQ * K * 8 bytes fit in 16 KB, else in the partial output buffer in
 //    device memory (same code through a generic pointer).  The wrapper
 //    caps the split count so that each split has at least 2K candidates.
-//  - int8 rows are read 16 bytes per load when D is a multiple of 16 and
+//  - Rows are read 16 bytes per load when D is a multiple of 16 and
 //    the rows are 16-byte aligned; otherwise byte by byte.  Either way the
 //    ragged depth and row edges are masked with zeros, so no padding is
 //    needed.  int32 accumulation is exact for D * 127^2 < 2^31.
 //  - Columns at or past n_valid score -inf and never enter a list; a row
 //    with fewer than K live columns comes back with (-inf, 0) in its tail.
-//    No --use_fast_math: the two scale products are __fmul_rn, so the int8
+//    No --use_fast_math: the two scale products are __fmul_rn, so the
 //    scores are bit-equal to the plain version's and the host gemm's.
 //
 // The policy-stacked entry (sim_topk_multi_launch, int8) replaces
@@ -72,7 +64,6 @@
 #include <math_constants.h>
 
 #include <climits>
-#include <type_traits>
 
 #include "topk_fold.cuh"
 
@@ -81,19 +72,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlice = 16;  // 32-bit words of depth per shared-memory slice
-
-// One depth slice (kSlice floats) of rows [r0, r0 + ROWS) into the
-// k-major shared tile dst.
-template <int ROWS>
-__device__ __forceinline__ void load_f32(const float* __restrict__ src,
-                                         int r0, int n, int d, int k0,
-                                         float (*dst)[ROWS + 4]) {
-  for (int e = threadIdx.x; e < ROWS * kSlice; e += kThreads) {
-    const int r = e / kSlice, kk = e % kSlice;
-    const int gr = r0 + r, gk = k0 + kk;
-    dst[kk][r] = (gr < n && gk < d) ? __ldg(src + (size_t)gr * d + gk) : 0.f;
-  }
-}
 
 // One depth slice (kSlice words = 64 int8 values) of rows [r0, r0 + ROWS),
 // four values per word, lowest address in the low byte (what __dp4a and a
@@ -133,17 +111,17 @@ __device__ __forceinline__ void load_i8(const signed char* __restrict__ src,
 // The body of both partial kernels.  MULTI: grid.z is the policy, whose
 // slab starts at p*nc*d (its scales at p*nc) and whose count is
 // n_valid_dev[p]; without it the policy offsets compile away.
-template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC, bool MULTI>
+template <int BQ, int BC, int TM, int TN, bool VEC, bool MULTI>
 __device__ __forceinline__ void topk_partial(
     const void* __restrict__ qv, const void* __restrict__ cv,
     const float* __restrict__ qscale, const float* __restrict__ cscale,
     int nq, int nc, int d, int n_valid, const int* __restrict__ n_valid_dev,
     int k, int tiles_per_split, int list_in_smem, float* part_val,
     int* part_idx) {
-  using Word = typename std::conditional<Q8, int, float>::type;
+  using Word = int;
   constexpr int TXN = BC / TN;  // threads along the candidate axis
   static_assert(TXN * (BQ / TM) == kThreads, "tile does not match block");
-  constexpr int kStep = Q8 ? kSlice * 4 : kSlice;  // depth per slice
+  constexpr int kStep = kSlice * 4;  // depth per slice
   __shared__ __align__(16) Word qs[kSlice][BQ + 4];
   __shared__ __align__(16) Word cs[kSlice][BC + 4];
   __shared__ float sc[BQ][BC + 1];
@@ -156,11 +134,9 @@ __device__ __forceinline__ void topk_partial(
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
   const int pol = MULTI ? (int)blockIdx.z : 0;  // the policy slab
-  if constexpr (MULTI && Q8) {  // slab p and its scales
+  if constexpr (MULTI) {  // slab p and its scales
     cv = static_cast<const signed char*>(cv) + (size_t)pol * nc * d;
     cscale += (size_t)pol * nc;
-  } else if constexpr (MULTI) {
-    cv = static_cast<const float*>(cv) + (size_t)pol * nc * d;
   }
   const int limit = max(0, min(MULTI ? n_valid_dev[pol] : n_valid, nc));
   const int t_begin = split * tiles_per_split;
@@ -189,13 +165,8 @@ __device__ __forceinline__ void topk_partial(
       for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
     for (int k0 = 0; k0 < d; k0 += kStep) {
-      if constexpr (Q8) {
-        load_i8<BQ, VEC>(static_cast<const signed char*>(qv), q0, nq, d, k0, qs);
-        load_i8<BC, VEC>(static_cast<const signed char*>(cv), c0, nc, d, k0, cs);
-      } else {
-        load_f32<BQ>(static_cast<const float*>(qv), q0, nq, d, k0, qs);
-        load_f32<BC>(static_cast<const float*>(cv), c0, nc, d, k0, cs);
-      }
+      load_i8<BQ, VEC>(static_cast<const signed char*>(qv), q0, nq, d, k0, qs);
+      load_i8<BC, VEC>(static_cast<const signed char*>(cv), c0, nc, d, k0, cs);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kSlice; ++kk) {
@@ -207,12 +178,7 @@ __device__ __forceinline__ void topk_partial(
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            if constexpr (Q8)
-              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-            else
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
+          for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
       }
       __syncthreads();
     }
@@ -223,14 +189,10 @@ __device__ __forceinline__ void topk_partial(
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int col = tx * TN + j;
-        if constexpr (Q8) {
-          const int gq = q0 + row, gc = c0 + col;
-          const float qsc = gq < nq ? qscale[gq] : 0.f;
-          const float csc = gc < nc ? cscale[gc] : 0.f;
-          sc[row][col] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qsc), csc);
-        } else {
-          sc[row][col] = acc[i][j];
-        }
+        const int gq = q0 + row, gc = c0 + col;
+        const float qsc = gq < nq ? qscale[gq] : 0.f;
+        const float csc = gc < nc ? cscale[gc] : 0.f;
+        sc[row][col] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qsc), csc);
       }
     }
     __syncthreads();
@@ -261,14 +223,14 @@ __device__ __forceinline__ void topk_partial(
 }
 
 // Single slab: the compiler's own register choice.
-template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
+template <int BQ, int BC, int TM, int TN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 sim_topk_partial(const void* __restrict__ qv, const void* __restrict__ cv,
                  const float* __restrict__ qscale,
                  const float* __restrict__ cscale, int nq, int nc, int d,
                  int n_valid, int k, int tiles_per_split, int list_in_smem,
                  float* part_val, int* part_idx) {
-  topk_partial<BQ, BC, TM, TN, Q8, VEC, false>(
+  topk_partial<BQ, BC, TM, TN, VEC, false>(
       qv, cv, qscale, cscale, nq, nc, d, n_valid, nullptr, k,
       tiles_per_split, list_in_smem, part_val, part_idx);
 }
@@ -286,12 +248,12 @@ sim_topk_multi_partial(const void* __restrict__ qv,
                        int d, const int* __restrict__ n_valid_dev, int k,
                        int tiles_per_split, int list_in_smem, float* part_val,
                        int* part_idx) {
-  topk_partial<BQ, BC, TM, TN, true, VEC, true>(
+  topk_partial<BQ, BC, TM, TN, VEC, true>(
       qv, cv, qscale, cscale, nq, nc, d, 0, n_valid_dev, k, tiles_per_split,
       list_in_smem, part_val, part_idx);
 }
 
-template <int BQ, int BC, int TM, int TN, bool Q8, bool VEC>
+template <int BQ, int BC, int TM, int TN, bool VEC>
 cudaError_t launch_partial(const void* q, const void* c, const float* qs,
                            const float* cs, int nq, int nc, int d, int n_valid,
                            const int* n_valid_dev, int n_pol, int k,
@@ -300,21 +262,19 @@ cudaError_t launch_partial(const void* q, const void* c, const float* qs,
   const size_t dyn = list_in_smem ? (size_t)BQ * k * 8 : 0;
   if (n_pol == 0) {
     const dim3 grid((nq + BQ - 1) / BQ, nsplit);
-    sim_topk_partial<BQ, BC, TM, TN, Q8, VEC><<<grid, kThreads, dyn, stream>>>(
+    sim_topk_partial<BQ, BC, TM, TN, VEC><<<grid, kThreads, dyn, stream>>>(
         q, c, qs, cs, nq, nc, d, n_valid, k, per, list_in_smem, pv, pi);
-  } else if constexpr (Q8) {
+  } else {
     const dim3 grid((nq + BQ - 1) / BQ, nsplit, n_pol);
     sim_topk_multi_partial<BQ, BC, TM, TN, VEC>
         <<<grid, kThreads, dyn, stream>>>(q, c, qs, cs, nq, nc, d,
                                           n_valid_dev, k, per, list_in_smem,
                                           pv, pi);
-  } else {
-    return cudaErrorInvalidValue;  // the stacked scan is int8 only
   }
   return cudaGetLastError();
 }
 
-template <bool Q8, bool VEC>
+template <bool VEC>
 cudaError_t launch_shape(int small, const void* q, const void* c,
                          const float* qs, const float* cs, int nq, int nc,
                          int d, int n_valid, const int* n_valid_dev,
@@ -322,34 +282,30 @@ cudaError_t launch_shape(int small, const void* q, const void* c,
                          int list_in_smem, float* pv, int* pi,
                          cudaStream_t stream) {
   if (small)
-    return launch_partial<8, 128, 1, 4, Q8, VEC>(
+    return launch_partial<8, 128, 1, 4, VEC>(
         q, c, qs, cs, nq, nc, d, n_valid, n_valid_dev, n_pol, k, nsplit, per,
         list_in_smem, pv, pi, stream);
-  return launch_partial<64, 64, 4, 4, Q8, VEC>(
+  return launch_partial<64, 64, 4, 4, VEC>(
       q, c, qs, cs, nq, nc, d, n_valid, n_valid_dev, n_pol, k, nsplit, per,
       list_in_smem, pv, pi, stream);
 }
 
-// n_pol = 0: one slab with a host count; n_pol >= 1: n_pol stacked int8
-// slabs with their counts in n_valid_dev
+// n_pol = 0: one slab with a host count; n_pol >= 1: n_pol stacked slabs
+// with their counts in n_valid_dev
 int launch(const void* q, const void* c, const float* qscale,
-           const float* cscale, int q8, int vec, int nq, int nc, int d,
+           const float* cscale, int vec, int nq, int nc, int d,
            int n_valid, const int* n_valid_dev, int n_pol, int k, int small,
            int nsplit, int tiles_per_split, int list_in_smem, float* part_val,
            int* part_idx, float* out_val, int* out_idx, int device,
            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!q8)
-    err = launch_shape<false, false>(
-        small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
-        k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
-  else if (vec)
-    err = launch_shape<true, true>(
+  if (vec)
+    err = launch_shape<true>(
         small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
         k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
   else
-    err = launch_shape<true, false>(
+    err = launch_shape<false>(
         small, q, c, qscale, cscale, nq, nc, d, n_valid, n_valid_dev, n_pol,
         k, nsplit, tiles_per_split, list_in_smem, part_val, part_idx, stream);
   if (err != cudaSuccess) return (int)err;
@@ -368,19 +324,18 @@ int launch(const void* q, const void* c, const float* qscale,
 
 extern "C" {
 
-// q8 = 0: q/c are fp32 and qscale/cscale are unused (may be null).
-// q8 = 1: q/c are int8 with per-row fp32 scales; vec = 1 takes 16-byte
-// loads (d % 16 == 0 and 16-byte aligned rows, checked by the wrapper).
+// q/c are int8 with per-row fp32 scales; vec = 1 takes 16-byte loads
+// (d % 16 == 0 and 16-byte aligned rows, checked by the wrapper).
 // part_val/part_idx hold nsplit * nq * k partials; the wrapper allocates
 // them and chooses small (8 x 128 tiles), nsplit, tiles_per_split and
 // whether the lists fit in shared memory (8 * k * BQ <= 16384 bytes).
 int sim_topk_launch(const void* q, const void* c, const float* qscale,
-                    const float* cscale, int q8, int vec, int nq, int nc,
-                    int d, int n_valid, int k, int small, int nsplit,
+                    const float* cscale, int vec, int nq, int nc, int d,
+                    int n_valid, int k, int small, int nsplit,
                     int tiles_per_split, int list_in_smem, float* part_val,
                     int* part_idx, float* out_val, int* out_idx, int device,
                     cudaStream_t stream) {
-  return launch(q, c, qscale, cscale, q8, vec, nq, nc, d, n_valid, nullptr,
+  return launch(q, c, qscale, cscale, vec, nq, nc, d, n_valid, nullptr,
                 0, k, small, nsplit, tiles_per_split, list_in_smem, part_val,
                 part_idx, out_val, out_idx, device, stream);
 }
@@ -397,7 +352,7 @@ int sim_topk_multi_launch(const void* q, const void* c, const float* qscale,
                           float* out_val, int* out_idx, int device,
                           cudaStream_t stream) {
   if (n_pol < 1) return (int)cudaErrorInvalidValue;
-  return launch(q, c, qscale, cscale, 1, vec, nq, n_slots, d, 0,
+  return launch(q, c, qscale, cscale, vec, nq, n_slots, d, 0,
                 n_valid_dev, n_pol, k, small, nsplit, tiles_per_split,
                 list_in_smem, part_val, part_idx, out_val, out_idx, device,
                 stream);

@@ -145,34 +145,6 @@ __device__ __forceinline__ float score(int acc, float qs, float cs) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), qs), cs);
 }
 
-// (s, c) into the descending list (v, ix) of KR entries, behind every
-// entry >= s (those have lower indices); the caller checked s > v[KR - 1]
-__device__ __forceinline__ void insert(float (&v)[KR], int (&ix)[KR], float s,
-                                       int c) {
-#pragma unroll
-  for (int j = KR - 1; j > 0; --j) {
-    const bool up = s > v[j - 1];  // entry j - 1 moves down to j
-    const bool at = s > v[j];      // s lands at j when entry j - 1 stays
-    ix[j] = up ? ix[j - 1] : at ? c : ix[j];
-    v[j] = up ? v[j - 1] : at ? s : v[j];
-  }
-  if (s > v[0]) {
-    v[0] = s;
-    ix[0] = c;
-  }
-}
-
-// drop the head of the list when take
-__device__ __forceinline__ void pop(float (&v)[KR], int (&ix)[KR], bool take) {
-#pragma unroll
-  for (int j = 0; j < KR - 1; ++j) {
-    v[j] = take ? v[j + 1] : v[j];
-    ix[j] = take ? ix[j + 1] : ix[j];
-  }
-  v[KR - 1] = take ? -CUDART_INF_F : v[KR - 1];
-  ix[KR - 1] = take ? INT_MAX : ix[KR - 1];
-}
-
 // the best head (value descending, index ascending) of the row's four
 // lanes (a quad)
 __device__ __forceinline__ void quad_best(float& hv, int& hi) {
@@ -444,89 +416,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// partial list s of a row (its first k entries; the rest and a split past
-// nsplit read as -inf)
-__device__ __forceinline__ void load_list(const float* __restrict__ part_val,
-                                          const int* __restrict__ part_idx,
-                                          size_t prow, int s, int nsplit,
-                                          int nq, int k, float (&x)[KR],
-                                          int (&xi)[KR]) {
-  const size_t at = prow + (size_t)s * nq * k;
-#pragma unroll
-  for (int j = 0; j < KR; ++j) {
-    const bool in = s < nsplit && j < k;
-    x[j] = in ? part_val[at + j] : -CUDART_INF_F;
-    xi[j] = in ? part_idx[at + j] : 0;
-  }
-}
-
-// The merge for K <= KR: one warp per (policy, query) row of the
-// (P, Q, K) output.  Lane l folds the partial lists of splits l, l + 32,
-// ... into its own sorted list with the insert ladder (its splits ascend,
-// so equal scores keep the lower index ahead; a split's list descends, so
-// its first entry that cannot enter ends it), each list read whole and
-// the next one's loads in flight while this one folds.  Then K rounds
-// take the best head among the lanes by (value descending, index
-// ascending), which is the order of the union: the indices are distinct.
-// No barrier between rounds (sim_topk_merge, for K > KR, re-reads the
-// heads and takes two barriers a round: about 9 us for one row of 257
-// splits on an H100, chip_ab_flash.py --q8).
-template <bool MULTI>
-__global__ void __launch_bounds__(128)
-    merge_rows(const float* __restrict__ part_val,
-               const int* __restrict__ part_idx, int nsplit, int nq,
-               int nrows, int k, float* __restrict__ out_val,
-               int* __restrict__ out_idx) {
-  const int row = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= nrows) return;
-  // partial list s of this row: part + (s * nq) * k
-  const size_t prow =
-      (MULTI ? (size_t)(row / nq) * nsplit * nq + row % nq : row) * (size_t)k;
-  float v[KR];
-  int ix[KR];
-#pragma unroll
-  for (int j = 0; j < KR; ++j) {
-    v[j] = -CUDART_INF_F;
-    ix[j] = INT_MAX;
-  }
-  // a split's whole list is read at once, the next one's before this one
-  // is folded: one load latency per lane, not one per entry
-  float x[KR], y[KR];
-  int xi[KR], yi[KR];
-  load_list(part_val, part_idx, prow, lane, nsplit, nq, k, x, xi);
-  for (int s = lane; s < nsplit; s += 32) {
-    load_list(part_val, part_idx, prow, s + 32, nsplit, nq, k, y, yi);
-#pragma unroll
-    for (int j = 0; j < KR; ++j) {
-      if (!(x[j] > v[KR - 1])) break;  // the list descends
-      insert(v, ix, x[j], xi[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < KR; ++j) {
-      x[j] = y[j];
-      xi[j] = yi[j];
-    }
-  }
-  for (int j = 0; j < k; ++j) {
-    float hv = v[0];
-    int hi = ix[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, hv, off);
-      const int oi = __shfl_xor_sync(kFull, hi, off);
-      if (ov > hv || (ov == hv && oi < hi)) {
-        hv = ov;
-        hi = oi;
-      }
-    }
-    pop(v, ix, v[0] == hv && ix[0] == hi);
-    if (lane == 0) {
-      out_val[(size_t)row * k + j] = hv;
-      out_idx[(size_t)row * k + j] = hv > -CUDART_INF_F ? hi : 0;
-    }
-  }
-}
-
 // a (rows, d) int8 operand read in boxes of 64 rows x 128 bytes, swizzled
 // as the descriptors expect; rows and depth past the tensor read as zeros
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
@@ -653,10 +542,10 @@ int sim_topk_q8_wgmma_launch(const void* q, const void* c,
   const int nrows = groups * nq;
   const size_t heads = (size_t)nsplit * sizeof(int);
   if (reg && n_pol > 0)
-    merge_rows<true><<<(nrows + 3) / 4, 128, 0, stream>>>(
+    merge_rows<true, KR><<<(nrows + 3) / 4, 128, 0, stream>>>(
         part_val, part_idx, nsplit, nq, nrows, k, out_val, out_idx);
   else if (reg)
-    merge_rows<false><<<(nrows + 3) / 4, 128, 0, stream>>>(
+    merge_rows<false, KR><<<(nrows + 3) / 4, 128, 0, stream>>>(
         part_val, part_idx, nsplit, nq, nrows, k, out_val, out_idx);
   else if (n_pol > 0)
     sim_topk_merge<true><<<nrows, 128, heads, stream>>>(

@@ -25,8 +25,9 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("sim_top1.cu", "sim_topk.cu", "sim_topk_q8.cu", "victim_value.cu",
-           "rac_value.cu", "decode_attention.cu", "flash_attention.cu")
+SOURCES = ("sim_top1.cu", "sim_topk.cu", "sim_topk_f32.cu", "sim_topk_q8.cu",
+           "victim_value.cu", "rac_value.cu", "decode_attention.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,12 +42,16 @@ build_seconds = 0.0
 #: reads it too)
 build_log = ""
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
                         _I, _P],
-    "sim_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    "sim_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P, _I, _P],
+    "sim_topk_f32_launch": [_P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "sim_topk_f32_slots": [_I, _I, _I, _I, _I, _I, _P, _P],
     "sim_top1_multi_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
                               _P, _P, _I, _P],
     "sim_topk_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
@@ -59,7 +64,8 @@ _SIGNATURES = {
                                   _P, _I, _P],
     "rac_value_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _I, _P],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _I, _P],
+                                _I, _I, _I, _I, _F, _I, _P],
+    "decode_attention_slots": [_I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
                                _F, _I, _P],
 }

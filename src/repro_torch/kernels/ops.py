@@ -125,22 +125,37 @@ def _sim_top1_raw(queries, candidates, n_valid, dev):
     return _sim_top1(_as(queries, torch.float32, dev), c, n_valid)
 
 
+def _rows(x, dev: torch.device) -> torch.Tensor:
+    """``x`` as float32 rows on ``dev``: a float32 tensor there whose rows
+    are unit-stride is taken as it is (a padded mirror's view keeps its
+    pitch), anything else as :func:`_as`."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32 \
+            and x.device == dev and x.dim() == 2 \
+            and (x.shape[1] <= 1 or x.stride(1) == 1):
+        return x
+    return _as(x, torch.float32, dev)
+
+
 def sim_topk_raw(queries, candidates, n_valid, k: int):
     """Uncounted Top-K body, shared with :func:`route_topics` and the
     fused lookup (the device is the candidates')."""
     dev = _device_of(candidates, queries)
-    c = _as(candidates, torch.float32, dev)
+    c = _rows(candidates, dev)
     n_valid = c.shape[0] if n_valid is None else int(n_valid)
-    return _sim_topk(_as(queries, torch.float32, dev), c, n_valid, int(k))
+    return _sim_topk(_rows(queries, dev), c, n_valid, int(k))
 
 
 def route_topics_raw(queries, reps_aug, n_valid, k: int):
     """Uncounted routing body: augment each query with its L2 norm and
     Top-K the (T, D+1) bound matrix ``[rep | spread]``, so the product is
-    ``q . rep_t + |q| * spread_t`` (see :mod:`repro_torch.cache.pruned`)."""
+    ``q . rep_t + |q| * spread_t`` (see :mod:`repro_torch.cache.pruned`).
+    The augmented queries get the routing mirror's 16-byte row pitch."""
     qf = _as(queries, torch.float32, _device_of(reps_aug, queries))
-    qn = torch.sqrt((qf * qf).sum(dim=1, keepdim=True))
-    return sim_topk_raw(torch.cat([qf, qn], dim=1), reps_aug, n_valid, k)
+    b, d = qf.shape
+    qa = qf.new_zeros((b, -(-(d + 1) // 4) * 4))
+    qa[:, :d] = qf
+    qa[:, d] = torch.sqrt((qf * qf).sum(dim=1))
+    return sim_topk_raw(qa[:, :d + 1], reps_aug, n_valid, k)
 
 
 def sim_topk_q8_raw(q8, qscale, c8, cscale, n_valid, k: int):

@@ -1,8 +1,9 @@
 """Cosine retrieval kernels and their wrappers: Top-1 (``csrc/sim_top1.cu``)
-and Top-K in fp32 (``csrc/sim_topk.cu``) and int8 (``csrc/sim_topk_q8.cu``
-on the tensor cores where TMA can read the rows, else ``csrc/sim_topk.cu``
-on ``__dp4a``: :func:`q8_route`), each also stacked over a policy grid axis
-for the multi-policy arena.
+and Top-K in fp32 (``csrc/sim_topk_f32.cu``) and int8
+(``csrc/sim_topk_q8.cu`` on the tensor cores where TMA can read the rows,
+else ``csrc/sim_topk.cu`` on ``__dp4a``: :func:`q8_route`), the Top-1 and
+the int8 Top-K also stacked over a policy grid axis for the multi-policy
+arena.
 
 Replace ``repro/kernels/similarity_topk.py::sim_top1_pallas``,
 ``::sim_topk_pallas`` and ``::sim_topk_q8_pallas``, and the ``lax.map``
@@ -11,7 +12,9 @@ policy stacks over them in ``repro/kernels/ops.py``
 its CUDA kernel for CUDA tensors and takes the plain version
 (:mod:`~repro_torch.kernels.ref`) for CPU tensors; anything else raises.
 The kernels need no padding: they mask the ragged query, candidate and
-depth edges themselves.  Each wrapper counts its own launches.
+depth edges themselves.  The fp32 Top-K also takes rows a stride apart
+(the routing matrix's device mirror pads its rows to a 16-byte pitch).
+Each wrapper counts its own launches.
 
 The Top-1 kernels score in three-way TF32 on the tensor cores (the split
 and its error bound in ``csrc/sim_top1.cu``): one arithmetic for every
@@ -20,6 +23,7 @@ shape, so a (query, row) pair scores the same bits whatever launched it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +35,10 @@ launches = 0
 dev_n_valid_launches = 0
 #: kernel launches made by :func:`sim_topk` (fp32 Top-K)
 topk_launches = 0
+#: the part of ``topk_launches`` that ran on the ring kernels of
+#: ``csrc/sim_topk_f32.cu`` (the file holds every fp32 Top-K kernel, so a
+#: run that counts fewer went elsewhere)
+topk_f32_launches = 0
 #: kernel launches made by :func:`sim_topk_q8` (int8 Top-K)
 topk_q8_launches = 0
 #: the part of ``topk_q8_launches`` that ran on the ``wgmma`` kernel
@@ -51,6 +59,10 @@ _SMALL_TILE, _WIDE_TILE = (8, 128), (64, 64)
 _LIST_SMEM = 16384
 # the int8 wgmma kernel keeps its query tile resident: D up to this
 _WGMMA_MAX_D = 1024
+# the fp32 Top-K (csrc/sim_topk_f32.cu): queries up to this take the skinny
+# kernel (32-row warp tiles, up to four warps a block), more the wide one
+# (128 x 128 tiles)
+_F32_SKINNY_Q, _F32_ROWS, _F32_MAX_WARPS, _F32_WIDE = 16, 32, 4, 128
 
 
 def q8_route(d: int, *ptrs: int) -> str:
@@ -85,13 +97,48 @@ def split_plan(nq: int, nc: int, small: bool, min_cols: int = 1,
     return -(-c_tiles // per), per
 
 
+def f32_plan(nq: int, limit: int, k: int, n_sm: int,
+             wave) -> tuple[int, int, int]:
+    """(warps a block, splits, tiles a split) of the fp32 Top-K over
+    ``limit`` live candidates; ``wave(warps)`` is the blocks the card holds
+    at once with that many warps a block.  Q <= 16 (the skinny kernel):
+    32-row tiles, four warps a block where there are four tiles an SM and
+    fewer below, so a short matrix still spreads over the card; Q > 16 (the
+    wide kernel): 128 x 128 tiles over the query tiles.  Either way one
+    wave of blocks, none with fewer than K candidates (a split's list
+    should fill)."""
+    skinny = nq <= _F32_SKINNY_Q
+    tiles = max(1, -(-limit // (_F32_ROWS if skinny else _F32_WIDE)))
+    warps = max(1, min(_F32_MAX_WARPS, tiles // n_sm)) if skinny else 1
+    q_tiles = 1 if skinny else -(-nq // _F32_WIDE)
+    want = max(1, min(-(-tiles // warps), wave(warps) // q_tiles,
+                      limit // k))
+    per = -(-tiles // want)
+    return warps, -(-tiles // per), per
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+           device: torch.device, rows: bool = False) -> None:
+    """dtype, rank and device, and contiguity; ``rows``: unit stride along
+    each row only, rows any stride apart (not overlapping)."""
+    if rows and t.dim() == 2:
+        laid = (t.shape[1] <= 1 or t.stride(1) == 1) \
+            and (t.shape[0] <= 1 or t.stride(0) >= t.shape[1])
+    else:
+        laid = t.is_contiguous()
     if t.dtype != dtype or t.dim() != ndim or t.device != device \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {ndim}-D {dtype} "
+            or not laid:
+        what = "row-contiguous" if rows else "contiguous"
+        raise ValueError(f"{name}: expected a {what} {ndim}-D {dtype} "
                          f"tensor on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """Rows a kernel can copy 16 bytes at a time: 16-byte-aligned base
+    and a row stride of whole 16-byte units."""
+    pitch = t.stride(0) * t.element_size()
+    return t.data_ptr() % 16 == 0 and (t.shape[0] <= 1 or pitch % 16 == 0)
 
 
 def _check_pair(q: torch.Tensor, c: torch.Tensor) -> None:
@@ -148,6 +195,64 @@ def sim_top1(queries: torch.Tensor, candidates: torch.Tensor,
 
 
 _WAVES: dict = {}
+_F32_SLOTS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _f32_slots(dev: torch.device, nq: int, d: int, k: int, warps: int,
+               vec: bool) -> tuple[int, bool]:
+    """The blocks of an fp32 Top-K launch the card holds at once, and
+    whether its K > 32 lists fit in shared memory: asked of the card once
+    per shape (``sim_topk_f32_slots``)."""
+    # the kernel and its shared memory follow the query rows it pads to
+    rows = 1 << (nq - 1).bit_length() if nq <= _F32_SKINNY_Q else _F32_WIDE
+    key = (dev.index, rows, d, k, warps, vec)
+    if key not in _F32_SLOTS:
+        slots, in_smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(_build.library().sim_topk_f32_slots(
+            nq, d, k, warps, int(vec), dev.index, ctypes.addressof(slots),
+            ctypes.addressof(in_smem)), "sim_topk_f32_slots")
+        _F32_SLOTS[key] = (max(1, slots.value), bool(in_smem.value))
+    return _F32_SLOTS[key]
+
+
+def _topk_f32(q: torch.Tensor, c: torch.Tensor, n_valid: int, k: int):
+    """The fp32 Top-K launch (``csrc/sim_topk_f32.cu``); False when there
+    was nothing to launch."""
+    dev = c.device
+    nq, d = q.shape
+    nc = c.shape[0]
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return (vals, idx), False
+    limit = max(0, min(int(n_valid), nc))
+    # the skinny kernel copies only the candidates, the wide one both
+    vec = _rows16(c) and (nq <= _F32_SKINNY_Q or _rows16(q))
+    warps, nsplit, per = f32_plan(
+        nq, limit, k, _sm_count(dev.index),
+        lambda w: _f32_slots(dev, nq, d, k, w, vec)[0])
+    in_smem = _f32_slots(dev, nq, d, k, warps, vec)[1]
+    part_v = torch.empty((nsplit, nq, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nsplit, nq, k), dtype=torch.int32, device=dev)
+    lists = None
+    if k > 32 and not in_smem:  # two buffers of k entries a row
+        skinny = nq <= _F32_SKINNY_Q
+        rows = 1 << (nq - 1).bit_length() if skinny else _F32_WIDE
+        blocks = nsplit * (1 if skinny else -(-nq // _F32_WIDE))
+        lists = torch.empty(blocks * rows * 4 * k, dtype=torch.float32,
+                            device=dev)
+    _build.check(_build.library().sim_topk_f32_launch(
+        q.data_ptr(), q.stride(0), c.data_ptr(), c.stride(0), nq, nc, d,
+        limit, k, int(vec), warps, nsplit, per, int(in_smem),
+        None if lists is None else lists.data_ptr(), part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
+        _build.stream_of(c)), "sim_topk_f32")
+    return (vals, idx), True
 
 
 def _wgmma_wave(dev: torch.device, d: int, k: int, in_smem: bool,
@@ -165,13 +270,12 @@ def _wgmma_wave(dev: torch.device, d: int, k: int, in_smem: bool,
     return _WAVES[key]
 
 
-def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
-    """Shared launch of the fp32 (``qscale is None``) and int8 Top-K.  With
-    ``counts`` (a (P,) int32 tensor on the card; int8 only) ``c`` is a
-    (P, S, D) stack, ``cscale`` (P, S), and the outputs are (P, Q, K).
-    Returns the outputs and the kernel that ran: ``"fp32"``, ``"dp4a"``,
-    ``"wgmma"`` (:func:`q8_route`), or None when there was nothing to
-    launch."""
+def _topk_q8_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
+    """Shared launch of the single-slab and stacked int8 Top-K.  With
+    ``counts`` (a (P,) int32 tensor on the card) ``c`` is a (P, S, D)
+    stack, ``cscale`` (P, S), and the outputs are (P, Q, K).  Returns the
+    outputs and the kernel that ran: ``"dp4a"`` or ``"wgmma"``
+    (:func:`q8_route`), or None when there was nothing to launch."""
     dev = c.device
     nq, d = q.shape
     n_pol = 1 if counts is None else c.shape[0]
@@ -179,8 +283,7 @@ def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
     shape = (nq, k) if counts is None else (n_pol, nq, k)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
-    q8 = qscale is not None
-    route = q8_route(d, q.data_ptr(), c.data_ptr()) if q8 else "fp32"
+    route = q8_route(d, q.data_ptr(), c.data_ptr())
     wgmma = route == "wgmma"
     if nq == 0:
         return (vals, idx), None
@@ -202,11 +305,9 @@ def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
     part_i = torch.empty((n_pol, nsplit, nq, k), dtype=torch.int32,
                          device=dev)
     # 16-byte int8 loads need whole 16-byte rows on 16-byte boundaries
-    vec = q8 and d % 16 == 0 and q.data_ptr() % 16 == 0 \
-        and c.data_ptr() % 16 == 0
+    vec = d % 16 == 0 and q.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
     lib = _build.library()
-    scales = (qscale.data_ptr() if q8 else None,
-              cscale.data_ptr() if q8 else None)
+    scales = (qscale.data_ptr(), cscale.data_ptr())
     outs = (part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), dev.index, _build.stream_of(c))
     tail = (k, int(small), nsplit, per, int(in_smem), *outs)
@@ -219,7 +320,7 @@ def _topk_launch(q, c, qscale, cscale, n_valid, k: int, counts=None):
             *outs)
     elif counts is None:
         err = lib.sim_topk_launch(q.data_ptr(), c.data_ptr(), *scales,
-                                  int(q8), int(vec), nq, nc, d, limit, *tail)
+                                  int(vec), nq, nc, d, limit, *tail)
     else:
         err = lib.sim_topk_multi_launch(q.data_ptr(), c.data_ptr(), *scales,
                                         int(vec), nq, nc, d,
@@ -238,19 +339,23 @@ def sim_topk(queries: torch.Tensor, candidates: torch.Tensor, n_valid: int,
     """queries (Q, D) f32, candidates (N, D) f32 -> (vals (Q, K) f32,
     idx (Q, K) i32), each row sorted descending with ties toward the lower
     index.  Columns at or past ``n_valid`` score -inf; a row with fewer
-    than K live columns ends in (-inf, any index).  Any 1 <= K <= N."""
-    global topk_launches
+    than K live columns ends in (-inf, any index).  Any 1 <= K <= N.  Both
+    operands may be row-major views whose rows lie a stride apart; every
+    score is one fp32 fmaf chain in ascending depth, the same bits for a
+    pair whatever the launch."""
+    global topk_launches, topk_f32_launches
     dev = candidates.device
-    _check("queries", queries, torch.float32, 2, dev)
-    _check("candidates", candidates, torch.float32, 2, dev)
+    _check("queries", queries, torch.float32, 2, dev, rows=True)
+    _check("candidates", candidates, torch.float32, 2, dev, rows=True)
     _check_pair(queries, candidates)
     _check_k(k, candidates.shape[0])
     if dev.type == "cpu":
         return ref.sim_topk_ref(queries, candidates, int(n_valid), k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk: unsupported device {dev}")
-    out, route = _topk_launch(queries, candidates, None, None, n_valid, k)
-    topk_launches += route is not None
+    out, ran = _topk_f32(queries, candidates, n_valid, k)
+    topk_launches += ran
+    topk_f32_launches += ran
     return out
 
 
@@ -275,7 +380,7 @@ def sim_topk_q8(q8: torch.Tensor, qscale: torch.Tensor, c8: torch.Tensor,
         return ref.sim_topk_q8_ref(q8, qscale, c8, cscale, int(n_valid), k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk_q8: unsupported device {dev}")
-    out, route = _topk_launch(q8, c8, qscale, cscale, n_valid, k)
+    out, route = _topk_q8_launch(q8, c8, qscale, cscale, n_valid, k)
     topk_q8_launches += route is not None
     topk_q8_wgmma_launches += route == "wgmma"
     return out
@@ -364,7 +469,7 @@ def sim_topk_q8_multi(q8: torch.Tensor, qscale: torch.Tensor,
                                          n_valid, k)
     if dev.type != "cuda":
         raise ValueError(f"sim_topk_q8_multi: unsupported device {dev}")
-    out, route = _topk_launch(q8, slabs8, qscale, cscales, 0, k,
+    out, route = _topk_q8_launch(q8, slabs8, qscale, cscales, 0, k,
                               counts=n_valid)
     topk_q8_multi_launches += route is not None
     topk_q8_multi_wgmma_launches += route == "wgmma"

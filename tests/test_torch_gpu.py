@@ -234,6 +234,69 @@ def test_sim_topk_kernel_ties_go_low(cuda, rng):
             assert torch.equal(i, want.expand(nq, k))
 
 
+def _padded(x, pitch):
+    """x's rows at a pitch of ``pitch`` floats (a view, as the routing
+    mirror keeps them)."""
+    buf = torch.zeros((x.shape[0], pitch), device=x.device)
+    buf[:, :x.shape[1]] = x
+    return buf[:, :x.shape[1]]
+
+
+@pytest.mark.parametrize("nq,nc,d,n_valid,k,pitch", [
+    # the pruned lookup's route and the staged route, at the mirror's
+    # 16-byte pitch and contiguous (4-byte copies)
+    (1, 4_096, 769, 4_096, 3, 772), (1, 4_096, 769, 4_096, 3, None),
+    (512, 4_096, 769, 4_000, 3, 772), (16, 4_096, 769, 4_096, 3, 772),
+    # the slab at Q = 8, every K of chip_smoke.py
+    (8, 65_537, 768, 65_537, 1, None), (8, 65_537, 768, 65_537, 8, None),
+    (8, 65_537, 768, 65_536, 16, None), (8, 65_537, 768, 65_537, 257, None),
+    # D = 130, every skinny query count, K up to N, and the wide kernel's
+    # device-memory lists
+    (3, 1_000, 130, 990, 5, None), (5, 300, 130, 300, 300, None),
+    (2, 513, 64, 513, 33, None), (4, 777, 96, 700, 32, None),
+    (16, 2_000, 768, 1_999, 40, None), (17, 600, 64, 600, 600, None),
+    (200, 3_000, 130, 2_950, 64, None), (9, 129, 32, 129, 129, 36)])
+def test_sim_topk_f32_matches_plain_at_every_shape(cuda, rng, nq, nc, d,
+                                                   n_valid, k, pitch):
+    from repro_torch.kernels import ref, similarity_topk as st
+    q, c = _unit(rng, nq, d, cuda), _unit(rng, nc, d, cuda)
+    if pitch:
+        q, c = _padded(q, pitch), _padded(c, pitch)
+    before = st.topk_launches, st.topk_f32_launches
+    v, i = st.sim_topk(q, c, n_valid, k)
+    assert (st.topk_launches, st.topk_f32_launches) == \
+        (before[0] + 1, before[1] + 1)
+    pv, pi = ref.sim_topk_ref(q, c, n_valid, k)
+    _assert_topk(v, i, pv, pi, exact_values=False)
+
+
+def test_sim_topk_f32_scores_the_same_bits_in_every_launch(cuda, rng):
+    """One fmaf chain a pair: the padded pitch or a contiguous copy, one
+    query or 8 or 512 (skinny and wide kernels), a few candidates or many,
+    give a (query, candidate) pair the same bits."""
+    from repro_torch.kernels import similarity_topk as st
+    q, c = _unit(rng, 512, 769, cuda), _unit(rng, 4_096, 769, cuda)
+    want_v, want_i = st.sim_topk(q, c, 4_096, 3)
+    for nq in (1, 8, 512):
+        for qq, cc in ((q[:nq], c), (_padded(q[:nq], 772), _padded(c, 772))):
+            v, i = st.sim_topk(qq, cc, 4_096, 3)
+            assert torch.equal(v, want_v[:nq]) and torch.equal(i, want_i[:nq])
+    # each query's best row among the 8 queries' best rows: the same bits
+    v, _ = st.sim_topk(q[:8], c[want_i[:8, 0].long()], 8, 1)
+    assert torch.equal(v[:, 0], want_v[:8, 0])
+
+
+@pytest.mark.parametrize("nq,k", [(1, 3), (8, 8), (8, 16), (8, 257),
+                                  (200, 8), (200, 40)])
+def test_sim_topk_f32_ties_come_back_ascending(cuda, rng, nq, k):
+    from repro_torch.kernels import similarity_topk as st
+    row = _unit(rng, 1, 128, cuda)
+    c = torch.cat([-_unit(rng, 7, 128, cuda), row.repeat(20_000, 1)])
+    v, i = st.sim_topk(row.repeat(nq, 1), c, c.shape[0], k)
+    want = torch.arange(7, 7 + k, device=cuda, dtype=torch.int32)
+    assert torch.equal(i, want.expand(nq, k))
+
+
 @pytest.mark.parametrize("nq,nc,d,n_valid,k", [
     (1, 65_537, 768, 65_537, 8), (512, 9_000, 768, 8_500, 8),
     (5, 1_311, 768, 1_300, 8), (9, 600, 130, 570, 5), (4, 300, 64, 0, 3),
@@ -720,6 +783,42 @@ def test_decode_attention_kernel_matches_plain(cuda, rng, b, h, hkv, s, d,
     assert decode_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == dtype
     _attn_close(out, ref.decode_attention_ref(q, k, v, pos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("g", [1, 3, 12])
+@pytest.mark.parametrize("splits", ["one", "most"])
+def test_decode_attention_every_head_dim_group_and_pos_edge(
+        cuda, rng, monkeypatch, dtype, d, g, splits):
+    """pos < 0 gives 0; pos = 0, a stage's last key and the next one,
+    S_max - 1 and past the cache match the plain version, with the split
+    count forced to one and to a stage a split."""
+    from repro_torch.kernels import decode_attention as da, ref
+    s_max, hkv = 300, 2
+    keys = da.stage_keys(d, dtype)
+    monkeypatch.setattr(da, "split_plan", lambda rows, s, ks, wave:
+                        1 if splits == "one" else -(-s // ks))
+    pos = torch.tensor([-1, 0, keys - 1, keys, 2 * keys, s_max - 1,
+                        s_max + 7], dtype=torch.int32, device=cuda)
+    b = pos.shape[0]
+    q = _randn(rng, (b, hkv * g, d), dtype, cuda)
+    k = _randn(rng, (b, s_max, hkv, d), dtype, cuda)
+    v = _randn(rng, (b, s_max, hkv, d), dtype, cuda)
+    out = da.decode_attention(q, k, v, pos)
+    assert bool((out[0] == 0).all())
+    _attn_close(out[1:], ref.decode_attention_ref(q, k, v, pos)[1:])
+
+
+def test_decode_attention_refuses_a_group_the_kernel_cannot_hold(cuda, rng):
+    from repro_torch.kernels import decode_attention as da
+    q = _randn(rng, (1, 17, 256), torch.bfloat16, cuda)
+    kv = _randn(rng, (1, 8, 1, 256), torch.bfloat16, cuda)
+    before = da.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        da.decode_attention(q, kv, kv, torch.zeros(1, dtype=torch.int32,
+                                                   device=cuda))
+    assert da.launches == before
 
 
 def test_decode_attention_reads_only_up_to_pos(cuda, rng):
