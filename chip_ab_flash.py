@@ -16,9 +16,18 @@ the mirror's 16-byte pitch where the checkout takes a row stride, and
 whether each checkout's outputs are bit-equal to the first root's; with
 ``--decode`` the same for B9 (decode_attention) at chip_smoke.py's
 DECODE_SHAPES, with each output's max |difference| from the first root's.
+With ``--values`` the same for B3, B2 and B7 (rac_value, victim_value,
+victim_value_multi) at VALUE_ROWS (the main path's, the arena's and the
+serve cache's shapes, B3 also through ops with the backend's int32
+table) and for the fused_decide sequence (B1, B1, B2): device ms from a
+CUDA graph, eager ms per call with outputs dropped and with outputs held
+(the median of five runs), each row's launch floor where the checkout
+has one, the host microseconds of each piece of the wrappers' issue path,
+whether each output is bit-equal to the first root's, and the ptxas
+registers.
 
-    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode] ROOT ...
-    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode] --ablate
+    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode | --values] ROOT ...
+    python3 chip_ab_flash.py [--top1 | --q8 | --topk | --decode | --values] --ablate
 
 ROOT is a directory holding ``src/repro_torch``: to hold a change against
 its parent, unpack the parent's package into a directory ``.gitignore``
@@ -41,9 +50,14 @@ lists in device memory; no ballot filter, every live column visited; no
 fold at all; no split merge);
 with ``--decode``, of ``csrc/decode_attention.cu`` and its wrapper (one
 ring stage; 32-key stages; the replaced kernel's split plan; no lane
-split of the dot, a lane a key; only the copies, no key scored).  A variant computes wrong values (but
-for the stage counts, the wave sizes, the grids, the lists' place and the
-filter): it only says where the kernel's time goes.
+split of the dot, a lane a key; only the copies, no key scored); with
+``--values``, of ``csrc/eq1_value.cuh`` and ``kernels/decision.py`` (the
+parent's walk, one entry a thread in 256-thread blocks; no vector loads;
+V = 8; 256- and 64-thread blocks; no programmatic dependent launch; the
+other topic-table design; no work after the prologue).  A variant
+computes wrong values (but for the stage counts, the wave sizes, the
+grids, the lists' place, the filter and every Eq. 1 variant but the
+last): it only says where the kernel's time goes.
 Needs a CUDA card; prints one JSON line per run and the card's name and
 power limit.
 """
@@ -211,6 +225,70 @@ DECODE_EDITS = {
 }
 
 
+# B3, B2 and B7 (the Eq. 1 kernels): (label, kernel, N or (P, N), T, graph
+# reps).  T_REAL is the main replay's topic table at its last eviction
+# (chip_smoke.py's main phase prints it: 512 rows); T_BIG a table past
+# the staging budget, which takes the gathered design.
+VALUES_SRC = "src/repro_torch/csrc/eq1_value.cuh"
+_VAL_WRAP = "src/repro_torch/kernels/decision.py"
+T_REAL, T_BIG = 512, 131_072
+VALUE_ROWS = [("B3 main N=65,537 T=4,096", "rac", 65_537, 4_096, 200),
+              (f"B3 main N=65,537 T={T_REAL}", "rac", 65_537, T_REAL, 200),
+              (f"B3 gathered N=65,537 T={T_BIG:,}", "rac", 65_537, T_BIG,
+               200),
+              ("B3 arena N=6,852 T=4,096", "rac", 6_852, 4_096, 200),
+              ("B3 serve N=64 T=256", "rac", 64, 256, 200),
+              ("B3 ops, int32 t_last N=65,537 T=4,096", "rac_ops", 65_537,
+               4_096, 200),
+              ("B2 main N=65,537 T=4,096", "victim", 65_537, 4_096, 200),
+              (f"B2 main N=65,537 T={T_REAL}", "victim", 65_537, T_REAL,
+               200),
+              (f"B2 gathered N=65,537 T={T_BIG:,}", "victim", 65_537, T_BIG,
+               200),
+              ("B2 serve N=65 T=256", "victim", 65, 256, 200),
+              ("B7 arena P=15 N=6,852 T=4,096", "multi", (15, 6_852), 4_096,
+               200)]
+_VEC_LD = ("    const float4 w = __ldg(reinterpret_cast<const float4*>(p + j));\n"
+           "    x[j] = w.x, x[j + 1] = w.y, x[j + 2] = w.z, x[j + 3] = w.w;")
+_VEC_LDI = ("    const int4 w = __ldg(reinterpret_cast<const int4*>(p + j));\n"
+            "    x[j] = w.x, x[j + 1] = w.y, x[j + 2] = w.z, x[j + 3] = w.w;")
+_SCALAR_LD = ("#pragma unroll\n    for (int e = 0; e < 4; ++e) "
+              "x[j + e] = __ldg(p + j + e);")
+VALUE_EDITS = {
+    # the parent's walk: one entry a thread, ceil(N / 256) blocks
+    "one_per_thread": [(_VAL_WRAP, "    n_vec = n - n % v if aligned else 0",
+                        "    n_vec = 0"),
+                       (_VAL_WRAP, "STAGED_THREADS, GATHER_THREADS = 256, 64",
+                        "STAGED_THREADS, GATHER_THREADS = 256, 256")],
+    # V entries a thread on the same grid, each load and store 4 bytes
+    "no_vector_loads": [(None, _VEC_LD, _SCALAR_LD),
+                        (None, _VEC_LDI, _SCALAR_LD),
+                        (None, "      *reinterpret_cast<float4*>(out + c * V + j)"
+                               " = o;",
+                         "      out[c * V + j] = o.x, out[c * V + j + 1] = o.y,"
+                         "\n      out[c * V + j + 2] = o.z, "
+                         "out[c * V + j + 3] = o.w;")],
+    "v8": [(_VAL_WRAP, "V = 4\n", "V = 8\n"),
+           (None, "constexpr int kEq1V = 4;", "constexpr int kEq1V = 8;")],
+    "staged128": [(_VAL_WRAP, "STAGED_THREADS, GATHER_THREADS = 256, 64",
+                   "STAGED_THREADS, GATHER_THREADS = 128, 64")],
+    "gather128": [(_VAL_WRAP, "STAGED_THREADS, GATHER_THREADS = 256, 64",
+                   "STAGED_THREADS, GATHER_THREADS = 256, 128")],
+    "gather256": [(_VAL_WRAP, "STAGED_THREADS, GATHER_THREADS = 256, 64",
+                   "STAGED_THREADS, GATHER_THREADS = 256, 256")],
+    "gather32": [(_VAL_WRAP, "STAGED_THREADS, GATHER_THREADS = 256, 64",
+                  "STAGED_THREADS, GATHER_THREADS = 256, 32")],
+    "no_pdl": [(None, "programmaticStreamSerializationAllowed = 1;",
+                "programmaticStreamSerializationAllowed = 0;")],
+    # every table gathered (the staged design at T = 4,096)
+    "other_tables": [(_VAL_WRAP, "STAGE_MAX = 192 * 1024", "STAGE_MAX = 0")],
+    # no work: the prologue, then return (outputs unwritten)
+    "floor": [(None, "  pdl_prologue();\n  if (STAGED && threadIdx.x == 0) {",
+               "  pdl_prologue();\n  if (a.n >= 0) return;\n"
+               "  if (STAGED && threadIdx.x == 0) {")],
+}
+
+
 def ptxas_registers(log: str, keep: str) -> dict:
     """{kernel (mangled name): (registers, spill stores + loads in bytes)}
     for the entry functions whose names hold ``keep``, from a build's
@@ -263,6 +341,244 @@ def child_q8(out: dict) -> dict:
         q = torch.from_numpy(unit(nq, d)).to("cuda")
         c = torch.from_numpy(unit(n, d)).to("cuda")
         out[label] = graph_ms(lambda: st.sim_topk(q, c, n, k), reps)
+    return out
+
+
+def eager_ms(fn, reps: int, keep: bool, blocks: int = 5) -> float:
+    """Milliseconds per eager call over ``reps`` calls back to back (host
+    issue included), the median of ``blocks`` such runs (the host's
+    neighbours move single runs); ``keep`` holds every output until the
+    end of a run, as chip_smoke.py's timer did before (each output then
+    needs memory of its own from the allocator)."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        kept = []
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+            if keep:
+                kept.append(out)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+        del kept
+    return sorted(times)[blocks // 2]
+
+
+def host_us(fn, calls: int = 1000, blocks: int = 3) -> float:
+    """Host microseconds per call of ``fn``: perf_counter over ``calls``,
+    the median of ``blocks`` runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(times)[blocks // 2]
+
+
+def value_inputs(kind: str, n, t: int):
+    """Seeded tables on the card: chip_smoke.py's check_values inputs (B3:
+    tid clamped, t_last shifted so t_now = 0, as f32; the ops row keeps it
+    int32 as the backend passes it)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    shape = n if isinstance(n, tuple) else (n,)
+    tshape = (shape[0], t) if isinstance(n, tuple) else (t,)
+
+    def dev(x):
+        return torch.from_numpy(x).to("cuda")
+    tsi = dev(rng.random(shape).astype(np.float32) * 8)
+    tid = dev(rng.integers(-1, t, shape).astype(np.int32))
+    occ = dev((rng.random(shape) < 0.97).astype(np.int32))
+    tp = dev(rng.random(tshape).astype(np.float32) * 20)
+    tl = dev(rng.integers(0, 60_000, tshape).astype(np.int32))
+    if kind.startswith("rac"):
+        tid = tid.clamp(min=0)
+        tl = tl - 72_000
+        return tsi, tid, tp, tl if kind == "rac_ops" else tl.float()
+    return tsi, tid, occ, tp, tl
+
+
+def value_calls(kind: str, args):
+    """(the wrapper call, the ops call, the plain call) for a row."""
+    from repro_torch.kernels import decision, ops, rac_value, ref
+    alpha = 0.001
+    if kind == "rac":
+        return (lambda: rac_value.rac_value(*args, alpha, 0),
+                lambda: ops.rac_value(*args, alpha, 0),
+                lambda: ref.rac_value_ref(*args, alpha, 0))
+    if kind == "rac_ops":
+        tsi, tid, tp, tl = args
+        return (None, lambda: ops.rac_value(*args, alpha, 0),
+                lambda: ref.rac_value_ref(tsi, tid, tp, tl.float(), alpha, 0))
+    if kind == "victim":
+        return (lambda: decision.victim_value(*args, 72_000, alpha),
+                lambda: ops.victim_value(*args, 72_000, alpha=alpha),
+                lambda: ref.victim_value_ref(*args, 72_000, alpha))
+    return (lambda: decision.victim_value_multi(*args, 72_000, alpha),
+            lambda: ops.victim_value_multi(*args, 72_000, alpha=alpha),
+            lambda: ref.victim_value_multi_ref(*args, 72_000, alpha))
+
+
+def value_pieces(kind: str, args) -> dict:
+    """Host microseconds a call of each piece of the wrapper's issue path
+    (the pieces this checkout has)."""
+    import torch
+    from repro_torch.kernels import _build, decision, ops
+    from repro_torch.kernels import rac_value as rv
+    from repro_torch.kernels.similarity_topk import _check
+    lib = _build.library()
+    tsi = args[0]
+    dev = tsi.device
+    n, t = tsi.shape[-1], args[-2].shape[-1]
+    wrapper, ops_call, _ = value_calls(kind, args)
+    out = torch.empty_like(tsi)
+    pieces = {"wrapper": wrapper, "ops call (_counted, _as)": ops_call,
+              "torch.empty": lambda: torch.empty(n, dtype=torch.float32,
+                                                 device=dev),
+              "torch.empty_like": lambda: torch.empty_like(tsi),
+              "_build.library": _build.library,
+              "_build.stream_of": lambda: _build.stream_of(tsi),
+              "torch.cuda.current_stream": lambda: torch.cuda.current_stream(
+                  dev).cuda_stream,
+              "data_ptr x6": lambda: [x.data_ptr() for x in (*args, out)]}
+    dts = [x.dtype for x in args]
+    pieces["_check x%d" % len(args)] = lambda: [
+        _check("x", x, dt, x.dim(), dev) for x, dt in zip(args, dts)]
+    new = hasattr(decision, "eq1_args")
+    if new:
+        if kind == "rac":
+            a, _ = decision.eq1_args(decision.KIND_RAC_F32, args[0], args[1],
+                                     None, args[2], args[3], out, n, t, 1, 0,
+                                     0.0, -0.001)
+            launch = lambda: lib.rac_value_launch(a)  # noqa: E731
+            pieces["eq1_args (plan, pointers, stream, pack)"] = \
+                lambda: decision.eq1_args(decision.KIND_RAC_F32, args[0],
+                                          args[1], None, args[2], args[3],
+                                          out, n, t, 1, 0, 0.0, -0.001)
+        else:
+            n_pol = args[0].shape[0] if kind == "multi" else 1
+            a, _ = decision.eq1_args(decision.KIND_VICTIM, args[0], args[1],
+                                     args[2], args[3], args[4], out, n, t,
+                                     n_pol, 72_000, 0.0, -0.001)
+            launch = lambda: lib.victim_value_launch(a)  # noqa: E731
+            pieces["eq1_args (plan, pointers, stream, pack)"] = \
+                lambda: decision.eq1_args(decision.KIND_VICTIM, args[0],
+                                          args[1], args[2], args[3], args[4],
+                                          out, n, t, n_pol, 72_000, 0.0,
+                                          -0.001)
+            pieces["_check_tables"] = lambda: decision._check_tables(
+                tsi.dim(), dev, *args)
+        pieces["floor launch"] = lambda: decision.floor_launch(a)
+    else:
+        stream = _build.stream_of(tsi)
+        ptrs = [x.data_ptr() for x in args]
+        if kind == "rac":
+            launch = lambda: lib.rac_value_launch(  # noqa: E731
+                *ptrs, n, t, 0.0, -0.001, out.data_ptr(), dev.index, stream)
+        elif kind == "victim":
+            launch = lambda: lib.victim_value_launch(  # noqa: E731
+                *ptrs, n, t, 72_000, -0.001, out.data_ptr(), dev.index,
+                stream)
+        else:
+            launch = lambda: lib.victim_value_multi_launch(  # noqa: E731
+                *ptrs, n, t, args[0].shape[0], 72_000, -0.001,
+                out.data_ptr(), dev.index, stream)
+    pieces["C launch call (ctypes, device, launch)"] = launch
+    del ops, rv
+    return {k: host_us(f) for k, f in pieces.items() if f is not None}
+
+
+def child_values(out: dict, save: str) -> dict:
+    """B3, B2 and B7 of the checkout just built at VALUE_ROWS, the
+    fused_decide sequence, each row's launch floor (where the checkout has
+    one), the host pieces, and the outputs saved to ``save``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build, decision, ops
+    out["registers"] = ptxas_registers(_build.build_log, "value")
+    out["registers"].update(ptxas_registers(_build.build_log, "eq1"))
+    results = {}
+    for label, kind, n, t, reps in VALUE_ROWS:
+        args = value_inputs(kind, n, t)
+        wrapper, ops_call, plain = value_calls(kind, args)
+        call = wrapper or ops_call
+        got, want = call(), plain()
+        # reported, not raised: an ablation's variant may compute nothing
+        fin = torch.isfinite(want)
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30))[fin]
+                    .max()) if fin.any() else 0.0
+        row = {"ms": graph_ms(call, reps),
+               "eager_ms": eager_ms(call, reps, keep=False),
+               "eager_kept_ms": eager_ms(call, reps, keep=True),
+               "rel_err_vs_plain": rel,
+               "masks_equal_plain": torch.equal(fin, torch.isfinite(got))}
+        if ops_call is not None and wrapper is not None:
+            row["ops_eager_ms"] = eager_ms(ops_call, reps, keep=False)
+        if hasattr(decision, "floor_launch") and kind != "rac_ops":
+            # the floor of this row's launch: its packed arguments
+            tsi = args[0]
+            nn, tt = tsi.shape[-1], args[-2].shape[-1]
+            o = torch.empty_like(tsi)
+            if kind == "rac":
+                a, _ = decision.eq1_args(decision.KIND_RAC_F32, args[0],
+                                         args[1], None, args[2], args[3], o,
+                                         nn, tt, 1, 0, 0.0, -0.001)
+            else:
+                a, _ = decision.eq1_args(
+                    decision.KIND_VICTIM, args[0], args[1], args[2], args[3],
+                    args[4], o, nn, tt,
+                    tsi.shape[0] if kind == "multi" else 1, 72_000, 0.0,
+                    -0.001)
+            row["floor_ms"] = graph_ms(lambda: decision.floor_launch(a),
+                                       reps)
+        if label.startswith(("B3 main N=65,537 T=4", "B2 main N=65,537 T=4",
+                             "B7")):
+            row["host_us"] = value_pieces(kind, args)
+        out[label] = row
+        results[label] = got.cpu()
+        del args
+    # the fused_decide sequence: B1 (Q=512 over the slab), B1 (over the
+    # topic table), B2, on one stream
+    rng = np.random.default_rng(1)
+
+    def unit(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(
+            x / np.linalg.norm(x, axis=-1, keepdims=True)).to("cuda")
+    q, slab, reps_ = unit(512, 768), unit(65_537, 768), unit(4_096, 768)
+    tsi, tid, occ, tp, tl = value_inputs("victim", 65_537, 4_096)
+
+    def fused():
+        return ops.fused_decide(q, slab, 65_537, reps_, 4_096, tsi, tid, occ,
+                                tp, tl, 72_000, alpha=0.001)
+
+    def b1_pair():
+        return (ops.sim_top1(q, slab, 65_537), ops.sim_top1(q, reps_, 4_096))
+    # B1 takes ~1.1 ms of the ~1.2: B2's share is the sequence less the
+    # pair, each timed three times in turns
+    seq, pair = [], []
+    for _ in range(3):
+        seq.append(graph_ms(fused, 50))
+        pair.append(graph_ms(b1_pair, 50))
+    out["fused_decide Q=512 N=65,537 T=4,096 D=768"] = {
+        "ms": min(seq), "runs_ms": seq, "b1_pair_runs_ms": pair,
+        "b2_share_ms": sorted(a - b for a, b in zip(seq, pair))[1],
+        "eager_ms": eager_ms(fused, 20, False)}
+    results["fused_decide"] = fused()[4].cpu()
+    torch.save(results, save)
     return out
 
 
@@ -340,6 +656,8 @@ def compare(mode: str, first: str, other: str) -> dict:
     if mode == "topk":
         return {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
                 for k in a}
+    if mode == "values":
+        return {k: torch.equal(a[k], b[k]) for k in a}
     return {k: float((a[k] - b[k]).abs().max()) for k in a}
 
 
@@ -381,6 +699,8 @@ def child(root: str, prefill: bool, mode: str, save: str) -> dict:
         return child_topk(out, save)
     if mode == "decode":
         return child_decode(out, save)
+    if mode == "values":
+        return child_values(out, save)
     if mode == "top1":
         from repro_torch.kernels import similarity_topk as st
         rng = np.random.default_rng(0)
@@ -454,7 +774,8 @@ def ablation_roots(mode: str) -> list[str]:
     path, variants = {"flash": (_SRC, EDITS), "top1": (TOP1_SRC, TOP1_EDITS),
                       "q8": (Q8_SRC, Q8_EDITS),
                       "topk": (TOPK_SRC, TOPK_EDITS),
-                      "decode": (DECODE_SRC, DECODE_EDITS)}[mode]
+                      "decode": (DECODE_SRC, DECODE_EDITS),
+                      "values": (VALUES_SRC, VALUE_EDITS)}[mode]
     roots = []
     for name, edits in variants.items():
         root = os.path.join(HERE, "build", "ablate", name)
@@ -478,7 +799,7 @@ def ablation_roots(mode: str) -> list[str]:
 
 def main() -> None:
     args = sys.argv[1:]
-    modes = ("--top1", "--q8", "--topk", "--decode")
+    modes = ("--top1", "--q8", "--topk", "--decode", "--values")
     mode = next((m[2:] for m in modes if m in args), "flash")
     if args[:1] == ["--child"]:
         print(json.dumps(child(os.path.abspath(args[1]),
@@ -516,7 +837,7 @@ def main() -> None:
             raise SystemExit(f"{root}: exit {res.returncode}\n"
                              f"{res.stderr[-4000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        if mode in ("topk", "decode") and i > 0:
+        if mode in ("topk", "decode", "values") and i > 0:
             runs[-1]["vs_first_root"] = compare(
                 mode, os.path.join(saved, f"{mode}-0.pt"), save)
         print(json.dumps(runs[-1]), flush=True)

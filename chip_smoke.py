@@ -20,6 +20,11 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                the ring kernels of sim_topk_f32.cu; int8 Top-K over
                the slab (Q in {1, 512}, k = 8, scores bit-equal), and Top-1
                with a count read on the card (the fused rescore's shapes).
+               The Eq. 1 kernels (B2, B3; csrc/eq1_value.cuh) at the main
+               path's N = 65,537 and T = 4,096 and B3 at the arena's
+               6,852 slots, each beside its launch floor (an empty kernel
+               with the same grid and attributes); each wrapper must
+               launch one eq1_kernel (profiler names).
                Top-1 scores in three-way TF32 (its bound: three TF32
                products, B1_PRODUCTS); its winning pair scores over the
                main replay's rows must be bit-equal across Q=512, Q=8,
@@ -57,7 +62,9 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                the OASST-style trace's first 71,000 requests at D=768,
                capacity 65,536 (a 65,537 x 768 fp32 slab on the card),
                chunk 512, on a cache the smoke keeps; B1-B3 must have
-               launched.
+               launched, every B2 and B3 launch on the vector path; B2
+               and B3 are then checked and timed at the topic table the
+               replay grew to (printed: the tables grow by doubling).
   8. approx main - that warmed cache is checkpointed and restored into an
                exact and a quantized+pruned (defaults) cache, which replay
                the next 500 requests one by one (the fused path
@@ -101,8 +108,9 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                launch/serve.py uses, prompts of 32-480 tokens; replayed at
                the same time on the host at smoke width (numpy backend) in
                a worker process: identical hit/miss/admit/evict events,
-               cached flags and token counts; B1, B2 and B9 must have
-               launched.
+               cached flags and token counts; B1, B2, B3 and B9 must have
+               launched; B2 and B3 are then checked and timed at the serve
+               cache's slots and topic table.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -252,11 +260,17 @@ def _elapsed_ms(run) -> float:
 def event_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` eager calls back
     to back, after two warm-up calls: where the device outruns the host,
-    this is the host's issue cost per call."""
+    this is the host's issue cost per call.  Each output is dropped before
+    the next call, as a caller's would be (holding all of them made every
+    call wait on the allocator for fresh memory)."""
     fn()
     fn()
     torch.cuda.synchronize()
-    return _elapsed_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return _elapsed_ms(run) / reps
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -495,7 +509,55 @@ def phase_topk(chunk, slab, reps_aug, q_aug):
     return b4, b5, b1d
 
 
-def check_values(rng, n: int, t: int, reps: int):
+def eq1_counts() -> dict:
+    """The Eq. 1 kernels' launch counters (B2, B7, B3), each beside the
+    launches of it whose bases took the vector path."""
+    from repro_torch.kernels import decision, rac_value
+    return {"victim_value": decision.launches,
+            "victim_value (vector)": decision.vec_launches,
+            "victim_value_multi": decision.multi_launches,
+            "victim_value_multi (vector)": decision.multi_vec_launches,
+            "rac_value": rac_value.launches,
+            "rac_value (vector)": rac_value.vec_launches}
+
+
+def eq1_reset() -> None:
+    from repro_torch.kernels import decision, rac_value
+    decision.launches = decision.vec_launches = 0
+    decision.multi_launches = decision.multi_vec_launches = 0
+    rac_value.launches = rac_value.vec_launches = 0
+
+
+def eq1_floor_ms(kind: int, tables, reps: int) -> float:
+    """Device ms of the Eq. 1 launch's floor: an empty kernel with this
+    call's grid, shared memory and attributes (csrc/eq1_value.cuh)."""
+    from repro_torch.kernels import decision
+    tsi, tid, mask, tp, tl, t_now = tables
+    n_pol = tsi.shape[0] if tsi.dim() == 2 else 1
+    args, _ = decision.eq1_args(
+        kind, tsi, tid, mask, tp, tl, torch.empty_like(tsi), tsi.shape[-1],
+        tp.shape[-1], n_pol, t_now, float(t_now), -ALPHA)
+    return graph_ms(lambda: decision.floor_launch(args), reps)
+
+
+def value_rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(max relative, max absolute) error of ``a`` against ``b`` over the
+    finite entries; the +inf masks must be identical."""
+    if not torch.equal(torch.isinf(a), torch.isinf(b)) \
+            or not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError("+inf masks differ")
+    fin = torch.isfinite(b)
+    if not fin.any():
+        return 0.0, 0.0
+    return (float(((a - b).abs() / b.abs().clamp(min=1e-30))[fin].max()),
+            float((a - b)[fin].abs().max()))
+
+
+def check_values(rng, n: int, t: int, reps: int, kernels=("victim_value",
+                                                          "rac_value")):
+    """B2 and B3 over N entries and T topics against their plain versions
+    (within VALUE_RTOL, identical +inf masks), timed beside their launch
+    floor; one row each."""
     from repro_torch.kernels import decision, rac_value, ref
     dev = torch.device(DEVICE)
     tsi = torch.from_numpy(rng.random(n).astype(np.float32) * 8).to(dev)
@@ -505,46 +567,83 @@ def check_values(rng, n: int, t: int, reps: int):
     tl = torch.from_numpy(rng.integers(0, 60_000, t).astype(np.int32)).to(dev)
     t_now = 72_000
     out = {}
-
-    def rel(a, b):
-        fin = torch.isfinite(b)
-        if not torch.equal(fin, torch.isfinite(a)) \
-                or not torch.equal(torch.isinf(a), torch.isinf(b)):
-            raise AssertionError("+inf masks differ")
-        e = ((a - b).abs() / b.abs().clamp(min=1e-30))[fin]
-        return float(e.max()) if e.numel() else 0.0, \
-            float((a - b)[fin].abs().max()) if e.numel() else 0.0
-
-    vv = decision.victim_value(tsi, tid, occ, tp, tl, t_now, ALPHA)
-    pv = ref.victim_value_ref(tsi, tid, occ, tp, tl, t_now, ALPHA)
-    r, a = rel(vv, pv)
-    if not r <= VALUE_RTOL:
-        raise AssertionError(f"victim_value: rel err {r} > {VALUE_RTOL}")
-    nb, op = bound(n * 16 + t * 8, 6.0 * n)
-    out["victim_value"] = {
-        "shape": f"N={n} T={t}", "max_abs_err": a, "max_rel_err": r,
-        "bound_ms": nb, "bound_by": op,
-        **timings(lambda: decision.victim_value(
-            tsi, tid, occ, tp, tl, t_now, ALPHA),
-            lambda: ref.victim_value_ref(tsi, tid, occ, tp, tl, t_now, ALPHA),
-            None, reps)}
-
-    # the backend shifts time so t_now = 0 and uploads t_last as f32
-    tid0 = tid.clamp(min=0)
-    tlf = (tl - t_now).to(torch.float32)
-    rv = rac_value.rac_value(tsi, tid0, tp, tlf, ALPHA, 0)
-    pr = ref.rac_value_ref(tsi, tid0, tp, tlf, ALPHA, 0)
-    r, a = rel(rv, pr)
-    if not r <= VALUE_RTOL:
-        raise AssertionError(f"rac_value: rel err {r} > {VALUE_RTOL}")
-    nb, op = bound(n * 12 + t * 8, 5.0 * n)
-    out["rac_value"] = {
-        "shape": f"N={n} T={t}", "max_abs_err": a, "max_rel_err": r,
-        "bound_ms": nb, "bound_by": op,
-        **timings(lambda: rac_value.rac_value(tsi, tid0, tp, tlf, ALPHA, 0),
-                  lambda: ref.rac_value_ref(tsi, tid0, tp, tlf, ALPHA, 0),
-                  None, reps)}
+    if "victim_value" in kernels:
+        vv = decision.victim_value(tsi, tid, occ, tp, tl, t_now, ALPHA)
+        pv = ref.victim_value_ref(tsi, tid, occ, tp, tl, t_now, ALPHA)
+        r, a = value_rel(vv, pv)
+        if not r <= VALUE_RTOL:
+            raise AssertionError(f"victim_value N={n} T={t}: rel err {r} > "
+                                 f"{VALUE_RTOL}")
+        nb, op = bound(n * 16 + t * 8, 6.0 * n)
+        out["victim_value"] = {
+            "shape": f"N={n} T={t}", "max_abs_err": a, "max_rel_err": r,
+            "bound_ms": nb, "bound_by": op,
+            "floor_ms": eq1_floor_ms(decision.KIND_VICTIM,
+                                     (tsi, tid, occ, tp, tl, t_now), reps),
+            **timings(lambda: decision.victim_value(
+                tsi, tid, occ, tp, tl, t_now, ALPHA),
+                lambda: ref.victim_value_ref(tsi, tid, occ, tp, tl, t_now,
+                                             ALPHA),
+                None, reps)}
+    if "rac_value" in kernels:
+        # the backend shifts time so t_now = 0 and passes t_last as int32
+        # (cast to f32 in the kernel, as the TPU kernel's caller casts it)
+        tid0 = tid.clamp(min=0)
+        tls = tl - t_now
+        rv = rac_value.rac_value(tsi, tid0, tp, tls, ALPHA, 0)
+        pr = ref.rac_value_ref(tsi, tid0, tp, tls.float(), ALPHA, 0)
+        r, a = value_rel(rv, pr)
+        if not r <= VALUE_RTOL:
+            raise AssertionError(f"rac_value N={n} T={t}: rel err {r} > "
+                                 f"{VALUE_RTOL}")
+        nb, op = bound(n * 12 + t * 8, 5.0 * n)
+        out["rac_value"] = {
+            "shape": f"N={n} T={t}", "max_abs_err": a, "max_rel_err": r,
+            "bound_ms": nb, "bound_by": op,
+            "floor_ms": eq1_floor_ms(decision.KIND_RAC_I32,
+                                     (tsi, tid0, None, tp, tls, 0), reps),
+            **timings(lambda: rac_value.rac_value(tsi, tid0, tp, tls, ALPHA,
+                                                  0),
+                      lambda: ref.rac_value_ref(tsi, tid0, tp, tls.float(),
+                                                ALPHA, 0),
+                      None, reps)}
     return out
+
+
+def check_eq1_kernel_names() -> None:
+    """Every Eq. 1 wrapper launches the eq1_kernel of csrc/eq1_value.cuh
+    (B2, B3 with and without a mask, B7): one CUDA kernel a call, by its
+    name in the profiler."""
+    from repro_torch.kernels import decision, ops, rac_value
+    dev = torch.device(DEVICE)
+    # every input made before the profiled calls: each call is one launch
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    occ, one, valid = z + 1, torch.ones(64, device=dev), z > 0
+    z2, occ2, one2 = z.view(2, 32), occ.view(2, 32), one.view(2, 32)
+    calls = {
+        "victim_value": lambda: decision.victim_value(one, z, occ, one, z, 5,
+                                                      ALPHA),
+        "victim_value_multi": lambda: decision.victim_value_multi(
+            one2, z2, occ2, one2, z2, 5, ALPHA),
+        "rac_value": lambda: rac_value.rac_value(one, z, one, z, ALPHA, 0),
+        "rac_value_masked": lambda: ops.rac_value_masked(
+            one, z, one, z, valid, ALPHA, 0)}
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memcpy" not in e.name.lower()
+                 and "memset" not in e.name.lower()]
+        if len(names) != 1 or "eq1_kernel" not in names[0]:
+            raise AssertionError(f"{name}: launched {names}, not one "
+                                 "eq1_kernel")
+    log("eq1: B2, B3 (and masked) and B7 each one eq1_kernel launch")
 
 
 def phase_multi(trace):
@@ -670,6 +769,8 @@ def phase_multi(trace):
     b2 = [{"shape": f"P={N_POL} N={s} T={t}",
            "max_abs_err": float((vv - pv)[fin].abs().max()),
            "max_rel_err": rel, "bound_ms": nb, "bound_by": op,
+           "floor_ms": eq1_floor_ms(decision.KIND_VICTIM,
+                                    (tsi, tid, occ, tp, tl, t_now), 200),
            **timings(lambda: decision.victim_value_multi(
                tsi, tid, occ, tp, tl, t_now, ALPHA),
                lambda: ref.victim_value_multi_ref(tsi, tid, occ, tp, tl,
@@ -700,7 +801,13 @@ def phase_kernels(trace):
     v, i = similarity_topk.sim_top1(chunk[:5].contiguous(), dup, 3000)
     if int(i.abs().sum()) != 0:
         raise AssertionError("ties must go to the lower index")
-    values = check_values(rng, CAPACITY + 1, N_TOPICS, 200)
+    check_eq1_kernel_names()
+    main_v = check_values(rng, CAPACITY + 1, N_TOPICS, 200)
+    # the arena's per-eviction B3 over a policy's slots (capacity + spare)
+    arena_slots = len({r.cid for r in trace.requests}) // 10 + 1
+    arena_v = check_values(rng, arena_slots, N_TOPICS, 200, ("rac_value",))
+    values = {"victim_value": [main_v["victim_value"]],
+              "rac_value": [main_v["rac_value"], arena_v["rac_value"]]}
     # the routing matrix [rep | spread] and norm-augmented queries, their
     # rows 772 floats apart as the routing mirror and route_topics keep
     # them (a 16-byte pitch)
@@ -971,7 +1078,7 @@ def phase_arena(trace):
     same time in a worker), then the approximate arenas on a shorter
     prefix against the exact one."""
     from repro_torch.core import default_factories, run_arena
-    from repro_torch.kernels import decision, ops, rac_value
+    from repro_torch.kernels import ops
     from repro_torch.kernels import similarity_topk as st
     sub, cap = prefix(trace, ARENA_LEN)
     n_chunks = -(-len(sub.requests) // CHUNK)
@@ -989,10 +1096,10 @@ def phase_arena(trace):
         oracle = pool.submit(_arena_replay,
                              ("exact", "numpy", "cpu", {}, sub, cap))
         counters = ((st, "multi_launches"), (st, "topk_q8_multi_launches"),
-                    (st, "launches"), (decision, "multi_launches"),
-                    (rac_value, "launches"))
+                    (st, "launches"))
         for mod, attr in counters:
             setattr(mod, attr, 0)
+        eq1_reset()
         d0 = dict(ops.dispatch_stats)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1003,11 +1110,19 @@ def phase_arena(trace):
         wall = time.perf_counter() - t0
         disp = {k: ops.dispatch_stats[k] - d0[k] for k in d0}
         peak = torch.cuda.max_memory_allocated()
+        eq1_run = eq1_counts()
         rac = [(pol, v) for pol, v in kept if hasattr(pol, "table")]
         stacked_victims([p for p, _ in rac], [v for _, v in rac],
                         sub.requests[-1].t)
+        eq1 = eq1_counts()
         launches = {f"{mod.__name__.split('.')[-1]}.{attr}":
                     getattr(mod, attr) for mod, attr in counters}
+        launches.update({"rac_value.launches": eq1_run["rac_value"],
+                         "rac_value.vec_launches":
+                             eq1_run["rac_value (vector)"],
+                         "decision.multi_launches": eq1["victim_value_multi"],
+                         "decision.multi_vec_launches":
+                             eq1["victim_value_multi (vector)"]})
         _, _, want, oracle_wall, _, _ = oracle.result()
     got = _counts(stats)
     n = len(sub.requests)
@@ -1028,6 +1143,9 @@ def phase_arena(trace):
     if launches["similarity_topk.multi_launches"] != n_chunks:
         raise AssertionError(f"arena: {launches} stacked launches for "
                              f"{n_chunks} chunks")
+    if launches["rac_value.launches"] < 1 \
+            or launches["decision.multi_launches"] < 1:
+        raise AssertionError(f"arena: B3 or B7 did not launch: {launches}")
     log(f"arena: {N_POL} policies' hits, misses and evictions identical on "
         f"the card and the host oracle over {n} requests")
 
@@ -1065,31 +1183,45 @@ def phase_arena(trace):
         f"arena's Stats for all {N_POL} policies")
     return {"sim_top1_multi": launches["similarity_topk.multi_launches"],
             "victim_value_multi": launches["decision.multi_launches"],
+            "victim_value_multi (vector)":
+                launches["decision.multi_vec_launches"],
+            "rac_value": launches["rac_value.launches"],
             "sim_topk_q8_multi": q8_launches,
             "sim_topk_q8_multi (wgmma)": on_wgmma}
 
 
 def phase_main(trace):
     """The batched replay of the trace's first MAIN_LEN requests, on a
-    cache the smoke keeps for the approximate continuation."""
+    cache the smoke keeps for the approximate continuation; then B2 and B3
+    at the topic table the replay grew to."""
     from repro_torch.cache import CacheConfig, SemanticCache
     from repro_torch.core import make_rac, replay_batched
-    from repro_torch.kernels import decision, ops, rac_value, similarity_topk
-    wrappers = {"sim_top1": similarity_topk, "victim_value": decision,
-                "rac_value": rac_value}
+    from repro_torch.kernels import ops, similarity_topk
     reqs = trace.requests[:MAIN_LEN]
     cache = SemanticCache(CacheConfig(capacity=CAPACITY, dim=DIM,
                                       device=DEVICE),
                           policy_factory=make_rac())
-    for mod in wrappers.values():
-        mod.launches = 0
+    # the topic table each eviction's B3 sees (the tables grow by doubling)
+    seen_t = []
+    score = cache.policy.value_backend
+
+    def value_backend(tsi, tids, tp_last, *a):
+        seen_t.append(len(tp_last))
+        return score(tsi, tids, tp_last, *a)
+    cache.policy.value_backend = value_backend
+    similarity_topk.launches = 0
+    eq1_reset()
     before = dict(ops.dispatch_stats)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     replay_batched(cache, reqs, chunk=CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in wrappers.items()}
+    cache.policy.value_backend = score
+    eq1 = eq1_counts()
+    launches = {"sim_top1": similarity_topk.launches,
+                "victim_value": eq1["victim_value"],
+                "rac_value": eq1["rac_value"]}
     disp = {k: ops.dispatch_stats[k] - before[k] for k in before}
     n = len(reqs)
     m = cache.metrics
@@ -1097,7 +1229,7 @@ def phase_main(trace):
         f"evictions={m.evictions} hit_ratio={m.hit_ratio:.4f} "
         f"wall={wall:.2f}s ({n / wall:.1f} req/s)")
     log(f"main: dispatch={json.dumps(disp)} kernel_launches="
-        f"{json.dumps(launches)} kernel_share_of_wall="
+        f"{json.dumps(launches)} eq1={json.dumps(eq1)} kernel_share_of_wall="
         f"{disp['kernel_s'] / wall:.4f} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
     if m.hits + m.misses != n:
@@ -1107,7 +1239,17 @@ def phase_main(trace):
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
         raise AssertionError(f"main: kernels never launched: {missing}")
-    return launches, cache
+    for k in ("victim_value", "rac_value"):
+        if eq1[k + " (vector)"] != eq1[k]:
+            raise AssertionError(f"main: {eq1[k] - eq1[k + ' (vector)']} of "
+                                 f"{eq1[k]} {k} launches missed the vector "
+                                 "path")
+    t_real = seen_t[-1]
+    log(f"main: B3's topic table at the last eviction T={t_real} (first "
+        f"{seen_t[0]}, {len(set(seen_t))} sizes over {len(seen_t)} "
+        "evictions)")
+    real = check_values(np.random.default_rng(3), CAPACITY + 1, t_real, 200)
+    return launches, cache, real
 
 
 def device_kernels(fn) -> int | None:
@@ -1188,6 +1330,7 @@ def phase_approx_main(trace, warm):
         cache.peek_batch(peek[:1])
         for c in counters:
             setattr(st, c, 0)
+        eq1_reset()
         d0 = dict(ops.dispatch_stats)
         prune0 = dict(cache.metrics_snapshot()["prune"])
         totals, restore = timed(spans)
@@ -1203,6 +1346,7 @@ def phase_approx_main(trace, warm):
         pc, ps = cache.peek_batch(peek)
         peek_s = time.perf_counter() - t1
         kl = {c: getattr(st, c) for c in counters}
+        kl.update(eq1_counts())
         snap = cache.metrics_snapshot()
         prune = {k: snap["prune"][k] - prune0[k] for k in prune0}
         runs[name] = dict(ev=ev, pc=pc, ps=ps, cache=cache, launches=kl)
@@ -1231,7 +1375,8 @@ def phase_approx_main(trace, warm):
         "cids identical")
     kl = ap["launches"]
     need = {"topk_launches": "sim_topk", "topk_q8_launches": "sim_topk_q8",
-            "dev_n_valid_launches": "sim_top1 (device n_valid)"}
+            "dev_n_valid_launches": "sim_top1 (device n_valid)",
+            "rac_value": "rac_value"}
     missing = [v for k, v in need.items() if kl[k] < 1]
     if missing:
         raise AssertionError(f"approx main: kernels never launched: "
@@ -1769,8 +1914,7 @@ def _serve_host(n: int):
 def phase_serve():
     """The serving engine at the paper LM's full width on the card, held
     to the host replay's decisions."""
-    from repro_torch.kernels import (decision, decode_attention, rac_value,
-                                     similarity_topk)
+    from repro_torch.kernels import decode_attention, similarity_topk
     from repro_torch.models import smoke_variant
     from repro_torch.serving import ServingEngine
     cfg = model_config()
@@ -1804,10 +1948,11 @@ def phase_serve():
                 finally:
                     split["cache"] += time.perf_counter() - t
             setattr(engine.cache, name, wrap)
-        counters = ((similarity_topk, "launches"), (decision, "launches"),
-                    (rac_value, "launches"), (decode_attention, "launches"))
+        counters = ((similarity_topk, "launches"),
+                    (decode_attention, "launches"))
         for mod, attr in counters:
             setattr(mod, attr, 0)
+        eq1_reset()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1816,7 +1961,14 @@ def phase_serve():
         wall = time.perf_counter() - t0
         launches = {mod.__name__.split(".")[-1]: getattr(mod, attr)
                     for mod, attr in counters}
+        eq1 = eq1_counts()
+        launches.update(decision=eq1["victim_value"],
+                        decision_vec=eq1["victim_value (vector)"],
+                        rac_value=eq1["rac_value"],
+                        rac_value_vec=eq1["rac_value (vector)"])
         peak = torch.cuda.max_memory_allocated()
+        t_serve = len(engine.cache.policy.tp_last)
+        n_slots = engine.cache.store.emb.shape[0]
         got = _serve_outcome(engine, events, done)
         want = host.result()
     st = got["stats"]
@@ -1841,8 +1993,8 @@ def phase_serve():
                                  f"replay's: {detail}")
     if st["hits"] == 0 or st["evictions"] == 0:
         raise AssertionError("serve: no hits or no evictions")
-    missing = [k for k in ("similarity_topk", "decision", "decode_attention")
-               if launches[k] < 1]
+    missing = [k for k in ("similarity_topk", "decision", "rac_value",
+                           "decode_attention") if launches[k] < 1]
     if missing:
         raise AssertionError(f"serve: kernels never launched: {missing}")
     if launches["decode_attention"] != st["batches"] * cfg.n_layers:
@@ -1850,7 +2002,15 @@ def phase_serve():
                              "decode step")
     log(f"serve: {len(got['events'])} events, {n} cached flags and token "
         "counts identical to the host replay's")
-    return launches
+    # B3 over the serve cache's residents and B2 over its slots, at the
+    # topic table the engine's RAC grew
+    rng = np.random.default_rng(4)
+    log(f"serve: RAC's topic table T={t_serve}, {n_slots} slots")
+    rows = {"victim_value": check_values(rng, n_slots, t_serve, 200,
+                                         ("victim_value",))["victim_value"],
+            "rac_value": check_values(rng, n_slots - 1, t_serve, 200,
+                                      ("rac_value",))["rac_value"]}
+    return launches, rows
 
 
 def main():
@@ -1874,7 +2034,9 @@ def main():
     log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
     arena = phase_arena(trace)
     log(f"arena: {time.perf_counter() - t_start:.1f}s")
-    launches, warm = phase_main(trace)
+    launches, warm, real_v = phase_main(trace)
+    for k, row in real_v.items():
+        values[k].insert(1, row)
     log(f"main: {time.perf_counter() - t_start:.1f}s")
     approx = phase_approx_main(trace, warm)
     del warm
@@ -1884,7 +2046,9 @@ def main():
     log(f"model: {time.perf_counter() - t_start:.1f}s")
     phase_gemma()
     log(f"gemma: {time.perf_counter() - t_start:.1f}s")
-    serve = phase_serve()
+    serve, serve_v = phase_serve()
+    for k, row in serve_v.items():
+        values[k].append(row)
     log(f"serve: {time.perf_counter() - t_start:.1f}s")
 
     src = "src/repro_torch/csrc/"
@@ -1908,10 +2072,15 @@ def main():
     rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
                 launches["sim_top1"], sim,
                 "torch.mm (product only, IEEE fp32)")]
+    eq1_kernel = ("eq1_value.cuh's eq1_kernel: one wave, V entries a thread "
+                  "from 16-byte loads, topic tables staged by a bulk copy "
+                  "where they fit, programmatic dependent launch")
     for name, replaces in (("victim_value", "decision.py:50"),
                            ("rac_value", "rac_value.py:31")):
         rows.append(row(name, name + ".cu", replaces, launches[name],
-                        [values[name]], None))
+                        values[name], None, kernel=eq1_kernel,
+                        floor_ms=values[name][0]["floor_ms"],
+                        vec_launches=launches[name]))
     rows += [
         row("sim_topk", "sim_topk_f32.cu", "similarity_topk.py:170",
             approx["topk_launches"], b4,
@@ -1941,7 +2110,9 @@ def main():
                "padded to a multiple of 8 rows + float + 2 mul + "
                "masked_fill_ + torch.topk (6 calls)"}),
         row("victim_value_multi", "victim_value.cu", "decision.py:79",
-            arena["victim_value_multi"], m2, None),
+            arena["victim_value_multi"], m2, None, kernel=eq1_kernel,
+            floor_ms=m2[0]["floor_ms"],
+            vec_launches=arena["victim_value_multi (vector)"]),
         row("flash_attention", "flash_attention.cu", "flash_attention.py:56",
             fa_launches, b8,
             "torch.nn.functional.scaled_dot_product_attention(is_causal="

@@ -1,46 +1,46 @@
-// Unmasked RAC Eq. 1 over a resident table:
+// RAC Eq. 1 over a resident or block table, optionally masked:
 //   value[i] = 2^(-alpha * (t_now - t_last[tid_i])) * tp_last[tid_i] * tsi[i]
+// with tid clamped to [0, T - 1] and, given a validity mask, +inf where it
+// is false (rac_value_masked: one launch, no select pass after it).
 //
 // Replaces: repro/kernels/rac_value.py::rac_value_pallas
-// (_rac_value_kernel), the per-eviction scorer behind RACPolicy.victim.
+// (_rac_value_kernel), the per-eviction scorer behind RACPolicy.victim,
+// and the jnp.where that repro/kernels/ops.py::rac_value_masked fuses
+// with it.
 //
-// What bounds it on an H100: about 12 bytes per entry (tsi, tid in, value
-// out) plus gathers from topic tables that stay in L1/L2, so well under a
-// microsecond at 3.35 TB/s for the 65,537-entry table; the launch bounds it
-// in practice.
+// What bounds it on an H100: about 12 bytes an entry (tsi, tid in, value
+// out; one more with a mask) plus gathers from topic tables that stay in
+// L2, well under a microsecond at 3.35 TB/s for the 65,537-entry table;
+// latency and the launch bound it in practice.
 //
-// Design: one thread per entry.  Unlike victim_value, the TPU kernel casts
-// t_last to f32 *before* subtracting (the wrapper uploads t_last as f32 and
-// t_now arrives as an f32 scalar), and that order is kept.  The backend
-// shifts timestamps so t_now = 0, where the int and f32 orders agree for
-// ages below 2^24.  exp2f without fast-math, then (decay*tp)*tsi.
-#include <cuda_runtime.h>
+// Design: the body in eq1_value.cuh.  Unlike victim_value, the TPU kernel
+// casts t_last to f32 *before* subtracting (t_now arrives as an f32
+// scalar), and that order is kept: t_last comes as f32 (kRacF32) or as
+// int32 that the kernel casts (kRacI32: the backend's shifted table, with
+// no cast launch of its own).  The backend shifts timestamps so t_now = 0,
+// where the int and f32 orders agree for ages below 2^24.
+#include "eq1_value.cuh"
 
-namespace {
+extern "C" {
 
-__global__ void rac_value_kernel(const float* __restrict__ tsi,
-                                 const int* __restrict__ tid,
-                                 const float* __restrict__ tp_last,
-                                 const float* __restrict__ t_last, int n,
-                                 int n_topics, float t_now, float neg_alpha,
-                                 float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int t = min(max(tid[i], 0), n_topics - 1);
-  const float decay = exp2f(neg_alpha * (t_now - __ldg(t_last + t)));
-  out[i] = decay * __ldg(tp_last + t) * tsi[i];
+// One launch of Eq. 1 (kind kRacF32 or kRacI32 in a->kind), arguments
+// packed as Eq1Args; a->mask null or a bool (N,) validity mask.
+int rac_value_launch(const Eq1Args* a) {
+  return a->kind == kRacI32 ? eq1_run<kRacI32>(a) : eq1_run<kRacF32>(a);
 }
 
-}  // namespace
-
-extern "C" int rac_value_launch(const float* tsi, const int* tid,
-                                const float* tp_last, const float* t_last,
-                                int n, int n_topics, float t_now,
-                                float neg_alpha, float* out, int device,
-                                cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  rac_value_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      tsi, tid, tp_last, t_last, n, n_topics, t_now, neg_alpha, out);
-  return (int)cudaGetLastError();
+int rac_value_slots(const Eq1Args* a, int* slots) {
+  return a->kind == kRacI32 ? eq1_slots<kRacI32>(a, slots)
+                            : eq1_slots<kRacF32>(a, slots);
 }
+
+// The launch floor of a's launch: an empty kernel with the same grid,
+// shared memory and attributes, and the same dependency prologue (timing
+// only; counted nowhere).
+int eq1_value_floor(const Eq1Args* a) {
+  cudaError_t err = eq1_device(a->device);
+  if (err == cudaSuccess && a->staged) err = eq1_smem_ceiling(eq1_floor_kernel);
+  return err != cudaSuccess ? (int)err : eq1_launch(eq1_floor_kernel, *a);
+}
+
+}  // extern "C"

@@ -44,6 +44,7 @@ build_log = ""
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
+_B = ctypes.c_char_p    # a packed argument block, passed without a copy
 _SIGNATURES = {
     "sim_top1_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
                         _I, _P],
@@ -59,10 +60,12 @@ _SIGNATURES = {
     "sim_topk_q8_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "sim_topk_q8_wgmma_slots": [_I, _I, _I, _I, _I, _P],
-    "victim_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P],
-    "victim_value_multi_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                  _P, _I, _P],
-    "rac_value_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _I, _P],
+    # the Eq. 1 kernels take one packed Eq1Args block (kernels/decision.py)
+    "victim_value_launch": [_B],
+    "victim_value_slots": [_B, _P],
+    "rac_value_launch": [_B],
+    "rac_value_slots": [_B, _P],
+    "eq1_value_floor": [_B],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_slots": [_I, _I, _I, _I, _I, _P],
@@ -145,6 +148,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -163,6 +168,7 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device
+    (read without building a ``torch.cuda.Stream``)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

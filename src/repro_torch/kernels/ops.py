@@ -100,8 +100,11 @@ def _device_of(*xs) -> torch.device:
 
 
 def _as(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``x`` as a contiguous tensor of ``dtype`` on ``device``."""
+    """``x`` as a contiguous tensor of ``dtype`` on ``device`` (``x`` itself
+    when it already is one)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == dtype and x.device == device and x.is_contiguous():
+            return x
         return x.to(device=device, dtype=dtype).contiguous()
     return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                            device=device)
@@ -177,13 +180,17 @@ def _victim_value_raw(tsi, tid, occ, tp_last, t_last, t_now, alpha, dev):
                          float(alpha))
 
 
-def _rac_value_raw(tsi, tid, tp_last, t_last, alpha, t_now, dev):
-    # t_last goes in as f32, as the TPU kernel's caller casts it
+def _rac_value_raw(tsi, tid, tp_last, t_last, alpha, t_now, dev,
+                   valid=None):
+    # t_last goes in as f32, as the TPU kernel's caller casts it; an int32
+    # tensor (the backend's shifted table) is cast by the kernel itself
+    i32 = isinstance(t_last, torch.Tensor) and t_last.dtype == torch.int32
     return _rac_value(_as(tsi, torch.float32, dev),
                       _as(tid, torch.int32, dev),
                       _as(tp_last, torch.float32, dev),
-                      _as(t_last, torch.float32, dev), float(alpha),
-                      int(t_now))
+                      _as(t_last, torch.int32 if i32 else torch.float32, dev),
+                      float(alpha), int(t_now),
+                      None if valid is None else _as(valid, torch.bool, dev))
 
 
 @_counted
@@ -307,10 +314,10 @@ def rac_value_masked(tsi, tid, tp_last, t_last, valid, alpha: float,
                      t_now: int):
     """RAC Eq.1 over a block table with a structural-validity mask:
     invalid rows score ``+inf`` so a min-value victim scan never elects
-    them."""
+    them.  One kernel launch: the mask is applied in the kernel."""
     dev = _device_of(tsi, tid, tp_last, t_last, valid)
-    vals = _rac_value_raw(tsi, tid, tp_last, t_last, alpha, t_now, dev)
-    return torch.where(_as(valid, torch.bool, dev), vals, float("inf"))
+    return _rac_value_raw(tsi, tid, tp_last, t_last, alpha, t_now, dev,
+                          valid)
 
 
 @_counted

@@ -165,6 +165,200 @@ def test_victim_value_kernel_large_timestamps(cuda):
                                rtol=1e-5, atol=0)
 
 
+
+# -------------------- the Eq. 1 kernels' Hopper design (B2, B3, B7)
+# Around the vector edges (V = 4 or 8 entries a thread, 256 threads a
+# block), the main path's, the arena's and the serve phase's shapes, and a
+# topic table past the staging budget (gathered).
+_VALUE_SHAPES = [(n, t) for n in (1, 3, 4, 5, 7, 8, 255, 256, 257, 1_023,
+                                  1_024, 1_025) for t in (1, 33)] + [
+    (64, 256), (65, 256), (6_852, 4_096), (65_537, 4_096),
+    (65_537, 131_072)]
+
+
+def _value_tables(rng, n, t, dev, shape=None):
+    shape = shape or (n,)
+    tshape = shape[:-1] + (t,)
+
+    def put(x):
+        return torch.from_numpy(x).to(dev)
+    return (put(rng.random(shape).astype(np.float32) * 8),
+            put(rng.integers(-1, t, shape).astype(np.int32)),
+            put((rng.random(shape) < 0.9).astype(np.int32)),
+            put(rng.random(tshape).astype(np.float32) * 20),
+            put(rng.integers(0, 60_000, tshape).astype(np.int32)))
+
+
+def _same_masks_within(got, want, rtol=1e-6):
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("n,t", _VALUE_SHAPES)
+def test_eq1_kernels_match_plain_around_the_vector_edges(cuda, rng, n, t):
+    from repro_torch.kernels import decision, rac_value, ref
+    tsi, tid, occ, tp, tl = _value_tables(rng, n, t, cuda)
+    before = (decision.launches, decision.vec_launches, rac_value.launches,
+              rac_value.vec_launches)
+    got = decision.victim_value(tsi, tid, occ, tp, tl, 72_000, 0.001)
+    _same_masks_within(got, ref.victim_value_ref(tsi, tid, occ, tp, tl,
+                                                 72_000, 0.001))
+    tid0, tli = tid.clamp(min=0), tl - 72_000
+    valid = occ > 0
+    for t_last in (tli.float(), tli):           # f32, and int32 cast inside
+        got = rac_value.rac_value(tsi, tid0, tp, t_last, 0.001, 0)
+        want = ref.rac_value_ref(tsi, tid0, tp, tli.float(), 0.001, 0)
+        _same_masks_within(got, want)
+        masked = rac_value.rac_value(tsi, tid0, tp, t_last, 0.001, 0, valid)
+        assert torch.equal(masked, torch.where(valid, got, float("inf")))
+    vec = int(n >= decision.V)       # fresh tensors: 16-byte aligned bases
+    assert (decision.launches, decision.vec_launches, rac_value.launches,
+            rac_value.vec_launches) == (before[0] + 1, before[1] + vec,
+                                        before[2] + 4, before[3] + 4 * vec)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("n,t", [(5, 33), (257, 33), (1_025, 256),
+                                 (65_537, 4_096)])
+def test_eq1_scalar_walk_of_slices_is_bit_equal_to_the_vector_path(
+        cuda, rng, off, n, t):
+    """Slices at 1-3 entries past an aligned base take the scalar walk;
+    their values are the contiguous copies' (vector path) bit for bit."""
+    from repro_torch.kernels import decision, rac_value
+    big = _value_tables(rng, n + off, t, cuda)
+    sl = [x[off:] for x in big[:3]] + list(big[3:])
+    cp = [x.clone() for x in sl]
+    vec = int(n >= decision.V)
+    v0 = (decision.vec_launches, rac_value.vec_launches)
+    a = decision.victim_value(*sl, 72_000, 0.001)
+    assert decision.vec_launches == v0[0]
+    b = decision.victim_value(*cp, 72_000, 0.001)
+    assert decision.vec_launches == v0[0] + vec
+    assert torch.equal(a, b)
+    tl = big[4] - 72_000
+    for valid in (None, sl[2] > 0):
+        a = rac_value.rac_value(sl[0], sl[1].clamp(min=0), big[3], tl, 0.001,
+                                0, valid)
+        b = rac_value.rac_value(cp[0], cp[1].clamp(min=0), big[3], tl, 0.001,
+                                0, None if valid is None else valid.clone())
+        assert torch.equal(a, b)
+    assert rac_value.vec_launches == v0[1] + 2 * vec
+
+
+@pytest.mark.parametrize("n,t", [(1_025, 256), (65_537, 4_096),
+                                 (6_852, 4_096)])
+def test_eq1_staged_and_gathered_tables_give_the_same_bits(cuda, rng,
+                                                          monkeypatch, n, t):
+    """Topic tables staged in shared memory or gathered from L2 (where they
+    do not fit, or with no staging budget): the same bits."""
+    from repro_torch.kernels import decision, rac_value
+    tsi, tid, occ, tp, tl = _value_tables(rng, n, t, cuda)
+    tid0, tli = tid.clamp(min=0), tl - 72_000
+
+    def run():
+        return (decision.victim_value(tsi, tid, occ, tp, tl, 72_000, 0.001),
+                rac_value.rac_value(tsi, tid0, tp, tli, 0.001, 0),
+                rac_value.rac_value(tsi, tid0, tp, tli.float(), 0.001, 0,
+                                    occ > 0))
+    assert decision.stage_plan(t, True)
+    base = run()
+    monkeypatch.setattr(decision, "STAGE_MAX", 0)
+    for i, (a, b) in enumerate(zip(run(), base)):
+        assert torch.equal(a, b), (i, int((a != b).sum()))
+
+
+def test_rac_value_masked_is_one_launch_bit_equal_to_select(cuda, rng):
+    """ops.rac_value_masked: one B3 launch (the mask in the kernel), the
+    bits of B3 followed by torch.where; the int32 table the backend
+    passes needs no cast launch either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops, rac_value
+    tsi, tid, occ, tp, tl = _value_tables(rng, 6_852, 4_096, cuda)
+    tid0, tli, valid = tid.clamp(min=0), tl - 72_000, occ > 0
+    ops.rac_value_masked(tsi, tid0, tp, tli, valid, 0.01, 0)
+    torch.cuda.synchronize()
+    before = rac_value.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = ops.rac_value_masked(tsi, tid0, tp, tli, valid, 0.01, 0)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert rac_value.launches == before + 1
+    assert len(kernels) == 1 and "eq1_kernel" in kernels[0], kernels
+    plain = rac_value.rac_value(tsi, tid0, tp, tli.float(), 0.01, 0)
+    assert torch.equal(got, torch.where(valid, plain, float("inf")))
+
+
+@pytest.mark.parametrize("p,n,t", [(2, 5, 33), (3, 1_023, 256),
+                                   (15, 6_852, 4_096), (4, 6_851, 4_096),
+                                   (2, 1_024, 131_072)])
+def test_eq1_stacked_is_bit_equal_to_single_launches(cuda, rng, p, n, t):
+    """B7 (one launch, the policy a grid axis) against P single B2
+    launches; N % 4 != 0 puts the policies' rows off 16 bytes (the scalar
+    walk)."""
+    from repro_torch.kernels import decision, ref
+    tsi, tid, occ, tp, tl = _value_tables(rng, n, t, cuda, shape=(p, n))
+    v0 = (decision.multi_launches, decision.multi_vec_launches)
+    got = decision.victim_value_multi(tsi, tid, occ, tp, tl, 72_000, 0.001)
+    assert (decision.multi_launches, decision.multi_vec_launches) == \
+        (v0[0] + 1, v0[1] + int(n % 4 == 0))
+    _same_masks_within(got, ref.victim_value_multi_ref(tsi, tid, occ, tp,
+                                                       tl, 72_000, 0.001))
+    for j in range(p):
+        one = decision.victim_value(tsi[j], tid[j], occ[j], tp[j], tl[j],
+                                    72_000, 0.001)
+        assert torch.equal(got[j], one)
+
+
+def test_fused_decide_in_a_cuda_graph_equals_the_eager_call(cuda, rng):
+    """B1, B1, B2 (B2 launched with programmatic dependent launch after
+    B1) captured in a CUDA graph: each replay gives the eager call's
+    outputs, also after the inputs change in place."""
+    from repro_torch.kernels import ops
+    q, slab, reps = (_unit(rng, 64, 128, cuda), _unit(rng, 5_000, 128, cuda),
+                     _unit(rng, 300, 128, cuda))
+    tsi, tid, occ, tp, tl = _value_tables(rng, 5_000, 512, cuda)
+
+    def call():
+        return ops.fused_decide(q, slab, 4_900, reps, 300, tsi, tid, occ, tp,
+                                tl, 72_000, alpha=0.001)
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        graphed = call()
+    for step in range(3):
+        tsi.mul_(1.5)
+        tl.add_(step)
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(graphed, call()):
+            assert torch.equal(a, b)
+
+
+def test_eq1_wrappers_refuse_what_the_kernels_do_not_take(cuda, rng):
+    from repro_torch.kernels import decision, rac_value
+    tsi, tid, occ, tp, tl = _value_tables(rng, 100, 33, cuda)
+    with pytest.raises(ValueError):
+        decision.victim_value(tsi, tid[:99], occ, tp, tl, 5, 0.1)
+    with pytest.raises(ValueError):
+        decision.victim_value(tsi, tid, occ, tp, tl[:32], 5, 0.1)
+    with pytest.raises(ValueError):
+        decision.victim_value(tsi, tid, occ, tp, tl.float(), 5, 0.1)
+    with pytest.raises(ValueError):
+        decision.victim_value(tsi[::2], tid[::2], occ[::2], tp, tl, 5, 0.1)
+    with pytest.raises(ValueError):
+        rac_value.rac_value(tsi, tid, tp, tl, 0.1, 0, occ)      # not bool
+    with pytest.raises(ValueError):
+        rac_value.rac_value(tsi, tid, tp, tl, 0.1, 0, occ[:50] > 0)
+    with pytest.raises(ValueError):
+        rac_value.rac_value(tsi, tid, tp, tl.cpu(), 0.1, 0)
+
 def test_kernel_backend_on_the_card_matches_the_host_oracle(cuda):
     from repro_torch.core import (OASSTConfig, make_rac, oasst_style_trace,
                                   run_policy_batched)
