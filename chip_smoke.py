@@ -102,6 +102,28 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                D = 256) against the same model on plain attention, then 64
                teacher-forced decode steps through B9 against forward,
                both within LOGIT_TOL.
+ 10c. tiers  - RAC at D=768 over the first 5,000 requests, device capacity
+               1,024, a host tier of 2,048 rows and ghost lists of 8,192,
+               request by request with a flush after each, queued
+               (async_admit="sync") and with the worker thread (True): the
+               events (kind, cid, t, tier) equal to the host oracle's
+               queued replay exactly and to its inline replay at every
+               flush; demotions, promotions, host hits, host evictions and
+               ghost revivals all happen; one telemetry report printed.
+ 10d. kv     - the KV prefix-block cache at deployment size: KVBlockManager
+               (65,536 blocks of 16 tokens, RadixRAC, the kernel backend on
+               the card) over the first 10,000 requests of the trace, each
+               prompt the token runs of its whole conversation (16-256
+               tokens a message from default_rng([0, cid])): every request's
+               hit tokens, new blocks, topic and evicted blocks equal to the
+               plain B3's (device="cpu") and to the float64 oracle's (numpy;
+               or parting first at an fp32 near-tie: the two victims'
+               float64 values within 2^-22), both replayed in workers at the
+               same time; radix validity every 1,000 requests; at least
+               10,000 evictions, B3 launched for each (one launch, the mask
+               in the kernel), B1 never.
+               The host replays of 10c and 10d run in four worker
+               processes while phases 10 and 10b use the card.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -197,6 +219,24 @@ DECODE_SHAPES = [((8, 15, 5, 512, 64), torch.bfloat16, 50),
                  ((8, 96, 8, 2048, 192), torch.bfloat16, 50),
                  ((8, 4, 2, 2048, 32), torch.float32, 50),
                  ((128, 15, 5, 32768, 64), torch.bfloat16, 5)]
+# the kv phase: the KV prefix-block pool one H100 holds beside the paper
+# LM (65,536 blocks of 16 tokens = 1,048,576 tokens x 40,960 bytes of
+# bf16 KV a token = 42.9 GB), over the OASST-style trace's first KV_LEN
+# requests (each prompt the whole conversation so far): the pool fills
+# after ~8,100 requests, and 10,000 make 15,325 evictions
+KV_BLOCKS, KV_BLOCK_TOKENS = 65_536, 16
+KV_LEN = 10_000
+KV_MIN_EVICTIONS = 10_000
+KV_VOCAB = 49_152          # the paper LM's vocabulary
+KV_CHECK_EVERY = 1_000     # radix validity checked every this many requests
+KV_SAMPLE = 500            # every this many B3 launches, one is timed
+KV_WINDOW = 2.0 ** -16     # re-scored in float64: values this near the min
+KV_NEAR_TIE = 2.0 ** -22   # an fp32 near-tie: float64 values this close
+# the tiers phase: RAC at D=768 over the trace's first TIERS_LEN requests,
+# device capacity TIERS_CAP, a host tier of TIERS_HOST rows and ghost
+# lists of TIERS_GHOST entries (cut in depth so every tier flow occurs)
+TIERS_LEN = 5_000
+TIERS_CAP, TIERS_HOST, TIERS_GHOST = 1_024, 2_048, 8_192
 MODEL_ARCH = "paper"       # configs/paper.py: the paper's served LM
 SMOKE_MODEL = False        # True: its smoke_variant (CPU rehearsals only)
 PREFILL_B, PREFILL_S = 2, 1_000
@@ -1401,6 +1441,375 @@ def phase_approx_main(trace, warm):
     return kl
 
 
+# --------------------------------------------------------------- kv phase
+def kv_prompts(cids, parent: dict) -> list:
+    """Each request's prompt: the token runs of its parent chain, root
+    first.  A message's run is 16-256 token ids below KV_VOCAB drawn from
+    ``default_rng([0, cid])``."""
+    runs: dict = {}
+
+    def run(cid):
+        if cid not in runs:
+            rng = np.random.default_rng([0, cid])
+            n = int(rng.integers(16, 257))
+            runs[cid] = rng.integers(0, KV_VOCAB, size=n).tolist()
+        return runs[cid]
+    prompts = []
+    for cid in cids:
+        chain = [cid]
+        while parent[chain[-1]] >= 0:
+            chain.append(parent[chain[-1]])
+        prompts.append([tok for c in reversed(chain) for tok in run(c)])
+    return prompts
+
+
+def kv_outcome(r: dict) -> tuple:
+    return (r["hit_tokens"], len(r["new_blocks"]), r["topic"],
+            tuple(r["evicted"]))
+
+
+def _kv_replay(task):
+    """The kv phase's replay on a host scorer, in a worker process: the
+    plain B3 (``device="cpu"``) or the float64 oracle (numpy)."""
+    backend, device, cids, parent = task
+    torch.set_num_threads(1)
+    from repro_torch.serving import KVBlockManager
+    prompts = kv_prompts(cids, parent)
+    mgr = KVBlockManager(KV_BLOCKS, KV_BLOCK_TOKENS, backend=backend,
+                         device=device)
+    t0 = time.perf_counter()
+    out = [kv_outcome(mgr.on_request(p)) for p in prompts]
+    return out, time.perf_counter() - t0
+
+
+def kv_check_radix(mgr, where: str) -> None:
+    """Radix validity: no resident block has an evicted parent, and the
+    mirror holds exactly the cache's residents."""
+    blocks = mgr.blocks
+    orphans = [b for b, blk in blocks.items()
+               if blk.parent >= 0 and blk.parent not in blocks]
+    if orphans:
+        raise AssertionError(f"kv {where}: {len(orphans)} resident blocks "
+                             f"have an evicted parent, e.g. {orphans[:3]}")
+    if set(blocks) != set(mgr.cache.store.keys()):
+        raise AssertionError(f"kv {where}: the radix mirror and the cache's "
+                             "residents differ")
+
+
+def kv_near_ties(pol, record: list, where: list):
+    """Wrap the policy's victim scan: for every eviction, the float64
+    values (the host oracle's arithmetic) of the blocks whose card value
+    lies within KV_WINDOW of the minimum; where the float64 order elects
+    another victim than the card's, record (request, eviction, card
+    victim, its float64 value, float64 victim, its value).  The card's
+    values are fp32 within a few ulps (2^-21) of the float64 ones, so the
+    float64 victim always lies inside the window."""
+    scores = pol._scores
+
+    def wrapped(t):
+        values, valid = scores(t)          # by slot, +inf where invalid
+        if valid.any():
+            m = values.min()
+            near = np.flatnonzero(values <= m + m * KV_WINDOW)
+            tids = pol.topic_of[near]
+            tsi = pol.freq[near] + pol.lam * pol.dep[near]
+            v64 = (0.5 ** (pol.alpha * (t - pol.t_last[tids]))
+                   * pol.tp_last[tids] * tsi)
+            v32 = values[near]
+            cids, lt = pol.store.cid[near], pol.last_t[near]
+            a = np.lexsort((cids, lt, v32))[0]
+            b = np.lexsort((cids, lt, v64))[0]
+            if a != b:
+                record.append((where[0], where[1], int(cids[a]),
+                               float(v64[a]), int(cids[b]), float(v64[b])))
+            where[1] += 1
+        return values, valid
+    pol._scores = wrapped
+    return scores
+
+
+def kv_workers(pool, trace) -> dict:
+    """Start the kv phase's host replays in ``pool``: the plain B3
+    (``device="cpu"``) and the float64 oracle (numpy)."""
+    parent = {r.cid: r.parent_cid for r in trace.requests}
+    cids = [r.cid for r in trace.requests[:KV_LEN]]
+    return {name: pool.submit(_kv_replay, (backend, device, cids, parent))
+            for name, backend, device in (("plain", "kernel", "cpu"),
+                                          ("oracle", "numpy", "cpu"))}
+
+
+def phase_kv(trace, hosts: dict):
+    """The KV prefix-block cache at deployment size (KV_BLOCKS blocks of
+    KV_BLOCK_TOKENS tokens: 42.9 GB of the paper LM's KV) on the card,
+    held to the plain B3 and to the float64 host oracle (``hosts``, from
+    :func:`kv_workers`)."""
+    from repro_torch.kernels import ops, rac_value, similarity_topk
+    from repro_torch.serving import KVBlockManager
+    parent = {r.cid: r.parent_cid for r in trace.requests}
+    t0 = time.perf_counter()
+    prompts = kv_prompts([r.cid for r in trace.requests[:KV_LEN]], parent)
+    lens = np.array([len(p) for p in prompts])
+    log(f"kv: {KV_LEN} requests (KV_LEN), prompts {lens.mean():.1f} tokens "
+        f"on average (median {np.median(lens):.0f}, longest {lens.max()}), "
+        f"built in {time.perf_counter() - t0:.2f}s")
+    mgr = KVBlockManager(KV_BLOCKS, KV_BLOCK_TOKENS, device=DEVICE)
+    pol = mgr.policy
+    flips: list = []
+    where = [0, 0]                       # request, eviction
+    kv_near_ties(pol, flips, where)
+    # B3's device time on a sample of its launches (CUDA graphs of the
+    # same call; their launches are taken back off the counters)
+    sample_ms: list = []
+    last: list = []
+    masked = ops.rac_value_masked
+
+    def sampled(tsi, tid, tp, tl, valid, alpha, t_now):
+        out = masked(tsi, tid, tp, tl, valid, alpha, t_now)
+        if rac_value.launches % KV_SAMPLE == 0:
+            n0 = rac_value.launches, rac_value.vec_launches
+            sample_ms.append(graph_ms(lambda: rac_value.rac_value(
+                tsi, tid, tp, tl, alpha, t_now, valid), 20))
+            rac_value.launches, rac_value.vec_launches = n0
+            last[:] = [(tsi, tid, tp, tl, valid, alpha, t_now)]
+        return out
+    ops.rac_value_masked = sampled
+    victim_s = [0.0]
+    victim = pol.victim
+
+    def timed_victim(t):
+        t1 = time.perf_counter()
+        try:
+            return victim(t)
+        finally:
+            victim_s[0] += time.perf_counter() - t1
+    pol.victim = timed_victim
+    similarity_topk.launches = 0
+    eq1_reset()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            where[0] = i
+            out.append(kv_outcome(mgr.on_request(p)))
+            if (i + 1) % KV_CHECK_EVERY == 0:
+                kv_check_radix(mgr, f"request {i + 1}")
+        torch.cuda.synchronize()
+    finally:
+        ops.rac_value_masked = masked
+    wall = time.perf_counter() - t0
+    b3 = rac_value.launches
+    b1 = similarity_topk.launches
+    kv_check_radix(mgr, "end")
+    peak = torch.cuda.max_memory_allocated()
+    plain, plain_wall = hosts["plain"].result()
+    oracle, oracle_wall = hosts["oracle"].result()
+    m = mgr.cache.metrics
+    hit_tok = sum(o[0] for o in out)
+    new_blocks = sum(o[1] for o in out)
+    full = lens // KV_BLOCK_TOKENS * KV_BLOCK_TOKENS
+    fails = int(sum(o[0] + KV_BLOCK_TOKENS * o[1] < f
+                    for o, f in zip(out, full)))
+    dev_ms = float(np.mean(sample_ms)) * b3 if sample_ms else float("nan")
+    log(f"kv: {KV_LEN} requests in {wall:.2f}s ({KV_LEN / wall:.1f} req/s), "
+        f"hit-token share {hit_tok / lens.sum():.4f}, blocks hit "
+        f"{hit_tok // KV_BLOCK_TOKENS} new {new_blocks}, evictions "
+        f"{m.evictions}, allocation failures {fails}, resident {mgr.used} "
+        f"of {KV_BLOCKS}")
+    log(f"kv: B3 launches {b3} ({rac_value.vec_launches} vector), B1 "
+        f"launches {b1}; B3 device {np.mean(sample_ms) if sample_ms else 0:.5f}"
+        f" ms a launch over {len(sample_ms)} sampled launches, "
+        f"{dev_ms:.1f} ms summed ({dev_ms / 1e3 / wall:.4f} of the wall); "
+        f"host {victim_s[0] / max(1, m.evictions) * 1e3:.3f} ms per eviction "
+        f"({victim_s[0]:.2f}s in the victim scan, B3 included); largest T "
+        f"{len(pol.tp_last)} ({pol._next_tid} topics); peak device bytes "
+        f"{peak}; workers: plain B3 {plain_wall:.2f}s, float64 oracle "
+        f"{oracle_wall:.2f}s")
+    if out != plain:
+        raise AssertionError("kv: the card and the plain B3 differ: "
+                             + first_diff(out, plain))
+    if (out == oracle) != (not flips) or (
+            flips and flips[0][0] != first_diff_at(out, oracle)):
+        raise AssertionError(
+            "kv: the float64 oracle parts from the card "
+            f"{'nowhere' if out == oracle else 'at request ' + str(first_diff_at(out, oracle))}"
+            f" but the float64 re-scoring of the card's evictions elects "
+            f"another victim at {flips[:3]}")
+    if out == oracle:
+        log(f"kv: {KV_LEN} request outcomes identical to the plain B3's and "
+            "to the float64 oracle's")
+    else:
+        j = first_diff_at(out, oracle)
+        r, e, ca, va, cb, vb = flips[0]
+        rel = abs(va - vb) / max(abs(va), abs(vb))
+        log(f"kv: identical to the plain B3's; the float64 oracle parts at "
+            f"request {j} (eviction {e}): card victim {ca} at {va!r}, "
+            f"float64 victim {cb} at {vb!r}, {rel:.3e} relative")
+        if not rel <= KV_NEAR_TIE:
+            raise AssertionError(f"kv: the oracle parts at request {j} on "
+                                 f"values {rel:.3e} apart, more than an fp32 "
+                                 "near-tie")
+    if b3 < m.evictions:
+        raise AssertionError(f"kv: {b3} B3 launches for {m.evictions} "
+                             "evictions")
+    if rac_value.vec_launches != b3:
+        raise AssertionError(f"kv: {b3 - rac_value.vec_launches} of {b3} B3 "
+                             "launches missed the vector path")
+    if b1:
+        raise AssertionError(f"kv: B1 launched {b1} times on content "
+                             "lookups")
+    if hit_tok <= 0 or m.evictions < KV_MIN_EVICTIONS:
+        raise AssertionError(f"kv: hit tokens {hit_tok}, evictions "
+                             f"{m.evictions} (at least {KV_MIN_EVICTIONS})")
+    # B3 at the path's last sampled shape against its plain version
+    from repro_torch.kernels import decision, ref
+    tsi, tid, tp, tl, valid, alpha, t_now = last[0]
+    got = rac_value.rac_value(tsi, tid, tp, tl, alpha, t_now, valid)
+
+    def plain_b3():
+        return torch.where(valid, ref.rac_value_ref(tsi, tid, tp, tl.float(),
+                                                    alpha, t_now),
+                           float("inf"))
+    rel, err = value_rel(got, plain_b3())
+    if not rel <= VALUE_RTOL:
+        raise AssertionError(f"kv: B3 rel err {rel} > {VALUE_RTOL}")
+    n, t = tsi.shape[0], tp.shape[0]
+    nb, op = bound(n * 13 + t * 8, 5.0 * n)
+    n0 = rac_value.launches, rac_value.vec_launches
+    row = {"shape": f"kv masked N={n} T={t}", "max_abs_err": err,
+           "max_rel_err": rel, "bound_ms": nb, "bound_by": op,
+           "floor_ms": eq1_floor_ms(decision.KIND_RAC_I32,
+                                    (tsi, tid, valid, tp, tl, t_now), 200),
+           **timings(lambda: rac_value.rac_value(tsi, tid, tp, tl, alpha,
+                                                 t_now, valid),
+                     plain_b3, None, 200)}
+    rac_value.launches, rac_value.vec_launches = n0
+    return {"rac_value": b3}, row
+
+
+def first_diff_at(a: list, b: list) -> int:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+# ------------------------------------------------------------ tiers phase
+def _tiers_cache(backend: str, device: str, async_admit, tracker=None):
+    from repro_torch.cache import CacheConfig, SemanticCache, TierConfig
+    return SemanticCache(CacheConfig(
+        capacity=TIERS_CAP, dim=DIM, backend=backend, device=device,
+        async_admit=async_admit, tracker=tracker,
+        tiers=TierConfig(host_capacity=TIERS_HOST,
+                         ghost_capacity=TIERS_GHOST)))
+
+
+def tiers_replay(cache, reqs) -> dict:
+    """Request by request through lookup/admit, flushed after each: the
+    events (kind, cid, t, tier), the stream's length after each flush,
+    the tier counters and the wall."""
+    ev: list = []
+    for kind in ("hit", "miss", "admit", "evict"):
+        cache.subscribe(kind, lambda e, _l=ev: _l.append(
+            (e.kind, int(e.cid), int(e.t), e.tier)))
+    bounds = []
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not cache.lookup(r.emb, cid=r.cid, t=r.t, req=r).hit:
+            cache.admit(r.cid, r.emb, payload=(r.cid,), t=r.t, req=r)
+        cache.flush()
+        bounds.append(len(ev))
+    cache.close()
+    return {"events": ev, "bounds": bounds, "stats": cache.tier_stats,
+            "hits": cache.metrics.hits, "wall": time.perf_counter() - t0}
+
+
+def _tiers_host(task):
+    """The tiers phase on the host oracle (numpy), in a worker."""
+    async_admit, reqs = task
+    torch.set_num_threads(1)
+    return tiers_replay(_tiers_cache("numpy", "cpu", async_admit), reqs)
+
+
+def settled(run: dict) -> list:
+    """Each request's events with its host-tier hits first: inline
+    admission emits such a hit after the promotion it triggers (the
+    re-admission and its evictions run inside the lookup), a queued one
+    before it; the state at every flush is the same."""
+    out, lo = [], 0
+    for hi in run["bounds"]:
+        g = run["events"][lo:hi]
+        out.append([e for e in g if e[0] == "hit" and e[3] == "host"]
+                   + [e for e in g if not (e[0] == "hit" and e[3] == "host")])
+        lo = hi
+    return out
+
+
+def tiers_workers(pool, trace) -> dict:
+    """Start the tiers phase's host-oracle replays in ``pool``: inline
+    and queued admission."""
+    reqs = trace.requests[:TIERS_LEN]
+    return {mode: pool.submit(_tiers_host, (mode, reqs))
+            for mode in (False, "sync")}
+
+
+def phase_tiers(trace, hosts: dict):
+    """The tiered, asynchronous RAC facade on the card (B1 per device
+    lookup, B3 per eviction, the host tier scanned on the host) over the
+    trace's first TIERS_LEN requests: device capacity TIERS_CAP, host
+    tier TIERS_HOST, ghost lists TIERS_GHOST.  Cut in depth only from the
+    main path (71,000 requests, capacity 65,536), so that demotions,
+    promotions, host evictions and ghost revivals all occur.  Held to the
+    host oracle (numpy), inline and queued (``hosts``, from
+    :func:`tiers_workers`)."""
+    from repro_torch.kernels import rac_value, similarity_topk
+    from repro_torch.telemetry import InMemoryTracker, render_text, summarize
+    reqs = trace.requests[:TIERS_LEN]
+    runs = {}
+    for mode in ("sync", True):
+        trk = InMemoryTracker() if mode == "sync" else None
+        similarity_topk.launches = 0
+        eq1_reset()
+        runs[mode] = tiers_replay(_tiers_cache("kernel", DEVICE, mode,
+                                               trk), reqs)
+        torch.cuda.synchronize()
+        runs[mode]["launches"] = {"sim_top1": similarity_topk.launches,
+                                  "rac_value": rac_value.launches}
+        if trk is not None:
+            report = render_text(summarize(trk), title="tiers (card)")
+    inline, queued = hosts[False].result(), hosts["sync"].result()
+    for mode, run in runs.items():
+        log(f"tiers card async_admit={mode!r}: {TIERS_LEN} requests in "
+            f"{run['wall']:.2f}s, hits {run['hits']}, events "
+            f"{len(run['events'])}, kernel launches "
+            f"{json.dumps(run['launches'])}, tier_stats "
+            f"{json.dumps(run['stats'])}")
+    log(f"tiers host oracle: inline {inline['wall']:.2f}s, queued "
+        f"{queued['wall']:.2f}s, hits {inline['hits']}")
+    log(report)
+    for mode, run in runs.items():
+        if run["events"] != queued["events"]:
+            raise AssertionError(f"tiers async_admit={mode!r}: "
+                                 + first_diff(run["events"],
+                                              queued["events"]))
+        if settled(run) != settled(inline):
+            j = first_diff_at(settled(run), settled(inline))
+            raise AssertionError(f"tiers async_admit={mode!r}: request {j} "
+                                 "differs from the inline oracle's")
+        if run["stats"] != inline["stats"]:
+            raise AssertionError(f"tiers: tier_stats {run['stats']} vs "
+                                 f"{inline['stats']}")
+        if run["launches"]["sim_top1"] < 1 or run["launches"]["rac_value"] < 1:
+            raise AssertionError(f"tiers: kernels never launched: "
+                                 f"{run['launches']}")
+    st = runs["sync"]["stats"]
+    zero = [k for k in ("demotions", "promotions", "host_hits",
+                        "host_evictions", "ghost_revivals") if st[k] <= 0]
+    if zero:
+        raise AssertionError(f"tiers: no {zero}")
+    log(f"tiers: {len(inline['events'])} events identical to the host "
+        "oracle's (queued: exactly; inline: at every flush)")
+    return runs["sync"]["launches"]
+
+
 def attn_err(out: torch.Tensor, plain: torch.Tensor, label: str) -> float:
     """Max |kernel - plain| in fp32, held to the stated tolerance (one bf16
     ulp for bf16 outputs, ATT_F32_TOL for fp32)."""
@@ -2042,10 +2451,20 @@ def main():
     del warm
     torch.cuda.empty_cache()
     log(f"approx main: {time.perf_counter() - t_start:.1f}s")
-    fa_launches = phase_model()
-    log(f"model: {time.perf_counter() - t_start:.1f}s")
-    phase_gemma()
-    log(f"gemma: {time.perf_counter() - t_start:.1f}s")
+    # the host replays of the kv and tiers phases (the plain B3's is the
+    # longest: ~100 s) run in workers while the model phases use the card
+    with _workers(4, 1) as pool:
+        kv_hosts, tiers_hosts = kv_workers(pool, trace), tiers_workers(
+            pool, trace)
+        fa_launches = phase_model()
+        log(f"model: {time.perf_counter() - t_start:.1f}s")
+        phase_gemma()
+        log(f"gemma: {time.perf_counter() - t_start:.1f}s")
+        tiers_launches = phase_tiers(trace, tiers_hosts)
+        log(f"tiers: {time.perf_counter() - t_start:.1f}s")
+        kv_launches, kv_row = phase_kv(trace, kv_hosts)
+    values["rac_value"].append(kv_row)
+    log(f"kv: {time.perf_counter() - t_start:.1f}s")
     serve, serve_v = phase_serve()
     for k, row in serve_v.items():
         values[k].append(row)
@@ -2071,16 +2490,20 @@ def main():
 
     rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
                 launches["sim_top1"], sim,
-                "torch.mm (product only, IEEE fp32)")]
+                "torch.mm (product only, IEEE fp32)",
+                tiers_launches=tiers_launches["sim_top1"])]
     eq1_kernel = ("eq1_value.cuh's eq1_kernel: one wave, V entries a thread "
                   "from 16-byte loads, topic tables staged by a bulk copy "
                   "where they fit, programmatic dependent launch")
     for name, replaces in (("victim_value", "decision.py:50"),
                            ("rac_value", "rac_value.py:31")):
+        extra = ({"kv_launches": kv_launches["rac_value"],
+                  "tiers_launches": tiers_launches["rac_value"]}
+                 if name == "rac_value" else {})
         rows.append(row(name, name + ".cu", replaces, launches[name],
                         values[name], None, kernel=eq1_kernel,
                         floor_ms=values[name][0]["floor_ms"],
-                        vec_launches=launches[name]))
+                        vec_launches=launches[name], **extra))
     rows += [
         row("sim_topk", "sim_topk_f32.cu", "similarity_topk.py:170",
             approx["topk_launches"], b4,

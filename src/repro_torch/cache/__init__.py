@@ -31,14 +31,22 @@ buckets of the RAC policy and scans only those.  Both take a dict or a
 compose; lookups of at most ``fused_max_batch`` queries run the fused
 pipeline (one host sync), wider ones the staged driver.
 
+``CacheConfig(async_admit=True)`` (a worker thread) or ``"sync"`` (drained
+only by ``flush()``) takes admission off the request path, and
+``CacheConfig(tiers=TierConfig(host_capacity=..., ghost_capacity=...))``
+demotes device evictions to a host-DRAM tier that serves device misses,
+over ARC-style ghost lists.  ``policy="RadixRAC"`` is the KV prefix-block
+policy that :class:`repro_torch.serving.KVBlockManager` runs on.
+
 ``load_reference_state`` fills a RAC cache from plain arrays, so a cache
 warmed elsewhere can be continued here.
 """
+from .async_admit import AsyncAdmitter
 from .backends import KernelBackend, LookupBackend, NumpyBackend, get_backend
 from .facade import SemanticCache, load_reference_state
 from .pruned import PrunedLookupConfig
 from .quantized import QuantizedLookupConfig
-from .tiers import GhostTier
+from .tiers import GhostTier, HostTier, TierManager, TierStats
 from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
                     CacheMiss, CacheResult, DecisionBatch, TierConfig)
 
@@ -46,5 +54,6 @@ __all__ = [
     "SemanticCache", "CacheConfig", "CacheHit", "CacheMiss", "CacheResult",
     "CacheEvent", "CacheMetrics", "DecisionBatch", "LookupBackend",
     "NumpyBackend", "KernelBackend", "get_backend", "load_reference_state",
-    "GhostTier", "TierConfig", "QuantizedLookupConfig", "PrunedLookupConfig",
+    "AsyncAdmitter", "TierConfig", "TierManager", "TierStats", "HostTier",
+    "GhostTier", "QuantizedLookupConfig", "PrunedLookupConfig",
 ]

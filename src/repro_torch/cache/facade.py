@@ -21,13 +21,29 @@ Batching: ``lookup_batch`` drains whole query blocks in one backend call
 fused dispatch.  A batched lookup scores every query against the store
 *snapshot* at call time; hits are revalidated against residency when
 results are applied, so interleaved evictions can never produce a stale
-hit.  All mutable state is guarded by one reentrant lock.
+hit.
+
+Event-driven admission: with ``cfg.async_admit`` set, ``admit`` enqueues
+onto an :class:`~repro_torch.cache.async_admit.AsyncAdmitter` and returns
+immediately — a background worker (``True``) or a deterministic
+``flush()`` drain (``"sync"``) applies insert + eviction scoring off the
+request path, firing the same hooks and metrics as the synchronous path.
+All mutable state is guarded by one reentrant lock so concurrent lookups
+never observe a half-applied admission.
+
+Tiers: ``cfg.tiers`` puts a host-DRAM tier and ARC-style ghost lists
+behind the device slab (:mod:`repro_torch.cache.tiers`): device evictions
+demote instead of dropping, a device miss falls through to the host tier
+(a ``tier="host"`` hit, promoted back through the admission path), and a
+re-admitted ghost feeds its preserved relation evidence back into the
+policy.
 
 Telemetry: ``cfg.tracker`` attaches a :class:`repro_torch.telemetry.
 Tracker` the facade emits through — lookup/admit latency histograms,
-windowed hit-ratio and occupancy series, eviction counters, and a span
-around ``decide_batch``.  The device backend gets a scoped child
-(``backend.*`` names).  Emission is strictly observation-only,
+windowed hit-ratio and occupancy series, tier-tagged eviction counters,
+and spans around ``decide_batch`` and the host-tier fall-through.  The
+device backend, the admitter and the tier manager get scoped children
+(``backend.*`` / ``tier.*`` names).  Emission is strictly observation-only,
 ``metrics_snapshot()`` consolidates every counter surface into one dict,
 and event-subscriber failures are contained (counted as ``hook_errors``;
 ``cfg.debug_hooks`` re-raises).
@@ -41,15 +57,10 @@ their exact-scan fallbacks reach the tracker as the
 ``metrics_snapshot()`` always carries their ``quant`` and ``prune``
 ledgers (zeroed when the paths are off).
 
-Policies: ``cfg.policy`` is ``"RAC"`` or any of the 16 baselines of
-:data:`repro_torch.core.policies.BASELINES`.  Admission is synchronous and
-single-tier, so ``flush``/``drain`` and ``close`` are no-ops, nothing is
-ever ``in_host``, ``pending_admits`` is 0 and ``tier_stats`` is empty, as
-in the reference's synchronous single-tier form.
-
-Not ported yet (each raises ``NotImplementedError``, see ``ROADMAP.md``):
-asynchronous admission, the host/ghost tiers behind the facade, and
-``"RadixRAC"``.
+Policies: ``cfg.policy`` is ``"RAC"``, ``"RadixRAC"`` (the KV
+prefix-block policy of :mod:`repro_torch.core.radix`, scored through the
+backend's ``rac_value_masked``) or any of the 16 baselines of
+:data:`repro_torch.core.policies.BASELINES`.
 
 :func:`load_reference_state` fills a cache from the plain-array state of
 another implementation's cache (the reference's, in the tests), so a
@@ -70,7 +81,7 @@ from repro_torch.core.store import ResidentStore
 from repro_torch.core.types import Request
 from repro_torch.telemetry.tracker import make_tracker
 
-from .backends import LookupBackend, _not_ported, get_backend
+from .backends import LookupBackend, get_backend
 from .pruned import as_pruned_config, new_prune_stats
 from .quantized import as_quantized_config, new_quant_stats
 from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
@@ -80,11 +91,11 @@ PolicyFactory = Callable[[int, ResidentStore], Any]
 
 _NULL_CM = contextlib.nullcontext()      # reusable no-op span
 
-_MUTABLE_STATE = ("store", "policy", "payloads", "clock", "metrics")
+_MUTABLE_STATE = ("store", "policy", "payloads", "clock", "metrics",
+                  "tiers")
 
 # policy hook attribute -> backend method wired into it (device-side
-# eviction scoring: RAC consumes Eq. 1 values; the masked variant is the
-# radix policy's, kept so the hook table matches the reference)
+# eviction scoring: RAC consumes Eq. 1 values, RadixRAC the masked variant)
 _VALUE_HOOKS = (("value_backend", "rac_value"),
                 ("masked_value_backend", "rac_value_masked"))
 
@@ -94,7 +105,8 @@ def _make_policy(cfg: CacheConfig, store: ResidentStore):
         from repro_torch.core.rac import RACPolicy
         return RACPolicy(cfg.capacity, store, **cfg.policy_kwargs)
     if cfg.policy == "RadixRAC":
-        raise _not_ported("policy 'RadixRAC'", "9")
+        from repro_torch.core.radix import RadixRACPolicy
+        return RadixRACPolicy(cfg.capacity, store, **cfg.policy_kwargs)
     from repro_torch.core.policies import BASELINES
     return BASELINES[cfg.policy](cfg.capacity, store, **cfg.policy_kwargs)
 
@@ -111,11 +123,6 @@ class SemanticCache:
                  policy_factory: Optional[PolicyFactory] = None,
                  backend: Optional[LookupBackend] = None):
         self.cfg = cfg
-        if cfg.async_admit:
-            raise _not_ported("async_admit", "3")
-        if cfg.tiers is not None and (cfg.tiers.host_capacity > 0
-                                      or cfg.tiers.ghost_capacity > 0):
-            raise _not_ported("tiers", "4")
         if backend is not None:
             if cfg.backend_kwargs:
                 raise ValueError(
@@ -164,6 +171,23 @@ class SemanticCache:
         self._trk = make_tracker(cfg.tracker)
         if self._trk is not None and hasattr(self.backend, "set_tracker"):
             self.backend.set_tracker(self._trk.child("backend"))
+        # tiered hierarchy (host DRAM tier + ghost metadata) behind the
+        # facade; None = single-tier, identical to the untiered path
+        self.tiers = None
+        if cfg.tiers is not None and (cfg.tiers.host_capacity > 0
+                                      or cfg.tiers.ghost_capacity > 0):
+            from .tiers import TierManager
+            self.tiers = TierManager(
+                cfg.tiers, cfg.dim,
+                tracker=None if self._trk is None
+                else self._trk.child("tier"))
+        # event-driven admission: enqueue + background/deterministic drain
+        self.admitter = None
+        if cfg.async_admit:
+            from .async_admit import AsyncAdmitter
+            self.admitter = AsyncAdmitter(
+                self, background=cfg.async_admit != "sync",
+                tracker=self._trk)
 
     def _wire_value_backend(self):
         for attr, method in _VALUE_HOOKS:
@@ -213,34 +237,14 @@ class SemanticCache:
         return cid in self.store
 
     def in_host(self, cid: int) -> bool:
-        """Whether ``cid`` lives in the host DRAM tier: never, single-tier."""
-        return False
+        """Whether ``cid`` currently lives in the host DRAM tier."""
+        return (self.tiers is not None and self.tiers.host is not None
+                and cid in self.tiers.host)
 
     @property
     def tier_stats(self) -> dict:
-        """Per-tier counters (empty: single-tier)."""
-        return {}
-
-    @property
-    def pending_admits(self) -> int:
-        """Queued-but-unapplied admissions (0: admission is synchronous)."""
-        return 0
-
-    @property
-    def admit_stall_s(self) -> float:
-        """Producer-visible admission stall: the full insert+evict cost,
-        admission being synchronous."""
-        return self.metrics.admit_s
-
-    def flush(self) -> list[int]:
-        """Apply all queued admissions: none are ever queued, so this
-        evicts nothing and returns ``[]``."""
-        return []
-
-    drain = flush
-
-    def close(self):
-        """Release the admission worker: there is none (a no-op)."""
+        """Per-tier counters (empty when running single-tier)."""
+        return {} if self.tiers is None else self.tiers.stats.snapshot()
 
     @property
     def tracker(self):
@@ -249,15 +253,25 @@ class SemanticCache:
 
     def metrics_snapshot(self) -> dict:
         """The consolidated observability surface: ONE dict merging the
-        :class:`CacheMetrics` counters, the device backend's mirror-sync
-        stats (``sync``, when the backend keeps device mirrors), the
-        always-present approximate-lookup ledgers (``quant``/``prune``,
-        zeroed when the paths are off) and the launch/transfer ledger
-        (``dispatch``, zeros for host backends)."""
+        :class:`CacheMetrics` counters, the per-tier flow counters
+        (``tiers``, when tiered), the admission-queue state
+        (``pending_admits`` and the producer-visible ``admit_stall_s``,
+        split into ``enqueue_s``/``flush_s`` under async admission), the
+        device backend's mirror-sync stats (``sync``, when the backend
+        keeps device mirrors), the always-present approximate-lookup
+        ledgers (``quant``/``prune``, zeroed when the paths are off) and
+        the launch/transfer ledger (``dispatch``, zeros for host
+        backends)."""
         with self._lock:
             snap = self.metrics.snapshot()
-            snap["pending_admits"] = 0
-            snap["admit_stall_s"] = self.metrics.admit_s
+            snap["pending_admits"] = self.pending_admits
+            snap["admit_stall_s"] = self.admit_stall_s
+            if self.admitter is not None:
+                snap["enqueue_s"] = self.admitter.enqueue_s
+                snap["flush_s"] = self.admitter.flush_s
+            tiers = self.tier_stats
+            if tiers:
+                snap["tiers"] = tiers
             sync = getattr(self.backend, "sync_stats", None)
             if sync:
                 snap["sync"] = dict(sync)
@@ -336,11 +350,16 @@ class SemanticCache:
                     cid=hit_cid, sim=best_sim,
                     payload=self.payloads.get(hit_cid), t=t)
             else:
-                self.metrics.misses += 1
-                self._emit("miss", cid, t, best_sim)
-                result = CacheMiss(
-                    best_cid=best_cid if np.isfinite(best_sim) else -1,
-                    best_sim=best_sim, t=t)
+                # tier fall-through: a device miss may still be served from
+                # the host DRAM tier (and promoted back toward the device)
+                result = (self._tier_lookup(emb, cid, t)
+                          if self.tiers is not None else None)
+                if result is None:
+                    self.metrics.misses += 1
+                    self._emit("miss", cid, t, best_sim)
+                    result = CacheMiss(
+                        best_cid=best_cid if np.isfinite(best_sim)
+                        else -1, best_sim=best_sim, t=t)
             dt = time.perf_counter() - t0
             self.metrics.lookup_s += dt
             trk = self._trk
@@ -351,6 +370,34 @@ class SemanticCache:
                 trk.observe("cache.hit", 1.0 if result.hit else 0.0, t)
                 self._flush_fallbacks()
         return result
+
+    def _tier_lookup(self, emb: np.ndarray, cid: int,
+                     t: int) -> Optional[CacheHit]:
+        """Host-tier fall-through on a device miss (under the lock).
+
+        Serves the payload straight from host DRAM and promotes the served
+        entry (plus any ``promote_k`` co-promotion candidates that also
+        cleared ``tau_hit``) back through the normal admission path — the
+        :class:`~repro_torch.cache.async_admit.AsyncAdmitter` queue when
+        configured, so the request path never blocks on device eviction
+        scoring.  Ghost metadata rides along via ``revive_ghost`` so the
+        policy's arrival path restores the preserved relation evidence."""
+        with (self._trk.span("cache.tier_serve")
+              if self._trk is not None else _NULL_CM):
+            served = self.tiers.serve(np.asarray(emb, dtype=np.float32),
+                                      cid=cid, hit_mode=self.cfg.hit_mode,
+                                      tau_hit=self.cfg.tau_hit, t=t)
+        if not served:
+            return None
+        revive = getattr(self.policy, "revive_ghost", None)
+        for pcid, _psim, pemb, ppayload, pmeta in served:
+            if pmeta is not None and revive is not None:
+                revive(pcid, pmeta, rep=pemb)
+            self.admit(pcid, pemb, payload=ppayload, t=t)
+        hcid, sim, _hemb, payload, _meta = served[0]
+        self.metrics.hits += 1
+        self._emit("hit", hcid, t, sim, payload, tier="host")
+        return CacheHit(cid=hcid, sim=sim, payload=payload, t=t)
 
     def peek_batch(self, embs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Raw snapshot Top-1 over a (B, D) query block — one backend call,
@@ -381,6 +428,12 @@ class SemanticCache:
             alpha = float(getattr(self.policy, "alpha", 0.0))
             dec = self.backend.decide_batch(self.store, table, embs,
                                             alpha=alpha, t_now=t_now)
+            if self.tiers is not None and self.tiers.host is not None:
+                # tier-aware fall-through columns: the host tier's Top-1
+                # per query (scored on the host: the host slab is DRAM-
+                # resident by definition)
+                dec.host_cid, dec.host_sim = \
+                    self.tiers.host.top1_batch(embs)
             self._flush_fallbacks()
             return dec
 
@@ -441,17 +494,36 @@ class SemanticCache:
 
         Already-resident cids only refresh their payload (the historical
         semantic-mode behavior: a miss whose content is resident — a
-        paraphrase below tau_hit — does not reinsert)."""
+        paraphrase below tau_hit — does not reinsert).
+
+        With ``cfg.async_admit`` the admission is queued (logical time is
+        assigned now, so ordering is deterministic) and the returned list
+        is empty — evictions surface through the ``"evict"`` hook and
+        :meth:`flush`."""
         trk = self._trk
         t0 = time.perf_counter() if trk is not None else 0.0
+        if self.admitter is not None:
+            # tick + enqueue under one lock: concurrent producers must not
+            # queue out of timestamp order, or the FIFO drain would apply
+            # decreasing times and diverge from the synchronous path
+            with self._lock:
+                t = self._tick(t)
+                self.admitter.submit(cid, emb, payload, t, req)
+            if trk is not None:
+                trk.observe("cache.admit_stall_s",
+                            time.perf_counter() - t0)
+            return []
         out = self._admit_now(cid, emb, payload, t, req)
         if trk is not None:
+            # producer-visible stall: in synchronous mode the full
+            # insert+evict cost, in async mode just the enqueue above
             trk.observe("cache.admit_stall_s", time.perf_counter() - t0)
         return out
 
     def _admit_now(self, cid: int, emb: np.ndarray, payload: Any,
                    t: Optional[int], req: Optional[Request]) -> list[int]:
-        """The insert-then-evict body."""
+        """The synchronous insert-then-evict body (also the admitter's
+        drain target)."""
         t0 = time.perf_counter()
         evicted: list[int] = []
         with self._lock:
@@ -467,19 +539,34 @@ class SemanticCache:
                 self.metrics.admit_s += time.perf_counter() - t0
                 return evicted
             self.store.insert(cid, emb)
+            if self.tiers is not None:
+                # drop any stale host copy + feed ghost metadata back into
+                # the policy BEFORE on_admit, so the normal arrival path
+                # restores the preserved counters
+                self.tiers.on_admit(cid, self.policy, emb)
             self.policy.on_admit(cid, self._request(cid, emb, t, req), t)
             self.metrics.admissions += 1
             self._emit("admit", cid, t, payload=payload)
             trk = self._trk
             while len(self.store) > self.cfg.capacity:
                 victim = self.policy.victim(t)
+                vemb = (self.store.emb[self.store.slot_of[victim]].copy()
+                        if self.tiers is not None else None)
                 self.store.remove(victim)
                 vp = self.payloads.pop(victim, None)
                 self.metrics.evictions += 1
                 evicted.append(victim)
-                self._emit("evict", victim, t, payload=vp)
+                etier = "device"
+                if self.tiers is not None:
+                    # demote instead of dropping: the host tier keeps the
+                    # payload (and the ghost tier the relation metadata)
+                    meta_fn = getattr(self.policy, "ghost_meta", None)
+                    meta = meta_fn(victim) if meta_fn is not None else None
+                    if self.tiers.demote(victim, vemb, vp, t, meta):
+                        etier = "host"
+                self._emit("evict", victim, t, payload=vp, tier=etier)
                 if trk is not None:
-                    trk.count("cache.evictions", tags={"tier": "device"})
+                    trk.count("cache.evictions", tags={"tier": etier})
             dt = time.perf_counter() - t0
             self.metrics.admit_s += dt
             if trk is not None:
@@ -487,12 +574,47 @@ class SemanticCache:
                 trk.observe("cache.occupancy", float(len(self.store)), t)
         return evicted
 
+    # ------------------------------------------------- async admission
+    @property
+    def pending_admits(self) -> int:
+        """Queued-but-unapplied admissions (0 in synchronous mode)."""
+        return 0 if self.admitter is None else len(self.admitter)
+
+    @property
+    def admit_stall_s(self) -> float:
+        """Producer-visible admission stall: in synchronous mode the full
+        insert+evict cost; in async mode just enqueue + flush waits."""
+        if self.admitter is None:
+            return self.metrics.admit_s
+        return self.admitter.stall_s
+
+    def flush(self) -> list[int]:
+        """Apply all queued admissions (no-op when synchronous); returns
+        the cids evicted by the drain since the last flush."""
+        if self.admitter is None:
+            return []
+        return self.admitter.flush()
+
+    drain = flush
+
+    def close(self):
+        """Stop the background admission worker (flushes first) and
+        revert to inline admission — the cache stays fully usable, later
+        ``admit`` calls just pay the insert+evict cost synchronously."""
+        if self.admitter is not None:
+            self.admitter.close()
+            self.admitter = None
+
     def admit_batch(self, cids: Sequence[int],
                     embs: Sequence[np.ndarray] | np.ndarray,
                     payloads: Optional[Sequence[Any]] = None, *,
                     ts: Optional[Sequence[int]] = None,
                     reqs: Optional[Sequence[Request]] = None) -> list[int]:
-        """Admit a block of entries; returns all evicted cids in order."""
+        """Admit a block of entries; returns all evicted cids in order.
+
+        With ``cfg.async_admit`` the block is queued and the returned list
+        is empty — collect victims from :meth:`flush` or the ``"evict"``
+        hook instead."""
         evicted: list[int] = []
         for i, cid in enumerate(cids):
             evicted += self.admit(
@@ -505,10 +627,12 @@ class SemanticCache:
     # ------------------------------------------------- checkpoint/restore
     def checkpoint(self) -> dict:
         """Deep snapshot of all mutable state (store, policy, payloads,
-        clock, metrics).  Store/policy are copied together so the policy's
-        internal store reference stays shared inside the snapshot (the
-        backends copy as themselves: their device mirrors are keyed by
-        journal versions, never by object identity)."""
+        clock, metrics, tiers).  Queued async admissions are flushed first
+        so the snapshot is a settled state.  Store/policy are copied
+        together so the policy's internal store reference stays shared
+        inside the snapshot (the backends copy as themselves: their device
+        mirrors are keyed by journal versions, never by object identity)."""
+        self.flush()
         with self._lock:
             state = copy.deepcopy({k: getattr(self, k)
                                    for k in _MUTABLE_STATE})
@@ -517,7 +641,10 @@ class SemanticCache:
 
     def restore(self, state: dict):
         """Restore a :meth:`checkpoint` snapshot (the snapshot itself is
-        copied, so one checkpoint can be restored multiple times)."""
+        copied, so one checkpoint can be restored multiple times).  Queued
+        async admissions are applied to the *old* state first, then
+        discarded with it."""
+        self.flush()
         keys = [k for k in _MUTABLE_STATE if k in state]   # tolerate older
         restored = copy.deepcopy({k: state[k] for k in keys})  # snapshots
         with self._lock:

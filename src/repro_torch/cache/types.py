@@ -71,9 +71,14 @@ class CacheConfig:
     or a ready config object, and the two compose.  Decisions are those of
     the exact scan either way.
 
-    ``async_admit`` and ``tiers`` keep the reference's fields so
-    configurations carry over, but the port has not reached them yet:
-    setting either raises ``NotImplementedError`` (see ``ROADMAP.md``).
+    ``async_admit`` decouples admission from the request path: ``False``
+    (default) applies insert + eviction scoring inline; ``True`` queues
+    admissions for a background worker and ``flush()`` settles them at
+    batch boundaries; ``"sync"`` queues without a worker — the queue only
+    drains inside ``flush()``/``drain()``, the deterministic replay-parity
+    mode.  After a flush all three produce identical state.  ``tiers``
+    adds the host-DRAM and ghost tiers behind the device slab
+    (:class:`TierConfig`).
     """
 
     capacity: int
@@ -81,7 +86,8 @@ class CacheConfig:
     tau_hit: float = 0.85
     hit_mode: str = "semantic"           # "semantic" | "content"
     backend: str = "kernel"              # "kernel" | "numpy"
-    policy: str = "RAC"                  # "RAC" or a BASELINES name
+    policy: str = "RAC"                  # "RAC", "RadixRAC" or a BASELINES
+                                         # name
     policy_kwargs: dict = dataclasses.field(default_factory=dict)
     device: str = "cuda"                 # kernel backend: "cuda" | "cpu"
     backend_kwargs: dict = dataclasses.field(default_factory=dict)

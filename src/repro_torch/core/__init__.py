@@ -4,7 +4,8 @@ Public API:
     - Trace generation:  synthetic_trace, oasst_style_trace, SynthConfig,
       OASSTConfig
     - Policies:          RACPolicy (+ make_rac, RAC_VARIANTS), the 16
-      BASELINES (RNG_BASELINES take a seed), Policy, ArrayPolicy
+      BASELINES (RNG_BASELINES take a seed), Policy, ArrayPolicy,
+      RadixRACPolicy (the KV prefix-block policy)
     - Policy state:      PolicyTable (journaled RAC scoring slabs; device
       backends mirror it for the fused decide_batch path), MutationJournal
     - Simulation:        run_policy, run_policy_batched (exact incremental
@@ -23,6 +24,7 @@ from .embeddings import EmbeddingSpace, cosine
 from .policies import BASELINES, RNG_BASELINES, ArrayPolicy, Policy
 from .policy_table import PolicyTable, SlabTable
 from .rac import RAC_VARIANTS, RACPolicy, make_rac
+from .radix import RadixRACPolicy
 from .simulator import (default_factories, hr_full, replay_batched,
                         run_many, run_policy, run_policy_batched, with_seed)
 from .store import MutationJournal, ResidentStore
@@ -35,7 +37,8 @@ __all__ = [
     "EmbeddingSpace", "cosine", "BASELINES", "RNG_BASELINES", "Policy",
     "ArrayPolicy", "ArenaStore", "run_arena", "run_many",
     "default_factories", "PolicyTable", "SlabTable",
-    "RAC_VARIANTS", "RACPolicy", "make_rac", "hr_full", "run_policy",
+    "RAC_VARIANTS", "RACPolicy", "RadixRACPolicy", "make_rac", "hr_full",
+    "run_policy",
     "run_policy_batched", "replay_batched", "with_seed", "MutationJournal",
     "ResidentStore",
     "pagerank_power", "pagerank_reversed", "pagerank_scores", "OASSTConfig",

@@ -18,12 +18,20 @@ Request path (the paper's semantic-cache setting, §2):
      through B3) and drops the evicted response payloads itself — the
      engine only observes via the ``"evict"`` event hook.
 
+Event-driven admission: with ``EngineConfig.async_admit`` the cache runs
+in ``async_admit`` mode — a completed slot only *enqueues* its admission
+(generation never blocks on eviction scoring) and the engine settles the
+queue with one ``flush()`` at batch boundaries, just before the waiting
+queue is rescored.  Request outputs (tokens, hit flags) are identical to
+the synchronous path.  ``host_capacity``/``ghost_capacity`` put the
+host-DRAM and ghost tiers behind the cache: the first peek also scores
+the host tier (``decide_batch``'s ``host_cid`` columns) and a host hit is
+served and promoted like a device hit.
+
 ``EngineConfig.device`` places the model, its KV cache and the
 ``"kernel"`` cache backend (the default): the card by default, ``"cpu"``
 for the host (the kernels' plain versions).  ``cache_backend="numpy"``
-asks for the host oracle instead.  Asynchronous admission and the host/ghost
-tiers are not ported (``ROADMAP.md`` queue A items 3 and 4): setting them
-raises.
+asks for the host oracle instead.
 """
 from __future__ import annotations
 
@@ -50,11 +58,12 @@ class EngineConfig:
     emb_dim: int = 64
     cache_backend: str = "kernel"  # "kernel" (placed by ``device``) |
                                    # "numpy" (the host oracle)
-    async_admit: bool = False     # not ported: True raises
-    host_capacity: int = 0        # host-DRAM tier rows (not ported: > 0
-                                  # raises)
-    ghost_capacity: int = 0       # ghost tier entries (not ported: > 0
-                                  # raises)
+    async_admit: bool = False     # queue admissions, flush at batch bounds
+    host_capacity: int = 0        # host-DRAM tier rows (0 = single-tier);
+                                  # device evictions demote here and host
+                                  # hits promote back via the admit path
+    ghost_capacity: int = 0       # metadata-only ghost tier entries (0 =
+                                  # policy-internal ghosts only)
     tracker: object = None        # telemetry sink: a Tracker instance or
                                   # spec string ("memory", "jsonl:<path>",
                                   # "a+b"), shared with the cache; None
@@ -120,8 +129,8 @@ class ServingEngine:
             self._gen["evicted_responses"] += 1
 
     def close(self):
-        """Release engine-owned resources (a no-op with synchronous
-        admission)."""
+        """Release engine-owned resources (stops the async admission
+        worker after flushing it; a no-op in blocking mode)."""
         self.cache.close()
 
     # legacy attribute surface (tests, examples, notebooks) --------------

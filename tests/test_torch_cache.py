@@ -7,8 +7,10 @@ semantic mode.  Hit/miss/admit/evict event streams must be identical,
 values within 1e-6 relative), ``checkpoint``/``restore`` must round-trip,
 and ``load_reference_state`` must continue a warmed reference cache with
 identical decisions.  Also: torch ``pagerank_power`` against
-``pagerank_power_jax``, and the features the port has not reached yet
-raising ``NotImplementedError`` (the approximate lookups are held against
+``pagerank_power_jax``, the features that used to raise (asynchronous
+admission, tiers, ``"RadixRAC"``) serving like the reference's, and the
+sharded backend, which the port has not reached yet, raising
+``NotImplementedError`` (the approximate lookups are held against
 the reference in ``tests/test_torch_approx.py``).
 """
 import dataclasses
@@ -247,15 +249,43 @@ def test_pagerank_power_matches_jax(rng, n):
                                pagerank_reversed(edges, n), atol=1e-6)
 
 
-# --------------------------------------------------- not ported yet
+# ------------------------------------- formerly unported, now built
 @pytest.mark.parametrize("field,value", [
     ("async_admit", True), ("async_admit", "sync"),
     ("tiers", TierConfig(host_capacity=8)),
     ("policy", "RadixRAC"), ("backend", "sharded")])
 def test_unported_features_raise_and_point_at_the_roadmap(field, value):
+    """Only the sharded backend (queue A item A10) still raises and points
+    at the roadmap.  Asynchronous admission, the tiers and RadixRAC, which
+    raised before, build and serve one admit and one lookup as the
+    reference does."""
     kw = {"hit_mode": "semantic", "backend": "numpy", field: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SemanticCache(CacheConfig(capacity=CAP, dim=DIM, device="cpu", **kw))
+    if field == "backend":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SemanticCache(CacheConfig(capacity=CAP, dim=DIM, device="cpu",
+                                      **kw))
+        return
+    if value == "RadixRAC":
+        kw["hit_mode"] = "content"
+    port = SemanticCache(CacheConfig(capacity=CAP, dim=DIM, device="cpu",
+                                     **kw))
+    if field == "tiers":
+        from repro.cache import TierConfig as RTierConfig
+        kw["tiers"] = RTierConfig(**dataclasses.asdict(value))
+    ref = _ref(**kw)
+    emb = np.eye(DIM, dtype=np.float32)[3]
+    logs = [_record(c) for c in (port, ref)]
+    for cache in (port, ref):
+        if value == "RadixRAC":
+            pol = cache.policy
+            pol.stage(topic=pol.touch_topic(None, 1), parent=-1)
+        cache.admit(7, emb, payload="p", t=1)
+        cache.flush()
+        res = cache.lookup(emb, cid=7, t=2)
+        assert res.hit and res.cid == 7 and res.payload == "p"
+        cache.close()
+    _assert_events(*logs)
+    assert type(port.policy).__name__ == type(ref.policy).__name__
 
 
 def test_unported_backend_options_raise():

@@ -1205,3 +1205,107 @@ def test_engine_on_the_card_matches_the_host(cuda):
             assert decision.launches > b0[1]             # B2
     assert out["kernel"] == out["numpy"]
     assert out["numpy"][1]["hits"] > 0 and out["numpy"][1]["evictions"] > 0
+
+
+def _kv_trace(seed: int, n: int) -> list[list[int]]:
+    """Hot shared prefixes, extensions and one-off conversations."""
+    rng = np.random.default_rng(seed)
+    hot = [list(range(16)), list(range(700, 712))]
+    convs = []
+    for _ in range(n):
+        r = rng.random()
+        if r < 0.25:
+            h = hot[int(rng.integers(0, len(hot)))]
+            convs.append(h + [int(x) for x in rng.integers(
+                500, 600, size=int(rng.integers(0, 12)))])
+        elif r < 0.4:
+            convs.append(hot[0][: 4 * int(rng.integers(1, 5))])
+        else:
+            base = 1000 + 40 * int(rng.integers(0, 60))
+            convs.append(list(range(base, base + int(rng.integers(3, 30)))))
+    return convs
+
+
+@pytest.mark.parametrize("n_blocks", [3, 24, 200])
+def test_kv_manager_on_the_card_matches_its_cpu_run(cuda, n_blocks):
+    """KVBlockManager on the card (B3 through rac_value_masked, one launch
+    an eviction, the mask in the kernel) makes its device="cpu" run's
+    decisions request by request; content lookups never launch B1."""
+    from repro_torch.kernels import rac_value, similarity_topk
+    from repro_torch.serving import KVBlockManager
+    out = {}
+    for device in ("cpu", "cuda"):
+        mgr = KVBlockManager(n_blocks=n_blocks, block_tokens=4,
+                             device=device)
+        b3, b1 = rac_value.launches, similarity_topk.launches
+        out[device] = [
+            (r["hit_tokens"], r["hit_blocks"], r["new_blocks"], r["topic"],
+             r["evicted"])
+            for r in (mgr.on_request(c) for c in _kv_trace(n_blocks, 400))]
+        if device == "cuda":
+            assert rac_value.launches - b3 == mgr.cache.metrics.evictions > 0
+            assert similarity_topk.launches == b1
+            assert set(mgr.blocks) == set(mgr.cache.store.keys())
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("async_admit", [False, "sync", True])
+@pytest.mark.parametrize("hit_mode", ["content", "semantic"])
+def test_tiered_async_cache_on_the_card_matches_numpy(cuda, hit_mode,
+                                                      async_admit):
+    """The tiered facade on the card (B1 lookups, B3 evictions, the host
+    tier scanned on the host) gives NumpyBackend's event stream, flushed
+    at every request, in each admission mode."""
+    from repro_torch.cache import CacheConfig, SemanticCache, TierConfig
+    from repro_torch.core import SynthConfig, synthetic_trace
+    trace = synthetic_trace(SynthConfig(trace_len=400, n_topics=6, dim=64,
+                                        seed=2))
+    out = {}
+    for backend, device in (("numpy", "cpu"), ("kernel", "cuda")):
+        cache = SemanticCache(CacheConfig(
+            capacity=16, dim=64, hit_mode=hit_mode, backend=backend,
+            device=device, async_admit=async_admit,
+            tiers=TierConfig(host_capacity=24, ghost_capacity=64)))
+        log = []
+        for kind in ("hit", "miss", "admit", "evict"):
+            cache.subscribe(kind, lambda ev, _l=log: _l.append(
+                (ev.kind, int(ev.cid), int(ev.t), ev.tier)))
+        for r in trace.requests:
+            if not cache.lookup(r.emb, cid=r.cid, t=r.t).hit:
+                cache.admit(r.cid, r.emb, payload=(r.cid,), t=r.t)
+            cache.flush()
+        cache.close()
+        out[backend] = (log, cache.tier_stats)
+    assert out["kernel"] == out["numpy"]
+    assert out["numpy"][1]["host_hits"] > 0
+
+
+def test_engine_async_on_the_card_matches_its_synchronous_run(cuda):
+    """The engine on the card with async_admit=True and the tiers makes the
+    synchronous run's outputs (tokens, cached flags, counters)."""
+    from repro_torch.core import SynthConfig, synthetic_trace
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = _card_model_cfg()
+    trace = synthetic_trace(SynthConfig(trace_len=60, n_topics=8, seed=4))
+    rng = np.random.default_rng(4)
+    reqs = [(r.cid, r.emb, [int(t) for t in rng.integers(
+        2, cfg.vocab_size, size=3)]) for r in trace.requests]
+    out = {}
+    params = None
+    for async_admit in (False, True):
+        eng = ServingEngine(cfg, EngineConfig(
+            cache_capacity=8, max_new_tokens=3, max_batch=4, max_seq=32,
+            host_capacity=16, ghost_capacity=32, async_admit=async_admit),
+            params=params, generator=torch.Generator("cuda").manual_seed(5))
+        params = params or eng.params
+        done = eng.run(reqs)
+        s = eng.stats
+        eng.close()
+        out[async_admit] = ([(r.rid, r.cached, tuple(r.out_tokens))
+                             for r in done],
+                            {k: s[k] for k in ("hits", "misses", "evictions",
+                                               "generated_tokens",
+                                               "batches")},
+                            eng.cache.tier_stats)
+    assert out[True] == out[False]
+    assert out[False][1]["hits"] > 0 and out[False][2]["demotions"] > 0

@@ -9,7 +9,8 @@ CPU.
 - The port's facade built with ``policy=`` each of the 16 baselines makes
   the reference facade's event stream on one trace.
 - The synchronous, single-tier surface (``flush``/``drain``, ``close``,
-  ``in_host``, ``pending_admits``, ``admit_stall_s``, ``tier_stats``).
+  ``in_host``, ``pending_admits``, ``admit_stall_s``, ``tier_stats``), and
+  asynchronous admission and RadixRAC serving like the reference's.
 """
 import jax
 import numpy as np
@@ -113,11 +114,16 @@ def test_engine_defaults_to_the_kernel_backend_on_the_card(monkeypatch):
 
 
 def test_engine_checks_what_it_cannot_run():
+    """Asynchronous admission and the tiers, which raised before, build
+    (the engine's outputs under them are held to the reference's in
+    ``tests/test_torch_tiers.py``); a prompt that does not fit raises."""
     cfg = smoke_variant(get_config("paper"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, EngineConfig(async_admit=True, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, EngineConfig(host_capacity=8, device="cpu"))
+    eng = ServingEngine(cfg, EngineConfig(async_admit=True, device="cpu"))
+    assert eng.cache.admitter is not None and eng.cache.admitter.background
+    eng.close()
+    assert eng.cache.admitter is None
+    eng = ServingEngine(cfg, EngineConfig(host_capacity=8, device="cpu"))
+    assert eng.cache.tiers.host.capacity == 8
     eng = ServingEngine(cfg, EngineConfig(**ENGINE, device="cpu"),
                         generator=torch.Generator().manual_seed(0))
     emb = np.ones(64, np.float32) / 8.0
@@ -195,7 +201,26 @@ def test_synchronous_single_tier_surface():
 
 
 def test_unported_cache_features_still_raise():
-    for kw in ({"async_admit": True}, {"policy": "RadixRAC"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SemanticCache(CacheConfig(capacity=4, dim=4, backend="numpy",
-                                      **kw))
+    """Only the sharded backend still raises; asynchronous admission and
+    RadixRAC, which raised before, serve one admit and one lookup as the
+    reference's facade does."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SemanticCache(CacheConfig(capacity=4, dim=4, backend="sharded"))
+    emb = np.eye(4, dtype=np.float32)[1]
+    for kw in ({"async_admit": True},
+               {"policy": "RadixRAC", "hit_mode": "content"}):
+        port = SemanticCache(CacheConfig(capacity=4, dim=4, backend="numpy",
+                                         **kw))
+        ref = RSemanticCache(RCacheConfig(capacity=4, dim=4,
+                                          backend="numpy", **kw))
+        logs = [_events(c) for c in (port, ref)]
+        for cache in (port, ref):
+            if "policy" in kw:
+                pol = cache.policy
+                pol.stage(topic=pol.touch_topic(None, 1), parent=-1)
+            cache.admit(2, emb, payload=[2], t=1)
+            cache.flush()
+            res = cache.lookup(emb, cid=2, t=2)
+            assert res.hit and res.payload == [2]
+            cache.close()
+        assert logs[0] == logs[1]
