@@ -203,8 +203,8 @@ DECODE_SHAPES = [((8, 15, 5, 512, 64), True, 50),
                  ((8, 4, 2, 2048, 32), False, 50),
                  ((128, 15, 5, 32768, 64), True, 5)]
 DECODE_EDITS = {
-    "one_stage": [(None, "  static constexpr int NS = 65536 / SB < 1 ? 1 :",
-                   "  static constexpr int NS = 1 ? 1 :")],
+    "one_stage": [(None, "  const int most = 65536 / sb < 1 ? 1 :",
+                   "  const int most = 1 ? 1 :")],
     "keys32": [(None, "  static constexpr int KS = RB <= 128 ? 128 : RB <= 512 "
                       "? 64 : 32;",
                 "  static constexpr int KS = 32;"),

@@ -86,7 +86,15 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                in fp32, and the kernel alone at S = 32,768; B9 at bf16
                (8,15,5,512,64), (8,15,5,2048,64), (8,16,16,2048,256),
                (8,96,8,2048,192) and (128,15,5,32768,64), and fp32
-               (8,4,2,2048,32), with seeded pos including 0 and S_max - 1.
+               (8,4,2,2048,32), with seeded pos including 0 and S_max - 1;
+               then the MoE/MLA and hybrid families' shapes: B8 at
+               deepseek-v2-lite-16b's MLA heads (Q/K 192, V 128), its
+               smoke variant's (48/32) and hymba-1.5b's band of 2,048
+               keys (25/5 heads of 64, also at S = 32,768) and its smoke
+               variant's window of 64 (the yardstick: SDPA over the band
+               as a boolean mask); B9 at MLA's absorbed decode (D = 576,
+               Dv = 512 as a view of the K rows, G = 16; the smoke
+               variant's 80/64) and hymba's ring of 2,048 slots.
  10. model   - the paper's served LM (configs/paper.py: 32 layers, d_model
                960, 15/5 heads of 64, bf16) on the card from a seeded
                generator: prefill and forward of B=2 x 1,000 tokens through
@@ -102,6 +110,27 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                D = 256) against the same model on plain attention, then 64
                teacher-forced decode steps through B9 against forward,
                both within LOGIT_TOL.
+ 10e. deepseek - deepseek-v2-lite-16b at full width and depth (27
+               layers, d_model 2,048, MLA 16 heads of 128 + 64 rope over a
+               512-wide latent, MoE 64 experts of 1,408 top 6 + 2 shared,
+               vocab 102,400, bf16, 16.2 B parameters drawn on the card
+               from seed 0, after gemma's are freed): prefill of B=1 x
+               1,024 tokens (27 B8 launches at 192/128, all on wgmma), 64
+               decode steps (27 B9 launches a step at 576/512, V a view of
+               the latent rows), every layer's B8/B9 output held to its
+               plain version; at fp32 compute, prefill against plain
+               attention (routing flips printed) and decode against
+               forward at the capacity factor E / k (no pair dropped),
+               both within LOGIT_TOL; then ServingEngine over 32 requests
+               of launch/serve.py's trace against the same engine on the
+               plain versions (identical decisions and token counts).
+ 10f. hymba  - hymba-1.5b at full width and depth (32 layers, d_model
+               1,600, 25/5 heads of 64, window 2,048, Mamba heads d_inner
+               3,200 state 16, bf16): prefill of 4,096 tokens through the
+               windowed B8 (every layer held to plain); at fp32 compute,
+               prefill against plain attention and 2,112 teacher-forced
+               decode steps through the ring of 2,048 slots, the last 64
+               positions' logits within LOGIT_TOL of forward's.
  10c. tiers  - RAC at D=768 over the first 5,000 requests, device capacity
                1,024, a host tier of 2,048 rows and ghost lists of 8,192,
                request by request with a flush after each, queued
@@ -123,7 +152,7 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                10,000 evictions, B3 launched for each (one launch, the mask
                in the kernel), B1 never.
                The host replays of 10c and 10d run in four worker
-               processes while phases 10 and 10b use the card.
+               processes while phases 10, 10b, 10e and 10f use the card.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -197,28 +226,51 @@ VALUE_RTOL = 1e-6          # exp2f and the product order match the plain one
 ATT_F32_TOL = 2e-5
 PEAK_BF16 = 989e12         # dense bf16 on the tensor cores
 
-# B8 at the model's prefill shapes, (B, H, Hkv, S, D), dtype, timing reps:
-# the paper LM's heads (the last at prefill_32k's length, where the plain
-# version does not fit), gemma-7b's (16 of 256) and nemotron-4-340b's
-# (96/8 of 192) at S = 4,096, and a smoke variant's (4/2 of 32, fp32)
-FLASH_SHAPES = [((1, 15, 5, 4096, 64), torch.bfloat16, 5),
-                ((2, 15, 5, 1000, 64), torch.bfloat16, 20),
-                ((1, 8, 2, 513, 128), torch.float32, 20),
-                ((1, 16, 16, 4096, 256), torch.bfloat16, 5),
-                ((1, 96, 8, 4096, 192), torch.bfloat16, 3),
-                ((2, 4, 2, 4096, 32), torch.float32, 5),
-                ((1, 15, 5, 32768, 64), torch.bfloat16, 2)]
+# B8 at the model's prefill shapes, (B, H, Hkv, S, D, Dv, window), dtype,
+# timing reps: the paper LM's heads (the last at prefill_32k's length,
+# where the plain version does not fit), gemma-7b's (16 of 256) and
+# nemotron-4-340b's (96/8 of 192) at S = 4,096, a smoke variant's (4/2 of
+# 32, fp32), deepseek-v2-lite-16b's MLA prefill (16 heads, Q/K 192, V 128)
+# and its smoke variant's (48/32), hymba-1.5b's band of 2,048 keys (25/5
+# heads of 64; at S = 32,768 too, where the band skips 15 of 16 key tiles)
+# and its smoke variant's window of 64 at head dim 32
+FLASH_SHAPES = [((1, 15, 5, 4096, 64, 64, 0), torch.bfloat16, 5),
+                ((2, 15, 5, 1000, 64, 64, 0), torch.bfloat16, 20),
+                ((1, 8, 2, 513, 128, 128, 0), torch.float32, 20),
+                ((1, 16, 16, 4096, 256, 256, 0), torch.bfloat16, 5),
+                ((1, 96, 8, 4096, 192, 192, 0), torch.bfloat16, 3),
+                ((2, 4, 2, 4096, 32, 32, 0), torch.float32, 5),
+                ((1, 15, 5, 32768, 64, 64, 0), torch.bfloat16, 2),
+                ((1, 16, 16, 4096, 192, 128, 0), torch.bfloat16, 5),
+                ((1, 16, 16, 1024, 192, 128, 0), torch.float32, 5),
+                ((2, 4, 4, 4096, 48, 32, 0), torch.bfloat16, 5),
+                ((2, 4, 4, 4096, 48, 32, 0), torch.float32, 5),
+                ((1, 25, 5, 4096, 64, 64, 2048), torch.bfloat16, 5),
+                ((1, 25, 5, 4096, 64, 64, 2048), torch.float32, 3),
+                ((1, 25, 5, 32768, 64, 64, 2048), torch.bfloat16, 2),
+                ((2, 4, 2, 4096, 32, 32, 64), torch.bfloat16, 5),
+                ((2, 4, 2, 4096, 32, 32, 64), torch.float32, 5)]
 PLAIN_MAX_S = 8192         # the plain B8 materialises (B, H, S, S) fp32
-# B9, (B, H, Hkv, S_max, D), dtype and timing reps: the engine's 8 slots,
-# a longer cache, gemma-7b's and nemotron-4-340b's heads at 2,048
-# positions, a smoke variant's (fp32), and SHAPES["decode_32k"]'s batch
-# and length (one layer)
-DECODE_SHAPES = [((8, 15, 5, 512, 64), torch.bfloat16, 50),
-                 ((8, 15, 5, 2048, 64), torch.bfloat16, 50),
-                 ((8, 16, 16, 2048, 256), torch.bfloat16, 50),
-                 ((8, 96, 8, 2048, 192), torch.bfloat16, 50),
-                 ((8, 4, 2, 2048, 32), torch.float32, 50),
-                 ((128, 15, 5, 32768, 64), torch.bfloat16, 5)]
+# B9, (B, H, Hkv, S_max, D, Dv), dtype and timing reps: the engine's 8
+# slots, a longer cache, gemma-7b's and nemotron-4-340b's heads at 2,048
+# positions, a smoke variant's (fp32), SHAPES["decode_32k"]'s batch and
+# length (one layer), then MLA's absorbed decode (Dv < D: V is a view of
+# the first Dv columns of the K rows, scale 1/sqrt(hd + rh)):
+# deepseek-v2-lite-16b's 16 heads over 576-wide latent rows and its smoke
+# variant's 4 over 80, and hymba-1.5b's ring of 2,048 slots (25/5 of 64)
+DECODE_SHAPES = [((8, 15, 5, 512, 64, 64), torch.bfloat16, 50),
+                 ((8, 15, 5, 2048, 64, 64), torch.bfloat16, 50),
+                 ((8, 16, 16, 2048, 256, 256), torch.bfloat16, 50),
+                 ((8, 96, 8, 2048, 192, 192), torch.bfloat16, 50),
+                 ((8, 4, 2, 2048, 32, 32), torch.float32, 50),
+                 ((128, 15, 5, 32768, 64, 64), torch.bfloat16, 5),
+                 ((8, 16, 1, 2048, 576, 512), torch.bfloat16, 50),
+                 ((8, 16, 1, 2048, 576, 512), torch.float32, 50),
+                 ((8, 4, 1, 2048, 80, 64), torch.bfloat16, 50),
+                 ((8, 4, 1, 2048, 80, 64), torch.float32, 50),
+                 ((8, 25, 5, 2048, 64, 64), torch.bfloat16, 50)]
+# MLA's score scale 1/sqrt(hd + rope_head_dim) at its latent widths
+MLA_SCALE = {576: (128 + 64) ** -0.5, 80: (32 + 16) ** -0.5}
 # the kv phase: the KV prefix-block pool one H100 holds beside the paper
 # LM (65,536 blocks of 16 tokens = 1,048,576 tokens x 40,960 bytes of
 # bf16 KV a token = 42.9 GB), over the OASST-style trace's first KV_LEN
@@ -249,6 +301,17 @@ SERVE_DIM = 768
 # steps
 GEMMA_ARCH = "gemma-7b"
 GEMMA_S, GEMMA_STEPS = 1_024, 64
+# the MoE/MLA and hybrid families at full width and depth: deepseek's
+# prefill of B=1 x 1,024 tokens, 64 decode steps and the serving engine
+# over 32 requests; hymba's prefill of 4,096 tokens (its band of 2,048
+# active) and teacher-forced decode past position 2,048 + 64 on the ring
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+DEEPSEEK_S, DEEPSEEK_STEPS = 1_024, 64
+DEEPSEEK_SERVE_LEN = 32         # 6 hits and 18 evictions at capacity 8
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_S = 4_096
+HYMBA_DECODE = 2_048 + 64      # teacher-forced steps (positions 0..2,111)
+HYMBA_BF16_STEPS = 64
 # full-width bf16 logits (max |logit| ~3.3): the kernels' and the plain
 # versions' roundings, and decode's and forward's GEMM shapes, differ in
 # the last bf16 bit of some activations, and that spreads over 32 layers;
@@ -1830,6 +1893,13 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+def _band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of a causal pass, banded to ``window`` keys."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
 def phase_attention():
     """B8 and B9 against their plain versions at the model's shapes, then
     timed beside the library yardstick."""
@@ -1838,16 +1908,18 @@ def phase_attention():
     gen = torch.Generator(DEVICE).manual_seed(2)
     rng = np.random.default_rng(2)
     b8 = []
-    for (b, h, hkv, s, d), dtype, reps in FLASH_SHAPES:
+    for (b, h, hkv, s, d, dv, win), dtype, reps in FLASH_SHAPES:
         q = _randn(gen, (b, h, s, d), dtype)
         k = _randn(gen, (b, hkv, s, d), dtype)
-        v = _randn(gen, (b, hkv, s, d), dtype)
-        label = f"B={b} H={h} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}"
-        run = (lambda q=q, k=k, v=v:
-               flash_attention.flash_attention(q, k, v))
+        v = _randn(gen, (b, hkv, s, dv), dtype)
+        label = (f"B={b} H={h} Hkv={hkv} S={s} D={d}"
+                 + (f" Dv={dv}" if dv != d else "")
+                 + (f" window={win}" if win else "") + f" {str(dtype)[6:]}")
+        run = (lambda q=q, k=k, v=v, win=win:
+               flash_attention.flash_attention(q, k, v, win))
         fits = s <= PLAIN_MAX_S
-        plain = (lambda q=q, k=k, v=v: ref.attention_ref(q, k, v)) \
-            if fits else None
+        plain = (lambda q=q, k=k, v=v, win=win:
+                 ref.attention_ref(q, k, v, window=win)) if fits else None
         wgmma = flash_attention.wgmma_launches
         out = run()
         # every bf16 call goes to the wgmma + TMA kernel, fp32 to SIMT
@@ -1858,32 +1930,47 @@ def phase_attention():
                                  f"{kernel} kernel")
         err = attn_err(out, plain(), label) if fits else None
         elt = q.element_size()
-        nb, op = bound((2 * b * h * s * d + 2 * b * hkv * s * d) * elt,
-                       2.0 * b * h * d * s * (s + 1),
+        pairs = _band_pairs(s, win)
+        nb, op = bound((b * h * s * (d + dv) + b * hkv * s * (d + dv)) * elt,
+                       2.0 * b * h * (d + dv) * pairs,
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        # the library yardstick: causal SDPA, or SDPA over the band as a
+        # boolean mask built once, outside the timed graph (past
+        # PLAIN_MAX_S the (S, S) mask is not built)
+        library = None
+        if not win:
+            library = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        elif fits:
+            i = torch.arange(s, device=DEVICE)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - win)
+            library = (lambda q=q, k=k, v=v, band=band:
+                       F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=band, enable_gqa=True))
         b8.append({"shape": label, "kernel": kernel, "max_abs_err": err,
-                   "bound_ms": nb,
-                   "bound_by": op, **timings(
-                       run, plain,
-                       lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True),
-                       reps, 3)})
+                   "bound_ms": nb, "bound_by": op,
+                   **timings(run, plain, library, reps, 3)})
         log(f"flash_attention {label}: " + json.dumps(b8[-1]))
-        del q, k, v, out
+        del q, k, v, out, library
     torch.cuda.empty_cache()
     b9 = []
-    for (b, h, hkv, s, d), dtype, reps in DECODE_SHAPES:
+    for (b, h, hkv, s, d, dv), dtype, reps in DECODE_SHAPES:
         q = _randn(gen, (b, h, d), dtype)
         k = _randn(gen, (b, s, hkv, d), dtype)
-        v = _randn(gen, (b, s, hkv, d), dtype)
+        # Dv < D: MLA's V, the first Dv columns of the K rows (a view)
+        v = k[..., :dv] if dv != d else _randn(gen, (b, s, hkv, d), dtype)
+        scale = MLA_SCALE[d] if dv != d else None
         pos_np = rng.integers(0, s, b).astype(np.int32)
         pos_np[0], pos_np[-1] = 0, s - 1
         pos = torch.from_numpy(pos_np).to(DEVICE)
-        label = f"B={b} H={h} Hkv={hkv} S_max={s} D={d} {str(dtype)[6:]}"
-        run = (lambda q=q, k=k, v=v, pos=pos:
-               decode_attention.decode_attention(q, k, v, pos))
-        plain = (lambda q=q, k=k, v=v, pos=pos:
-                 ref.decode_attention_ref(q, k, v, pos))
+        label = (f"B={b} H={h} Hkv={hkv} S_max={s} D={d}"
+                 + (f" Dv={dv} (V a view of K, scale {scale:.6f})"
+                    if dv != d else "") + f" {str(dtype)[6:]}")
+        run = (lambda q=q, k=k, v=v, pos=pos, scale=scale:
+               decode_attention.decode_attention(q, k, v, pos, scale))
+        plain = (lambda q=q, k=k, v=v, pos=pos, scale=scale:
+                 ref.decode_attention_ref(q, k, v, pos, scale))
         # the library yardstick: one SDPA call over views of the same
         # tensors, the G query heads of a KV head as its G query rows
         # (head h = kv * G + g, as B9 maps them) and keys [0, pos[b]]
@@ -1892,19 +1979,21 @@ def phase_attention():
             v.transpose(1, 2)
         mask = (torch.arange(s, device=DEVICE)
                 <= pos[:, None])[:, None, None, :]
-        library = (lambda qg=qg, kt=kt, vt=vt, mask=mask:
+        library = (lambda qg=qg, kt=kt, vt=vt, mask=mask, scale=scale:
                    F.scaled_dot_product_attention(qg, kt, vt,
-                                                  attn_mask=mask))
+                                                  attn_mask=mask,
+                                                  scale=scale))
         want = plain()
         err = attn_err(run(), want, label)
         # recorded, not held to the kernels' tolerance: the library may
         # round the probabilities to bf16 before the product with V
-        lib_err = float((library().reshape(b, h, d).float()
+        lib_err = float((library().reshape(b, h, dv).float()
                          - want.float()).abs().max())
         keys = int(np.minimum(pos_np.astype(np.int64) + 1, s).sum())
         elt = q.element_size()
-        nb, op = bound(2 * keys * hkv * d * elt + 2 * b * h * d * elt + 4 * b,
-                       4.0 * keys * h * d,
+        row = d if dv != d else 2 * d        # bytes a key reads: K (and V)
+        nb, op = bound(keys * hkv * row * elt + b * h * (d + dv) * elt
+                       + 4 * b, 2.0 * keys * h * (d + dv),
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
         b9.append({"shape": label + f" sum(pos+1)={keys}",
                    "max_abs_err": err, "library_max_abs_err": lib_err,
@@ -2046,30 +2135,45 @@ def gemma_config():
     return cfg
 
 
-def _attention_f64(q, k, v, causal=True):
-    """Causal GQA attention in float64, rounded once to q's dtype: a more
-    exact plain version, to measure the bf16 model's own logit noise."""
+def _attention_f64(q, k, v, causal=True, window=0):
+    """Causal GQA attention (banded to ``window`` keys when positive) in
+    float64, rounded once to q's dtype: a more exact plain version, to
+    measure the bf16 model's own logit noise."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     qf = q.double().reshape(b, hkv, h // hkv, s, d) / d ** 0.5
     sc = torch.einsum("bkgsd,bktd->bkgst", qf, k.double())
-    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    i = torch.arange(s, device=q.device)
+    keep = i[None, :] <= i[:, None]
+    if window > 0:
+        keep &= i[None, :] > i[:, None] - window
     w = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
     return torch.einsum("bkgst,bktd->bkgsd", w, v.double()).reshape(
-        b, h, s, d).to(q.dtype)
+        b, h, s, v.shape[-1]).to(q.dtype)
+
+
+def _clone_args(args) -> tuple:
+    """Copies of a kernel call's tensors; V stays a view of the copied K
+    where it was one of K (MLA's latent rows), as the kernel reads it."""
+    from repro_torch.kernels import decode_attention
+    out = [a.clone() if torch.is_tensor(a) else a for a in args]
+    if args[0].dim() == 3 and decode_attention.v_in_k(args[1], args[2]):
+        out[2] = out[1][..., :args[2].shape[-1]]
+    return tuple(out)
 
 
 @contextlib.contextmanager
 def attention_as(prefill=None, decode=None, record=None):
     """The model's attention through other functions, or through the
-    kernels with each call's inputs recorded in ``record``."""
+    kernels with each call's inputs recorded in ``record`` as (function,
+    args, keyword args)."""
     from repro_torch.kernels import ops
     saved = ops.flash_attention, ops.decode_attention
 
     def rec(fn):
-        def call(*args):
-            record.append((fn, tuple(a.clone() for a in args)))
-            return fn(*args)
+        def call(*args, **kw):
+            record.append((fn, _clone_args(args), dict(kw)))
+            return fn(*args, **kw)
         return call
     ops.flash_attention = prefill or (rec(saved[0]) if record is not None
                                       else saved[0])
@@ -2112,7 +2216,7 @@ def phase_gemma() -> dict:
 
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      ref)
-    from repro_torch.models import Model, make_prefill_step
+    from repro_torch.models import Model
     t_phase = time.perf_counter()
     cfg = gemma_config()
     model = Model(cfg, DEVICE)
@@ -2132,21 +2236,8 @@ def phase_gemma() -> dict:
     tokens = torch.from_numpy(rng.integers(
         2, cfg.vocab_size, (1, GEMMA_S))).to(DEVICE)
     batch = {"tokens": tokens}
-    prefill = make_prefill_step(model)
-    prefill(params, batch)                    # warm-up (cuBLAS handles)
-    torch.cuda.synchronize()
-    flash_attention.launches = flash_attention.wgmma_launches = 0
-    t0 = time.perf_counter()
-    last = prefill(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches = flash_attention.launches
-    if launches != cfg.n_layers or (
-            cfg.compute_dtype == "bfloat16"
-            and flash_attention.wgmma_launches != cfg.n_layers):
-        raise AssertionError(f"gemma prefill: B8 launched {launches} times, "
-                             f"{flash_attention.wgmma_launches} on wgmma, "
-                             f"not {cfg.n_layers}")
+    prefill_s, n_b8, last = _prefill(model, params, batch, "gemma")
+    launches = {"b8": n_b8}
     calls: list = []
     with attention_as(record=calls):
         full = model.forward(params, batch)
@@ -2159,12 +2250,7 @@ def phase_gemma() -> dict:
         raise AssertionError("gemma: prefill differs from forward's last row")
     if not bool(torch.isfinite(full).all()):
         raise AssertionError("gemma forward: non-finite logits")
-    layer_err = max(attn_err(fn(*args), ref.attention_ref(*args),
-                             f"gemma B8 layer {i}")
-                    for i, (fn, args) in enumerate(calls))
-
-    def gap(a, b):
-        return float((a.float() - b.float()).abs().max())
+    layer_err = _check_layers(calls, ref.attention_ref, "gemma B8")
     d_plain, floor = gap(full, want), gap(want, want64)
     log(f"gemma prefill: B=1 S={GEMMA_S} {GEMMA_S / prefill_s:.0f} "
         f"tokens/s ({prefill_s * 1e3:.1f} ms), max |logit| "
@@ -2175,7 +2261,7 @@ def phase_gemma() -> dict:
         f"own floor), max |B8 - float64 attention| "
         f"{gap(full, want64):.5f}")
     del want, want64
-    step_profile(lambda: prefill(params, batch), "gemma prefill",
+    step_profile(lambda: model.prefill(params, batch), "gemma prefill",
                  "flash_kernel")
 
     decode_attention.launches = 0
@@ -2193,13 +2279,12 @@ def phase_gemma() -> dict:
         errs[p] = (logits.float() - full[:, p].float()).abs().max()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    if decode_attention.launches != cfg.n_layers * GEMMA_STEPS:
+    launches["b9"] = decode_attention.launches
+    if launches["b9"] != cfg.n_layers * GEMMA_STEPS:
         raise AssertionError(f"gemma decode: B9 launched "
-                             f"{decode_attention.launches} times")
+                             f"{launches['b9']} times")
     d_dec = float(errs.max())
-    dec_err = max(attn_err(fn(*args), ref.decode_attention_ref(*args),
-                           f"gemma B9 layer {i}")
-                  for i, (fn, args) in enumerate(calls))
+    dec_err = _check_layers(calls, ref.decode_attention_ref, "gemma B9")
     with attention_as(decode=ref.decode_attention_ref):
         dec_floor = float(_teacher_forced(model, params, tokens,
                                           GEMMA_STEPS, full).max())
@@ -2239,9 +2324,428 @@ def phase_gemma() -> dict:
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     log(f"gemma: phase {wall:.1f}s")
-    return {"b8": launches, "prefill_ms": prefill_s * 1e3,
+    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
             "d_plain_bf16": d_plain, "floor_bf16": floor,
             "d_plain_fp32": d32, "d_decode_fp32": dec32, "seconds": wall}
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_n_params(v) for v in tree)
+    return tree.numel()
+
+
+def family_config(arch: str):
+    """``arch`` at full width and depth (its smoke variant in CPU
+    rehearsals)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke_variant
+    cfg = get_config(arch)
+    return smoke_variant(cfg) if SMOKE_MODEL else cfg
+
+
+@contextlib.contextmanager
+def moe_recorder(out: list):
+    """Each MoE layer's (experts (T,K), kept pairs) appended to ``out`` as
+    the model runs."""
+    from repro_torch.models import layers
+    saved = layers.moe_slots
+
+    def rec(topi, e, cap):
+        slots = saved(topi, e, cap)
+        out.append((topi, slots[2]))
+        return slots
+    layers.moe_slots = rec
+    try:
+        yield
+    finally:
+        layers.moe_slots = saved
+
+
+def _drops(routes: list) -> int:
+    return int(sum(int((~keep).sum()) for _, keep in routes))
+
+
+def _check_layers(calls: list, plain, label: str) -> float:
+    """Every recorded kernel call's output against its plain version on
+    the same inputs, within the kernels' tolerance; the largest |err|."""
+    return max(attn_err(fn(*args, **kw), plain(*args, **kw),
+                        f"{label} layer {i}")
+               for i, (fn, args, kw) in enumerate(calls))
+
+
+def _prefill(model, params, batch, label: str):
+    """A warm-up prefill, then one timed: (seconds, B8 launches counted in
+    the timed run, its last-token logits).  B8 must launch once a layer,
+    every bf16 launch on the wgmma kernel."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import make_prefill_step
+    prefill = make_prefill_step(model)
+    prefill(params, batch)                    # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n, wg, n_layers = (flash_attention.launches,
+                       flash_attention.wgmma_launches, model.cfg.n_layers)
+    if n != n_layers or (model.cfg.compute_dtype == "bfloat16"
+                         and wg != n_layers):
+        raise AssertionError(f"{label} prefill: B8 launched {n} times, {wg}"
+                             f" on wgmma, not {n_layers}")
+    return sec, n, last
+
+
+def gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _serve_family(cfg, params, n: int) -> dict:
+    """``n`` requests of launch/serve.py's trace through ServingEngine on
+    the card (the kernel backend, B8/B9 and B1-B3), then through the same
+    engine on the plain versions (plain attention, the host oracle's
+    cache): the hit/miss/admit/evict events, cached flags and token
+    counts must be equal."""
+    from repro_torch.core import SynthConfig, synthetic_trace
+    from repro_torch.kernels import decode_attention, ref
+    from repro_torch.serving import EngineConfig, ServingEngine
+    trace = synthetic_trace(SynthConfig(trace_len=n, n_topics=24, seed=0))
+    rng = np.random.default_rng(0)
+    reqs = [(r.cid, r.emb, list(rng.integers(2, cfg.vocab_size,
+                                             size=int(rng.integers(4, 12)))))
+            for r in trace.requests]
+    out = {}
+    for kind in ("kernel", "plain"):
+        engine = ServingEngine(cfg, EngineConfig(
+            cache_capacity=8, max_new_tokens=8, device=DEVICE,
+            cache_backend="kernel" if kind == "kernel" else "numpy"),
+            params=params)
+        events = record(engine.cache)
+        decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "kernel":
+            done = engine.run(reqs)
+        else:
+            with attention_as(prefill=ref.attention_ref,
+                              decode=ref.decode_attention_ref):
+                done = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[kind] = {**_serve_outcome(engine, events, done), "wall": wall,
+                     "b9": decode_attention.launches,
+                     "tokens": [tuple(r.out_tokens) for r in done]}
+        engine.close()
+    got, want = out["kernel"], out["plain"]
+    for key in ("stats", "requests", "events"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{cfg.name} serve: {key} differ from the "
+                                 f"plain engine's: "
+                                 f"{first_diff(got[key], want[key])}")
+    st = got["stats"]
+    if st["hits"] == 0 or st["evictions"] == 0:
+        raise AssertionError(f"{cfg.name} serve: no hits or no evictions")
+    if got["b9"] != st["batches"] * cfg.n_layers:
+        raise AssertionError(f"{cfg.name} serve: B9 launched {got['b9']} "
+                             f"times over {st['batches']} steps")
+    same = sum(a == b for a, b in zip(got["tokens"], want["tokens"]))
+    log(f"{cfg.name} serve: {n} requests, {st['batches']} decode steps of "
+        f"8 slots in {got['wall']:.2f}s ({got['wall'] / st['batches'] * 1e3:.2f}"
+        f" ms/step; plain engine {want['wall'] / st['batches'] * 1e3:.2f} "
+        f"ms/step), hits {st['hits']} misses {st['misses']} evictions "
+        f"{st['evictions']}: {len(got['events'])} events, cached flags and "
+        f"token counts equal to the plain engine's; {same}/{len(reqs)} "
+        "requests with equal tokens (bf16 greedy tokens may part)")
+    return {"ms_step": got["wall"] / st["batches"] * 1e3, "stats": st}
+
+
+def phase_deepseek() -> dict:
+    """deepseek-v2-lite-16b (27 layers, d_model 2,048, MLA: 16 heads of 128
+    + 64 rope columns over a 512-wide latent; MoE: 64 experts of 1,408, top
+    6, 2 shared; vocab 102,400; bf16) from seeded random weights on the
+    card.  Prefill of B=1 x DEEPSEEK_S tokens through B8 at Q/K 192, V 128
+    (every launch on the wgmma kernel), DEEPSEEK_STEPS teacher-forced
+    decode steps through B9 at 576/512 (G = 16, V a view of the latent
+    rows); every layer's B8 and B9 output held to its plain version on
+    that layer's own inputs.  In bf16 a near-tie in the router flips the
+    Top-6 whatever computes the attention, so the logit gates hold the
+    same weights at fp32 compute: prefill against plain attention within
+    LOGIT_TOL (the routing flips between the two printed), and decode
+    against forward at the capacity factor E / k, where no (token, k)
+    pair can be dropped (cap = T), within LOGIT_TOL.  Then the serving
+    engine over DEEPSEEK_SERVE_LEN requests of launch/serve.py's trace
+    makes the plain engine's decisions."""
+    import dataclasses
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    cfg = family_config(DEEPSEEK_ARCH)
+    model = Model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"deepseek: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"MLA {cfg.n_heads} heads of {cfg.hd}+{cfg.rope_head_dim} over "
+        f"r={cfg.kv_lora_rank}, MoE {cfg.n_experts}x{cfg.expert_d_ff} top "
+        f"{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}, {_n_params(params)} "
+        f"parameters, init {time.perf_counter() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated()} bytes")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (1, DEEPSEEK_S))).to(DEVICE)
+    batch = {"tokens": tokens}
+    prefill_s, n_b8, _ = _prefill(model, params, batch, "deepseek")
+    launches = {"b8": n_b8}
+    calls: list = []
+    routes: list = []
+    with attention_as(record=calls), moe_recorder(routes):
+        full = model.forward(params, batch)
+    with attention_as(prefill=ref.attention_ref):
+        want = model.forward(params, batch)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("deepseek forward: non-finite logits")
+    b8_err = _check_layers(calls, ref.attention_ref, "deepseek B8")
+    if any(args[0].shape[-1] != cfg.hd + cfg.rope_head_dim
+           or args[2].shape[-1] != cfg.hd for _, args, _ in calls):
+        raise AssertionError("deepseek B8: not at MLA's head dims")
+    d_plain = gap(full, want)
+    log(f"deepseek prefill: B=1 S={DEEPSEEK_S} {DEEPSEEK_S / prefill_s:.0f} "
+        f"tokens/s ({prefill_s * 1e3:.1f} ms), {len(calls)} B8 outputs at "
+        f"Q/K {cfg.hd + cfg.rope_head_dim}, V {cfg.hd} within one bf16 ulp "
+        f"of plain (max |err| {b8_err:.3g}); MoE drops at capacity factor "
+        f"{cfg.capacity_factor}: {_drops(routes)} of "
+        f"{sum(k.numel() for _, k in routes)} (token, k) pairs; bf16 "
+        f"logits: max |logit| {float(want.float().abs().max()):.3f}, max "
+        f"|B8 - plain| {d_plain:.5f}")
+    del want
+    step_profile(lambda: model.prefill(params, batch), "deepseek prefill",
+                 "flash_kernel")
+
+    # bf16 decode through B9 at 576/512
+    calls.clear()
+    cache = model.init_cache(1, DEEPSEEK_STEPS)
+    decode_attention.launches = 0
+    errs = torch.zeros(DEEPSEEK_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(DEEPSEEK_STEPS):        # the last step's calls recorded
+        with attention_as(record=calls if p == DEEPSEEK_STEPS - 1
+                          else None):
+            logits, cache = model.decode_step(params, cache, {
+                "tokens": tokens[:, p:p + 1],
+                "pos": torch.full((1,), p, dtype=torch.int32,
+                                  device=DEVICE)})
+        errs[p] = (logits.float() - full[:, p].float()).abs().max()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches["b9"] = decode_attention.launches
+    if launches["b9"] != cfg.n_layers * DEEPSEEK_STEPS:
+        raise AssertionError(f"deepseek decode: B9 launched "
+                             f"{launches['b9']} times")
+    from repro_torch.kernels.decode_attention import v_in_k
+    if any(args[0].shape[-1] != cfg.kv_lora_rank + cfg.rope_head_dim
+           or not v_in_k(args[1], args[2]) for _, args, _ in calls):
+        raise AssertionError("deepseek B9: not the absorbed 576/512 path "
+                             "with V a view of the latent rows")
+    b9_err = _check_layers(calls, ref.decode_attention_ref, "deepseek B9")
+    log(f"deepseek decode: {DEEPSEEK_STEPS} teacher-forced steps of B=1 in "
+        f"{decode_s:.2f}s ({decode_s / DEEPSEEK_STEPS * 1e3:.2f} ms/step); "
+        f"{len(calls)} B9 outputs of the last step (D "
+        f"{cfg.kv_lora_rank + cfg.rope_head_dim}, Dv {cfg.kv_lora_rank}, G "
+        f"{cfg.n_heads}) within one bf16 ulp of plain (max |err| "
+        f"{b9_err:.3g}); bf16 max |decode - forward| {float(errs.max()):.5f}"
+        " (decode drops other pairs than forward)")
+    step_profile(lambda: model.decode_step(params, cache, {
+        "tokens": tokens[:, :1], "pos": torch.full(
+            (1,), DEEPSEEK_STEPS - 1, dtype=torch.int32, device=DEVICE)}),
+        "deepseek decode step", "decode_ring_kernel")
+    del cache, full
+
+    # the logit gates at fp32 compute
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = Model(cfg32, DEVICE)
+    r_kernel: list = []
+    r_plain: list = []
+    flash_attention.launches = 0
+    with moe_recorder(r_kernel):
+        full32 = model32.forward(params, batch)
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError("deepseek fp32: B8 did not launch once a layer")
+    with attention_as(prefill=ref.attention_ref), moe_recorder(r_plain):
+        want32 = model32.forward(params, batch)
+    flips = int(sum(int((a != b).any(-1).sum())
+                    for (a, _), (b, _) in zip(r_kernel, r_plain)))
+    d32 = gap(full32, want32)
+    del full32, want32
+    nodrop = dataclasses.replace(
+        cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    model_nd = Model(nodrop, DEVICE)
+    r_fwd: list = []
+    r_dec: list = []
+    with moe_recorder(r_fwd):
+        full_nd = model_nd.forward(params, batch)
+    with moe_recorder(r_dec):
+        dec32 = float(_teacher_forced(model_nd, params, tokens,
+                                      DEEPSEEK_STEPS, full_nd).max())
+    log(f"deepseek fp32 compute: max |B8 - plain| {d32:.6f} ({flips} of "
+        f"{DEEPSEEK_S * cfg.n_layers} token-layer routings differ between "
+        f"the two); at capacity factor {nodrop.capacity_factor:.4f} (drops: "
+        f"forward {_drops(r_fwd)}, decode {_drops(r_dec)}) max |decode - "
+        f"forward| over {DEEPSEEK_STEPS} steps {dec32:.6f} (tolerance "
+        f"{LOGIT_TOL})")
+    if not (d32 <= LOGIT_TOL and dec32 <= LOGIT_TOL):
+        raise AssertionError(f"deepseek fp32: logits {d32} / decode {dec32}"
+                             " beyond the tolerance")
+    del full_nd
+    serve = _serve_family(cfg, params, DEEPSEEK_SERVE_LEN)
+    del params
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"deepseek: phase {wall:.1f}s")
+    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_s": DEEPSEEK_S / prefill_s,
+            "decode_ms": decode_s / DEEPSEEK_STEPS * 1e3,
+            "serve_ms_step": serve["ms_step"], "d_plain_bf16": d_plain,
+            "d_plain_fp32": d32, "d_decode_fp32": dec32, "flips": flips,
+            "seconds": wall}
+
+
+def phase_hymba() -> dict:
+    """hymba-1.5b (32 layers, d_model 1,600, 25/5 heads of 64 over a
+    sliding window of 2,048 beside Mamba heads of d_inner 3,200 and state
+    16, SwiGLU 5,504, vocab 32,001; bf16) from seeded random weights on
+    the card.  Prefill of B=1 x HYMBA_S tokens through the windowed B8
+    (every launch on the wgmma kernel; the band of 2,048 active), every
+    layer's output held to its plain version on its own inputs; then, at
+    fp32 compute (B8 and B9 in fp32), prefill against plain attention
+    within LOGIT_TOL and HYMBA_DECODE teacher-forced decode steps through
+    the ring of 2,048 slots (B9 over slots [0, min(pos, 2,047)]; the ring
+    wraps at 2,048), the last 64 positions' logits within LOGIT_TOL of
+    forward's.  HYMBA_BF16_STEPS bf16 decode steps time the deployment
+    dtype's step."""
+    import dataclasses
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    cfg = family_config(HYMBA_ARCH)
+    model = Model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"hymba: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} window "
+        f"{cfg.sliding_window}, Mamba d_inner {cfg.ssm_expand * cfg.d_model}"
+        f" state {cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"{cfg.param_dtype}, {_n_params(params)} parameters, init "
+        f"{time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (1, HYMBA_S))).to(DEVICE)
+    batch = {"tokens": tokens}
+    prefill_s, n_b8, _ = _prefill(model, params, batch, "hymba")
+    launches = {"b8": n_b8}
+    calls: list = []
+    with attention_as(record=calls):
+        full = model.forward(params, batch)
+    with attention_as(prefill=ref.attention_ref):
+        want = model.forward(params, batch)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("hymba forward: non-finite logits")
+    if any(kw.get("window") != cfg.sliding_window for _, _, kw in calls):
+        raise AssertionError("hymba B8: not windowed")
+    b8_err = _check_layers(calls, ref.attention_ref, "hymba B8")
+    d_plain = gap(full, want)
+    log(f"hymba prefill: B=1 S={HYMBA_S} {HYMBA_S / prefill_s:.0f} tokens/s"
+        f" ({prefill_s * 1e3:.1f} ms), {len(calls)} windowed B8 outputs "
+        f"within one bf16 ulp of plain (max |err| {b8_err:.3g}); bf16 "
+        f"logits: max |logit| {float(want.float().abs().max()):.3f}, max "
+        f"|B8 - plain| {d_plain:.5f}")
+    del full, want, calls
+    step_profile(lambda: model.prefill(params, batch), "hymba prefill",
+                 "flash_kernel")
+
+    # bf16 decode steps: the deployment dtype's ms per step
+    cache = model.init_cache(1, HYMBA_DECODE)
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(HYMBA_BF16_STEPS):
+        model.decode_step(params, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((1,), p, dtype=torch.int32, device=DEVICE)})
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches["b9"] = decode_attention.launches
+    if launches["b9"] != cfg.n_layers * HYMBA_BF16_STEPS:
+        raise AssertionError(f"hymba bf16 decode: B9 launched "
+                             f"{launches['b9']} times")
+    step_profile(lambda: model.decode_step(params, cache, {
+        "tokens": tokens[:, :1], "pos": torch.full(
+            (1,), HYMBA_BF16_STEPS - 1, dtype=torch.int32, device=DEVICE)}),
+        "hymba decode step", "decode_ring_kernel")
+    del cache
+
+    # the gates at fp32 compute
+    model32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                    DEVICE)
+    flash_attention.launches = 0
+    full32 = model32.forward(params, batch)
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError("hymba fp32: B8 did not launch once a layer")
+    with attention_as(prefill=ref.attention_ref):
+        d32 = gap(full32, model32.forward(params, batch))
+    cache = model32.init_cache(1, HYMBA_DECODE)
+    ring = cache["kv"]["k"].shape[2]
+    errs = torch.zeros(HYMBA_DECODE, device=DEVICE)
+    calls = []
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(HYMBA_DECODE):           # the last step's calls recorded
+        with attention_as(record=calls if p == HYMBA_DECODE - 1 else None):
+            logits, cache = model32.decode_step(params, cache, {
+                "tokens": tokens[:, p:p + 1],
+                "pos": torch.full((1,), p, dtype=torch.int32,
+                                  device=DEVICE)})
+        errs[p] = (logits - full32[:, p]).abs().max()
+    torch.cuda.synchronize()
+    decode32_s = time.perf_counter() - t0
+    launches["b9_fp32"] = decode_attention.launches
+    if launches["b9_fp32"] != cfg.n_layers * HYMBA_DECODE:
+        raise AssertionError(f"hymba fp32 decode: B9 launched "
+                             f"{launches['b9_fp32']} times")
+    b9_err = _check_layers(calls, ref.decode_attention_ref, "hymba B9")
+    last = float(errs[-64:].max())
+    log(f"hymba fp32 compute: max |B8 - plain| {d32:.6f}; "
+        f"{HYMBA_DECODE} teacher-forced steps through a ring of {ring} "
+        f"slots in {decode32_s:.2f}s ({decode32_s / HYMBA_DECODE * 1e3:.2f}"
+        f" ms/step), {len(calls)} B9 outputs of the last step within "
+        f"{ATT_F32_TOL} of plain (max |err| {b9_err:.3g}); max |decode - "
+        f"forward| over the last 64 positions {last:.6f}, over all "
+        f"{float(errs.max()):.6f} (tolerance {LOGIT_TOL}); bf16 decode "
+        f"{decode_s / HYMBA_BF16_STEPS * 1e3:.2f} ms/step over "
+        f"{HYMBA_BF16_STEPS} steps ({launches['b9']} B9 launches)")
+    if not (d32 <= LOGIT_TOL and last <= LOGIT_TOL):
+        raise AssertionError(f"hymba fp32: logits {d32} / decode {last} "
+                             "beyond the tolerance")
+    del params, cache, full32
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"hymba: phase {wall:.1f}s")
+    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_s": HYMBA_S / prefill_s,
+            "decode_ms": decode_s / HYMBA_BF16_STEPS * 1e3,
+            "decode32_ms": decode32_s / HYMBA_DECODE * 1e3,
+            "d_plain_bf16": d_plain, "d_plain_fp32": d32,
+            "d_decode_fp32": last, "seconds": wall}
 
 
 def step_profile(step, label: str = "decode step",
@@ -2458,8 +2962,12 @@ def main():
             pool, trace)
         fa_launches = phase_model()
         log(f"model: {time.perf_counter() - t_start:.1f}s")
-        phase_gemma()
+        gemma = phase_gemma()
         log(f"gemma: {time.perf_counter() - t_start:.1f}s")
+        deepseek = phase_deepseek()
+        log(f"deepseek: {time.perf_counter() - t_start:.1f}s")
+        hymba = phase_hymba()
+        log(f"hymba: {time.perf_counter() - t_start:.1f}s")
         tiers_launches = phase_tiers(trace, tiers_hosts)
         log(f"tiers: {time.perf_counter() - t_start:.1f}s")
         kv_launches, kv_row = phase_kv(trace, kv_hosts)
@@ -2539,12 +3047,20 @@ def main():
         row("flash_attention", "flash_attention.cu", "flash_attention.py:56",
             fa_launches, b8,
             "torch.nn.functional.scaled_dot_product_attention(is_causal="
-            "True, enable_gqa=True)"),
+            "True, enable_gqa=True); with a window, attn_mask = the band "
+            "(built outside the timing)",
+            gemma_launches=gemma["launches"]["b8"],
+            deepseek_launches=deepseek["launches"]["b8"],
+            hymba_launches=hymba["launches"]["b8"]),
         row("decode_attention", "decode_attention.cu",
             "decode_attention.py:53", serve["decode_attention"], b9,
             "torch.nn.functional.scaled_dot_product_attention(q.view(B, "
             "Hkv, G, D), k.transpose(1, 2), v.transpose(1, 2), attn_mask="
-            "arange(S_max) <= pos) (mask built outside the timing)")]
+            "arange(S_max) <= pos, scale) (mask built outside the timing)",
+            gemma_launches=gemma["launches"]["b9"],
+            deepseek_launches=deepseek["launches"]["b9"],
+            hymba_launches=hymba["launches"]["b9"],
+            hymba_fp32_launches=hymba["launches"]["b9_fp32"])]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -1,7 +1,14 @@
 // One-token GQA decode attention over a KV cache:
-//   out[b, h] = softmax_j(q[b, h] . k[b, j, h/G] / sqrt(D)) . v[b, j, h/G]
+//   out[b, h] = softmax_j(scale * q[b, h] . k[b, j, h/G]) . v[b, j, h/G]
 // over the keys j in [0, pos[b]] (clamped to the cache), fp32 arithmetic,
-// the output in the input dtype (bf16 or fp32).
+// the output in the input dtype (bf16 or fp32); scale is the caller's
+// (1/sqrt(D) for GQA).  V has its own head dim DV <= D and may be the
+// first DV columns of the K rows themselves (v_in_k): MLA's absorbed
+// decode scores a 576-wide row [c_kv | k_rope] per key with one kv head
+// for all 16 query heads (G = 16), V the row's 512-wide c_kv, and the
+// scale 1/sqrt(hd + rope) = 1/sqrt(192) (repro/models/layers.py::mla_apply,
+// XLA in the reference).  Then the kernel loads only the K tile and reads
+// V from it, so each cache row is read once and never copied.
 //
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas
 // (_decode_kernel), which walks one (batch, kv head) cell's cache in BK
@@ -14,7 +21,11 @@
 // tensor cores are not needed.  At the serving engine's 8 slots the bytes
 // are kilobytes to a few megabytes, so launch latency and the card's fill
 // bound it; at SHAPES["decode_32k"] (B = 128, S = 32,768) about 2.8 GB for
-// the seeded positions, 0.83 ms at 3.35 TB/s.
+// the seeded positions, 0.83 ms at 3.35 TB/s.  MLA's 576-wide rows with V
+// inside them are bytes-bound on paper too (1,152 bytes a key in bf16),
+// but at G = 16 a key costs 16 x 1,088 FMAs on the SIMT units: this kernel
+// runs them at 1.3% of the byte bound (PERF.md), a first version left for
+// a later redesign.
 //
 // Design:
 //  - Grid (B * Hkv, n_split): a block takes one kv head's query group and
@@ -29,8 +40,10 @@
 //    block writes the output itself.
 //  - Copies: a producer warp's one thread streams stages of KS keys (128
 //    for rows up to 128 bytes, 64 up to 512, else 32) of K and V with
-//    cp.async.bulk.tensor (TMA: a 4-D map over (B, S, Hkv, D), one box of
-//    KS rows x D for each) through a ring of up to 64 KB: two stages at
+//    cp.async.bulk.tensor (TMA: a 5-D map over (B, S, Hkv, NBOX, D /
+//    NBOX), one box of KS rows x D for each; a box is at most 256 elements
+//    wide, so MLA's 576-wide rows are 3 boxes of 192 that land row after
+//    row) through a ring of up to 64 KB: two stages at
 //    D = 64 bf16, one from 64-KB stages up (D >= 192 in bf16), where the
 //    other blocks on the SM overlap a block's copies with their compute
 //    (more blocks an SM measured faster than a deeper ring:
@@ -61,9 +74,10 @@
 //    as the TPU kernel's zero-trip loop does.  expf (no fast math), q
 //    pre-scaled by 1/sqrt(D) in fp32; sums run in another order than the
 //    plain version's (within a bf16 ulp in bf16, 2e-5 in fp32).
-//  - Any D of the configs: 32, 64, 128, 192, 256, and G up to 16 (four
-//    warps of four heads; the configs' largest is 12); the wrapper raises
-//    beyond.
+//  - Any (D, DV) of the configs: (32..256, the same), MLA's (576, 512)
+//    and its smoke variant's (80, 64), and G up to 16 (four warps of four
+//    heads; deepseek's is 16); the wrapper raises beyond.  At 576/512 a
+//    lane holds 16 output dims of each of its 4 heads.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,13 +122,14 @@ __host__ __device__ constexpr int pow2_part(int n) {
                                                                            : 1;
 }
 
-// The compile-time shape of a (dtype, head dim) kernel.
-template <typename T, int D>
+// The compile-time shape of a (dtype, K head dim D, V head dim DV) kernel.
+template <typename T, int D, int DV>
 struct Shape {
   static constexpr int ES = sizeof(T);
   static constexpr int EPS = 16 / ES;         // elements of a 16-byte slice
   static constexpr int NSL = D * ES / 16;     // slices of a key row
   static constexpr int RB = D * ES;           // bytes of a key row
+  static constexpr int RBV = DV * ES;         // bytes of a value row
   // lanes of a key's dot: a lane a key for rows up to 128 bytes (8 slices
   // a lane, 32 keys a warp step, no reduction), else up to 8 lanes (a warp
   // takes 4 keys at once, a 3-deep reduction)
@@ -124,14 +139,29 @@ struct Shape {
   static constexpr int KPS = 32 / L;          // keys of a warp step
   // keys of a stage: 128 for rows up to 128 bytes, 64 up to 512, else 32
   static constexpr int KS = RB <= 128 ? 128 : RB <= 512 ? 64 : 32;
-  static constexpr int SB = 2 * KS * RB;      // bytes of a stage (K and V)
-  // stages of the ring: 64 KB of it (2 at D = 64 bf16, 1 from 64-KB
-  // stages up); more blocks an SM measured faster than a deeper ring
-  static constexpr int NS = 65536 / SB < 1 ? 1 : 65536 / SB > 4 ? 4
-                                                 : 65536 / SB;
+  static constexpr int SBK = KS * RB;         // bytes of a stage's K tile
+  static constexpr int SBV = KS * RBV;        // and of its V tile
   static constexpr int HMAX = 4;              // heads a warp may hold
-  static constexpr int DPL = D / 32;          // output dims of a lane
+  static constexpr int DPL = DV / 32;         // output dims of a lane
+  // a TMA box is at most 256 elements a dimension: a K row wider than that
+  // (MLA's 576) is NBOX boxes of BOXW columns, one more map dimension
+  static constexpr int NBOX = D <= 256 ? 1 : D % 3 == 0 && D / 3 <= 256 ? 3
+                                                                        : 4;
+  static constexpr int BOXW = D / NBOX;
+  static constexpr int NBOXV = DV <= 256 ? 1 : 2;
+  static_assert(D % NBOX == 0 && BOXW <= 256 && BOXW * ES % 16 == 0,
+                "K rows in whole 16-byte boxes");
+  static_assert(DV % NBOXV == 0 && DV / NBOXV <= 256 && DV % 32 == 0,
+                "V rows in whole boxes and lanes");
 };
+
+// bytes of a ring stage: the K tile, and the V tile unless V is read from
+// the K rows (a column-prefix view of them)
+template <typename T, int D, int DV>
+__host__ __device__ inline int stage_bytes(int v_in_k) {
+  using S = Shape<T, D, DV>;
+  return S::SBK + (v_in_k ? 0 : S::SBV);
+}
 
 // Head groups of the four warps for G heads: the fewest (1, 2 or 4) whose
 // share of heads fits a warp (hmax), 0 when none does.
@@ -139,22 +169,37 @@ __host__ __device__ inline int head_groups(int g, int hmax) {
   return g <= hmax ? 1 : g <= 2 * hmax ? 2 : g <= 4 * hmax ? 4 : 0;
 }
 
-// bytes of dynamic shared memory for ns ring stages: 128 of slack to align
-// the ring, the ring, the mbarriers, the pre-scaled queries, each warp's
-// scores (its heads x its keys of a stage); the end-of-block merge reuses
-// the ring
-template <typename T, int D>
-__host__ __device__ inline int smem_bytes(int g, int ns) {
-  using S = Shape<T, D>;
-  const int wg = head_groups(g, S::HMAX), hw = (g + wg - 1) / wg;
-  const int kw = S::KS * wg / 4;
-  return 128 + ns * S::SB + 16 * ns + 4 * g * D + 4 * 4 * hw * kw;
+// bytes of the ring area for ns stages: the stages, and at least the
+// end-of-block merge's [4][heads a warp][DV + 2] floats, which reuse it
+template <typename T, int D, int DV>
+__host__ __device__ inline int ring_bytes(int g, int ns, int v_in_k) {
+  const int wg = head_groups(g, Shape<T, D, DV>::HMAX);
+  const int hw = (g + wg - 1) / wg;
+  const int ring = ns * stage_bytes<T, D, DV>(v_in_k);
+  const int merge = (4 * hw * (DV + 2) * 4 + 127) / 128 * 128;
+  return ring > merge ? ring : merge;
 }
 
-// the ring stages of a launch: what a split needs, at most Shape::NS
-template <typename T, int D>
-__host__ __device__ inline int ring_stages(int stages) {
-  return stages < 1 ? 1 : stages > Shape<T, D>::NS ? Shape<T, D>::NS : stages;
+// bytes of dynamic shared memory for ns ring stages: 128 of slack to align
+// the ring, the ring area, the mbarriers, the pre-scaled queries, each
+// warp's scores (its heads x its keys of a stage)
+template <typename T, int D, int DV>
+__host__ __device__ inline int smem_bytes(int g, int ns, int v_in_k) {
+  using S = Shape<T, D, DV>;
+  const int wg = head_groups(g, S::HMAX), hw = (g + wg - 1) / wg;
+  const int kw = S::KS * wg / 4;
+  return 128 + ring_bytes<T, D, DV>(g, ns, v_in_k) + 16 * ns + 4 * g * D +
+         4 * 4 * hw * kw;
+}
+
+// the ring stages of a launch: what a split needs, at most 64 KB of them
+// (2 at D = 64 bf16, 1 from 64-KB stages up; more blocks an SM measured
+// faster than a deeper ring) and at most 4
+template <typename T, int D, int DV>
+__host__ __device__ inline int ring_stages(int stages, int v_in_k) {
+  const int sb = stage_bytes<T, D, DV>(v_in_k);
+  const int most = 65536 / sb < 1 ? 1 : 65536 / sb > 4 ? 4 : 65536 / sb;
+  return stages < 1 ? 1 : stages > most ? most : stages;
 }
 
 // N values of a row at p (aligned to the largest word that divides N
@@ -179,26 +224,30 @@ __device__ __forceinline__ void load_row(const T* p, float (&out)[N]) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     decode_ring_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const T* __restrict__ q, const int* __restrict__ pos,
                        int s_max, int hkv, int g, int n_split, int ns,
-                       float scale, T* __restrict__ out,
+                       int v_in_k, float scale, T* __restrict__ out,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_ml) {
-  using S = Shape<T, D>;
+  using S = Shape<T, D, DV>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
   uint8_t* ring = base;  // ns stages
+  const int sb = stage_bytes<T, D, DV>(v_in_k);
+  const int rb = ring_bytes<T, D, DV>(g, ns, v_in_k);
   const uint32_t bars =
-      static_cast<uint32_t>(__cvta_generic_to_shared(ring + ns * S::SB));
-  float* qs = reinterpret_cast<float*>(ring + ns * S::SB + 16 * ns);
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring + rb));
+  float* qs = reinterpret_cast<float*>(ring + rb + 16 * ns);
   const int wg = head_groups(g, S::HMAX), hw_n = (g + wg - 1) / wg;
   const int wk = 4 / wg, kw_n = S::KS / wk;  // key groups, keys a warp
   float* sc_all = qs + g * D;
+  // V rows: the K rows' first DV columns, or a tile of their own
+  const int vrow = v_in_k ? D : DV;
 
   const int bk = blockIdx.x, split = blockIdx.y;
   const int b = bk / hkv, kh = bk % hkv, h = hkv * g;
@@ -241,11 +290,12 @@ __global__ void __launch_bounds__(kThreads)
         const int st = s % ns;
         if (s >= ns) mbar_wait(bars + 8 * (ns + st), (s / ns - 1) & 1);
         const uint32_t dst =
-            static_cast<uint32_t>(__cvta_generic_to_shared(ring + st * S::SB));
-        mbar_expect_tx(bars + 8 * st, S::SB);
-        tma_load(dst, &kmap, bars + 8 * st, 0, kh, lo + s * S::KS, b);
-        tma_load(dst + S::SB / 2, &vmap, bars + 8 * st, 0, kh, lo + s * S::KS,
-                 b);
+            static_cast<uint32_t>(__cvta_generic_to_shared(ring + st * sb));
+        mbar_expect_tx(bars + 8 * st, sb);
+        tma_load_5d(dst, &kmap, bars + 8 * st, 0, 0, kh, lo + s * S::KS, b);
+        if (!v_in_k)
+          tma_load_5d(dst + S::SBK, &vmap, bars + 8 * st, 0, 0, kh,
+                      lo + s * S::KS, b);
       }
     return;
   }
@@ -271,8 +321,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 0; s < n_st; ++s) {
     const int st = s % ns;
     mbar_wait(bars + 8 * st, (s / ns) & 1);
-    const T* ks = reinterpret_cast<const T*>(ring + st * S::SB);
-    const T* vs = ks + S::KS * D;
+    const T* ks = reinterpret_cast<const T*>(ring + st * sb);
+    const T* vs = v_in_k ? ks : ks + S::KS * D;
     const int k0 = kgrp * kw_n;  // this warp's first key in the stage
     const int nk = max(0, min(kw_n, hi - (lo + s * S::KS + k0)));
     // scores: lanes grp * L .. + L take key k0 + j, each its slices
@@ -358,11 +408,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < S::DPL; ++e) acc[i * S::DPL + e] *= alpha;
     }
     __syncwarp();
-    // P.V: this lane's D / 32 dims of every head it holds
+    // P.V: this lane's DV / 32 dims of every head it holds
 #pragma unroll 4
     for (int j = 0; j < nk; ++j) {
       float vf[S::DPL];
-      load_row<T, S::DPL>(vs + (size_t)(k0 + j) * D + lane * S::DPL, vf);
+      load_row<T, S::DPL>(vs + (size_t)(k0 + j) * vrow + lane * S::DPL, vf);
 #pragma unroll
       for (int i = 0; i < S::HMAX; ++i) {
         if (i >= hn) continue;
@@ -379,22 +429,22 @@ __global__ void __launch_bounds__(kThreads)
   // the block's warps hold (m, l, acc) over their keys: merge them once
   // through the ring, when every warp is done with it
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-  float* comb = reinterpret_cast<float*>(ring);      // [4][hw_n][D]
-  float* comb_ml = comb + 4 * hw_n * D;              // [4][hw_n][2]
+  float* comb = reinterpret_cast<float*>(ring);      // [4][hw_n][DV]
+  float* comb_ml = comb + 4 * hw_n * DV;             // [4][hw_n][2]
 #pragma unroll
   for (int i = 0; i < S::HMAX; ++i) {
     if (i >= hw_n) continue;
 #pragma unroll
     for (int e = 0; e < S::DPL; ++e)
-      comb[(warp * hw_n + i) * D + lane * S::DPL + e] = acc[i * S::DPL + e];
+      comb[(warp * hw_n + i) * DV + lane * S::DPL + e] = acc[i * S::DPL + e];
     if (lane == 0) {
       comb_ml[(warp * hw_n + i) * 2] = m[i];
       comb_ml[(warp * hw_n + i) * 2 + 1] = l[i];
     }
   }
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-  for (int f = tid; f < g * D; f += kConsumers) {
-    const int hh = f / D, d = f % D;
+  for (int f = tid; f < g * DV; f += kConsumers) {
+    const int hh = f / DV, d = f % DV;
     const int hg = hh / hw_n, i = hh % hw_n;
     float mm = kNeg;
     for (int kg = 0; kg < wk; ++kg)
@@ -403,16 +453,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int kg = 0; kg < wk; ++kg) {
       const int w = kg * wg + hg;
       const float a = expf(comb_ml[(w * hw_n + i) * 2] - mm);
-      num = fmaf(comb[(w * hw_n + i) * D + d], a, num);
+      num = fmaf(comb[(w * hw_n + i) * DV + d], a, num);
       den = fmaf(comb_ml[(w * hw_n + i) * 2 + 1], a, den);
     }
     if (n_split == 1) {
-      store(out + ((size_t)b * h + (size_t)kh * g + hh) * D + d,
+      store(out + ((size_t)b * h + (size_t)kh * g + hh) * DV + d,
             num / fmaxf(den, 1e-30f));
     } else {
       const size_t row =
           ((size_t)b * h + (size_t)kh * g + hh) * n_split + split;
-      part_acc[row * D + d] = num;
+      part_acc[row * DV + d] = num;
       if (d == 0) {
         part_ml[row * 2] = mm;
         part_ml[row * 2 + 1] = den;
@@ -443,136 +493,146 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
   store(out + row * d_head + d, num / fmaxf(den, 1e-30f));
 }
 
-// the (B, S, Hkv, D) cache as a 4-D map (D, Hkv, S, B), read in boxes of
-// KS keys of one kv head; keys past S read as zeros
-template <typename T, int D>
+// a (B, S, Hkv, width) cache as a 5-D map (width / nbox, nbox, Hkv, S, B)
+// over rows row_elems apart, read in boxes of KS keys of one kv head,
+// each row nbox boxes of width / nbox columns (a box is at most 256
+// elements wide); keys past S read as zeros
+template <typename T>
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  int b, int s_max, int hkv) {
-  using S = Shape<T, D>;
-  const cuuint64_t es = sizeof(T);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)hkv,
+                  int b, int s_max, int hkv, int width, int nbox,
+                  int row_elems, int ks) {
+  const cuuint64_t es = sizeof(T), bw = width / nbox;
+  const cuuint64_t dims[5] = {bw, (cuuint64_t)nbox, (cuuint64_t)hkv,
                               (cuuint64_t)s_max, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {D * es, (cuuint64_t)hkv * D * es,
-                                 (cuuint64_t)s_max * hkv * D * es};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)S::KS, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const cuuint64_t row = (cuuint64_t)row_elems * es;
+  const cuuint64_t strides[4] = {bw * es, row, (cuuint64_t)hkv * row,
+                                 (cuuint64_t)s_max * hkv * row};
+  const cuuint32_t box[5] = {(cuuint32_t)bw, (cuuint32_t)nbox, 1,
+                             (cuuint32_t)ks, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map,
                 sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                4, const_cast<void*>(ptr), dims, strides, box, unit,
+                5, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, const int* pos,
            void* out, float* part_acc, float* part_ml, int b, int s_max,
-           int hkv, int g, int n_split, int stages, float scale,
+           int hkv, int g, int v_in_k, int n_split, int stages, float scale,
            cudaStream_t stream) {
-  if (head_groups(g, Shape<T, D>::HMAX) == 0) return (int)cudaErrorInvalidValue;
+  using S = Shape<T, D, DV>;
+  if (head_groups(g, S::HMAX) == 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap km, vm;
-  CUresult r = make_map<T, D>(encode, &km, k, b, s_max, hkv);
-  if (r == CUDA_SUCCESS) r = make_map<T, D>(encode, &vm, v, b, s_max, hkv);
+  CUresult r = make_map<T>(encode, &km, k, b, s_max, hkv, D, S::NBOX, D,
+                           S::KS);
+  // V a view of K: no map of its own (the kernel reads the K tile)
+  if (r == CUDA_SUCCESS)
+    r = make_map<T>(encode, &vm, v_in_k ? k : v, b, s_max, hkv,
+                    v_in_k ? D : DV, v_in_k ? S::NBOX : S::NBOXV,
+                    v_in_k ? D : DV, S::KS);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
-  const int ns = ring_stages<T, D>(stages);
-  const int smem = smem_bytes<T, D>(g, ns);
+  const int ns = ring_stages<T, D, DV>(stages, v_in_k);
+  const int smem = smem_bytes<T, D, DV>(g, ns, v_in_k);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_ring_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      decode_ring_kernel<T, D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_ring_kernel<T, D><<<dim3(b * hkv, n_split), kThreads, smem, stream>>>(
-      km, vm, (const T*)q, pos, s_max, hkv, g, n_split, ns, scale, (T*)out,
-      part_acc, part_ml);
+  decode_ring_kernel<T, D, DV>
+      <<<dim3(b * hkv, n_split), kThreads, smem, stream>>>(
+          km, vm, (const T*)q, pos, s_max, hkv, g, n_split, ns, v_in_k,
+          scale, (T*)out, part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  decode_merge_kernel<T><<<b * hkv * g, D, 0, stream>>>(part_acc, part_ml,
-                                                         n_split, D, (T*)out);
+  decode_merge_kernel<T><<<b * hkv * g, DV, 0, stream>>>(
+      part_acc, part_ml, n_split, DV, (T*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int resident(int g, int stages, int* blocks) {
-  const int smem = smem_bytes<T, D>(g, ring_stages<T, D>(stages));
+template <typename T, int D, int DV>
+int resident(int g, int v_in_k, int stages, int* blocks) {
+  const int smem =
+      smem_bytes<T, D, DV>(g, ring_stages<T, D, DV>(stages, v_in_k), v_in_k);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_ring_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      decode_ring_kernel<T, D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, decode_ring_kernel<T, D>, kThreads, smem);
+        blocks, decode_ring_kernel<T, D, DV>, kThreads, smem);
   return (int)err;
 }
 
 }  // namespace
 
+// every (D, DV) the kernel is built for
+#define DECODE_SHAPES(X) \
+  X(32, 32) X(64, 64) X(128, 128) X(192, 192) X(256, 256) X(576, 512) X(80, 64)
+
 extern "C" {
 
-// The blocks of a launch at (g, d, dtype, stages a split) the card holds
-// at once (blocks an SM, shared memory bounds it, times the SMs), in
-// *slots; -1 there when the kernel does not take this G at this D.
-int decode_attention_slots(int g, int d, int is_bf16, int stages, int device,
-                           int* slots) {
+// The blocks of a launch at (g, d, dv, V in K, dtype, stages a split) the
+// card holds at once (blocks an SM, shared memory bounds it, times the
+// SMs), in *slots; -1 there when the kernel does not take this G at these
+// head dims.
+int decode_attention_slots(int g, int d, int dv, int v_in_k, int is_bf16,
+                           int stages, int device, int* slots) {
   cudaError_t err = cudaSetDevice(device);
   int sms = 0, per_sm = 0;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   int r = (int)cudaErrorInvalidValue;
-#define SLOTS_CASE(D)                                                    \
-  case D:                                                                \
-    if (head_groups(g, Shape<float, D>::HMAX) == 0) {                    \
-      *slots = -1;                                                       \
-      return 0;                                                          \
-    }                                                                    \
-    r = is_bf16 ? resident<__nv_bfloat16, D>(g, stages, &per_sm)         \
-                : resident<float, D>(g, stages, &per_sm);                \
-    break;
-  switch (d) {
-    SLOTS_CASE(32)
-    SLOTS_CASE(64)
-    SLOTS_CASE(128)
-    SLOTS_CASE(192)
-    SLOTS_CASE(256)
+#define SLOTS_CASE(D, DV)                                                   \
+  if (d == D && dv == DV) {                                                 \
+    if (head_groups(g, Shape<float, D, DV>::HMAX) == 0) {                   \
+      *slots = -1;                                                          \
+      return 0;                                                             \
+    }                                                                       \
+    r = is_bf16 ? resident<__nv_bfloat16, D, DV>(g, v_in_k, stages,         \
+                                                 &per_sm)                   \
+                : resident<float, D, DV>(g, v_in_k, stages, &per_sm);       \
   }
+  DECODE_SHAPES(SLOTS_CASE)
 #undef SLOTS_CASE
   *slots = sms * per_sm;
   return r;
 }
 
-// q (B, Hkv*G, D), k/v (B, S, Hkv, D), out (B, Hkv*G, D), all contiguous,
-// k and v 16-byte aligned; pos (B,) int32 on the card.  is_bf16: T = bf16,
-// else fp32; D in {32, 64, 128, 192, 256}, G up to decode_attention_slots'
-// reach.  stages: the ring stages a split needs (the ring takes at most
-// Shape::NS).  part_acc (B*H*n_split*D) and part_ml (B*H*n_split*2) fp32
-// scratch when n_split > 1.
+// q (B, Hkv*G, D), k (B, S, Hkv, D), out (B, Hkv*G, DV), all contiguous;
+// v (B, S, Hkv, DV) contiguous, or (v_in_k) the first DV columns of k's
+// rows, which the kernel then reads from the K tiles; k and v 16-byte
+// aligned; pos (B,) int32 on the card.  is_bf16: T = bf16, else fp32;
+// (D, DV) one of DECODE_SHAPES, G up to decode_attention_slots' reach;
+// scale multiplies the scores.  stages: the ring stages a split needs
+// (the ring takes at most 64 KB of them).  part_acc (B*H*n_split*DV) and
+// part_ml (B*H*n_split*2) fp32 scratch when n_split > 1.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* pos, void* out, float* part_acc,
                             float* part_ml, int b, int s_max, int hkv, int g,
-                            int d, int n_split, int stages, int is_bf16,
-                            float scale, int device, cudaStream_t stream) {
+                            int d, int dv, int v_in_k, int n_split,
+                            int stages, int is_bf16, float scale, int device,
+                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || hkv <= 0 || g <= 0 || n_split <= 0 || s_max <= 0 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
-#define DECODE_CASE(D)                                                      \
-  case D:                                                                   \
-    return is_bf16 ? launch<__nv_bfloat16, D>(q, k, v, pos, out, part_acc,  \
+#define DECODE_CASE(D, DV)                                                  \
+  if (d == D && dv == DV)                                                   \
+    return is_bf16                                                          \
+               ? launch<__nv_bfloat16, D, DV>(q, k, v, pos, out, part_acc,  \
                                               part_ml, b, s_max, hkv, g,    \
-                                              n_split, stages, scale,       \
-                                              stream)                       \
-                   : launch<float, D>(q, k, v, pos, out, part_acc, part_ml, \
-                                      b, s_max, hkv, g, n_split, stages,    \
-                                      scale, stream);
-  switch (d) {
-    DECODE_CASE(32)
-    DECODE_CASE(64)
-    DECODE_CASE(128)
-    DECODE_CASE(192)
-    DECODE_CASE(256)
-  }
+                                              v_in_k, n_split, stages,      \
+                                              scale, stream)                \
+               : launch<float, D, DV>(q, k, v, pos, out, part_acc, part_ml, \
+                                      b, s_max, hkv, g, v_in_k, n_split,    \
+                                      stages, scale, stream);
+  DECODE_SHAPES(DECODE_CASE)
 #undef DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }

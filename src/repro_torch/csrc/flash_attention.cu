@@ -1,12 +1,19 @@
 // Causal GQA prefill attention with an online softmax:
 //   o[b, h, i] = softmax_{j <= i}(q[b, h, i] . k[b, h/G, j] / sqrt(D))
 //                . v[b, h/G, j]
-// fp32 arithmetic, the output in the input dtype (bf16 or fp32).
+// fp32 arithmetic, the output in the input dtype (bf16 or fp32).  V may
+// have its own head dim DV (MLA's decompressed heads: D = 192 with DV =
+// 128, its smoke variant's 48 with 32), and a window W > 0 bands each row
+// to keys j > i - W (hymba's sliding window of 2,048): the key tiles
+// below a query block's band are never loaded, only the band's edge tiles
+// are masked, so a banded pass costs O(S W) and not O(S^2).
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention_pallas
 // (_flash_kernel): grid (batch, heads, query blocks), the query tile
 // resident while K/V stream in chunks, the causal bound stopping the chunk
-// loop at the diagonal, kv head h // G with no K/V repeat.
+// loop at the diagonal, kv head h // G with no K/V repeat.  The reference
+// runs MLA's and the window's attention through XLA (sdpa in
+// repro/models/layers.py); here they stay on this kernel.
 //
 // One C entry, two kernels: bf16 inputs take the Hopper kernel (wgmma fed
 // by a TMA ring, namespace hopper), fp32 inputs the SIMT kernel (namespace
@@ -41,10 +48,10 @@
 // row sums take the fp32 p.
 //
 // Design:
-//  - Grid (H * D / DV, B, ceil(S / 128)): block z takes query tile
+//  - Grid (H * DVT / DV, B, ceil(S / 128)): block z takes query tile
 //    n - 1 - z, so the longest causal rows of every head start first;
-//    block x takes head x / (D / DV) and DV of its D output columns (DV =
-//    D up to D = 128; 128 at D = 256 and 64 at D = 192, whose whole O
+//    block x takes head x / (DVT / DV) and DV of V's DVT output columns
+//    (DV = DVT up to 128; 128 at DVT = 256 and 64 at 192, whose whole O
 //    accumulators do not fit beside the scores and the P pieces, so each
 //    column block repeats the Q.K^T and the softmax).  288 threads: two
 //    consumer warpgroups of 64 query rows each and one producer warp.
@@ -108,40 +115,50 @@ constexpr int kConsumers = 256;            // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kEncodeError = 1000;         // + the CUresult of the encode
 
-// D = 32 rows are 64 bytes (64-byte swizzle); wider rows are read as
-// 64-column boxes of 128 bytes (128-byte swizzle).  A block owns DV of
-// the D output columns: the O accumulators of D = 192 or 256 do not fit a
-// thread's registers beside the scores and the P pieces, so those head
-// dims take D / DV column blocks, each with the whole Q.K^T and softmax.
-template <int D>
+// Q and K rows whose head dim is a multiple of 64 are read as 64-column
+// boxes of 128 bytes (128-byte swizzle); D = 32 and MLA's smoke D = 48 as
+// 32-column boxes of 64 bytes (64-byte swizzle), D = 48's second box half
+// past the row (TMA fills it with zeros, which the D / 16 steps of Q.K^T
+// never read).  V has its own head dim DVT (MLA: 128 beside D = 192, 32
+// beside 48) and its own swizzle.  A block owns DV of the DVT output
+// columns: the O accumulators of DVT = 192 or 256 do not fit a thread's
+// registers beside the scores and the P pieces, so those take DVT / DV
+// column blocks, each with the whole Q.K^T and softmax.
+template <int D, int DVT>
 struct Cfg {
-  static constexpr int SPAN = D == 32 ? 64 : 128;  // bytes of a swizzled row
+  static constexpr int SPAN = D % 64 == 0 ? 128 : 64;  // bytes, swizzled row
   static constexpr int BOXC = SPAN / 2;            // columns of a box
-  static constexpr int BOXES = D / BOXC;           // boxes of a Q or K row
-  static constexpr int DV = D == 256 ? 128 : D == 192 ? 64 : D;
-  static constexpr int NCOL = D / DV;              // column blocks
-  static constexpr int VBOXES = DV / BOXC;         // boxes of a V row
-  static constexpr int ATOM = 8 * SPAN;            // 8 swizzled rows
+  static constexpr int BOXES = (D + BOXC - 1) / BOXC;  // boxes of a Q/K row
+  static constexpr int DP = BOXES * BOXC;          // Q/K columns in smem
   static constexpr uint64_t LAYOUT = SPAN == 128 ? 1 : 2;  // descriptor mode
+  static constexpr int ATOM = 8 * SPAN;            // 8 swizzled rows
+  static constexpr int DV = DVT == 256 ? 128 : DVT == 192 ? 64 : DVT;
+  static constexpr int NCOL = DVT / DV;            // column blocks
+  static constexpr int VSPAN = DV % 64 == 0 ? 128 : 64;
+  static constexpr int VBOXC = VSPAN / 2;
+  static constexpr int VBOXES = DV / VBOXC;        // boxes of a V row
+  static constexpr uint64_t VLAYOUT = VSPAN == 128 ? 1 : 2;
+  static constexpr int VATOM = 8 * VSPAN;
   static constexpr int NS = D <= 64 ? 6 : D == 256 ? 3 : 4;  // ring stages
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int K_BYTES = BK * DP * 2;
   static constexpr int V_BYTES = BK * DV * 2;
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + NS * STAGE_BYTES;
   // 1,024 of slack to align the tiles, the tiles, 2 NS + 1 mbarriers
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * NS + 1);
   static_assert(SMEM <= 232448, "over the 227 KB a block can use");
+  static_assert(D % 16 == 0 && DV % VBOXC == 0, "whole k16 steps and boxes");
 };
 
 // wgmma shared-memory descriptor for a swizzled operand: start address,
 // leading and stride byte offsets (each >> 4), layout (1: 128-byte
 // swizzle, 2: 64-byte)
-template <int D>
+template <uint64_t LAYOUT>
 __device__ __forceinline__ uint64_t swz(uint32_t addr, uint32_t lbo,
                                        uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | Cfg<D>::LAYOUT << 62;
+         (uint64_t)(sbo >> 4) << 32 | LAYOUT << 62;
 }
 
 // d (64 x 64, fp32) (+)= a (64 x 16, smem) . b (64 x 16, smem)^T, both
@@ -268,35 +285,33 @@ __device__ __forceinline__ void turn_pass(int wg) {
 
 // S = Q.K^T of one key tile: both operands K-major in shared memory, D/16
 // steps of 32 bytes along a swizzled row, box after box
-template <int D>
+template <class C, int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[BK / 2], uint32_t qa,
                                              uint32_t ks) {
-  using C = Cfg<D>;
   constexpr int PER = C::SPAN / 32;  // k16 steps in a box
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss(sc,
-             swz<D>(qa + (kk / PER) * BQ * C::SPAN + (kk % PER) * 32, 16,
-                    C::ATOM),
-             swz<D>(ks + (kk / PER) * BK * C::SPAN + (kk % PER) * 32, 16,
-                    C::ATOM),
+             swz<C::LAYOUT>(qa + (kk / PER) * BQ * C::SPAN + (kk % PER) * 32,
+                            16, C::ATOM),
+             swz<C::LAYOUT>(ks + (kk / PER) * BK * C::SPAN + (kk % PER) * 32,
+                            16, C::ATOM),
              kk > 0);
 }
 
 // O += P.V of one key tile over the block's DV columns, P in three bf16
 // pieces: 16 keys per step, V N-major (8-key groups one swizzle atom
 // apart, each further box of columns BK rows on)
-template <int D>
-__device__ __forceinline__ void issue_values(float (&acc)[Cfg<D>::DV / 2],
+template <class C>
+__device__ __forceinline__ void issue_values(float (&acc)[C::DV / 2],
                                              const uint32_t (&ph)[BK / 4],
                                              const uint32_t (&pm)[BK / 4],
                                              const uint32_t (&pl)[BK / 4],
                                              uint32_t vs) {
-  using C = Cfg<D>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t vd =
-        swz<D>(vs + kk * 16 * C::SPAN, BK * C::SPAN, C::ATOM);
+    const uint64_t vd = swz<C::VLAYOUT>(vs + kk * 16 * C::VSPAN,
+                                        BK * C::VSPAN, C::VATOM);
     wgmma_rs(acc, ph + 4 * kk, vd);
     wgmma_rs(acc, pm + 4 * kk, vd);
     wgmma_rs(acc, pl + 4 * kk, vd);
@@ -314,19 +329,27 @@ __device__ __forceinline__ float ex2(float x) {
 
 // the online softmax of one tile on the raw scores sc (in place: the
 // weights), rows r0 and r1 = r0 + 8; masks where the tile crosses the
-// warpgroup's first row or S; returns each row's alpha
+// warpgroup's first row, S or (window > 0) the lower edge of a row's band
+// (keys j > row - window); returns each row's alpha.  A row whose band
+// starts past this tile has seen only masked keys (its max is still
+// -1e30): it takes 0 as its max's term, so its weights and alpha are
+// exp2(-1e30 c) = 0, and it adds nothing until its band begins.
 __device__ __forceinline__ void softmax(float (&sc)[BK / 2], int k0, int qw0,
-                                        int r0, int s, int quad, float c,
-                                        float& m0, float& m1, float& l0,
-                                        float& l1, float& al0, float& al1) {
+                                        int r0, int s, int window, int quad,
+                                        float c, float& m0, float& m1,
+                                        float& l0, float& l1, float& al0,
+                                        float& al1) {
   const int r1 = r0 + 8;
-  const bool edge = k0 + BK - 1 > qw0 || k0 + BK > s;
+  const bool edge = k0 + BK - 1 > qw0 || k0 + BK > s ||
+                    (window > 0 && k0 <= qw0 + 63 - window);
   float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
     const int row = (i & 2) ? r1 : r0;
     const int col = k0 + (i / 4) * 8 + 2 * quad + (i & 1);
-    if (edge && (col > row || col >= s)) sc[i] = kNeg;
+    if (edge && (col > row || col >= s ||
+                 (window > 0 && col <= row - window)))
+      sc[i] = kNeg;
     if (i & 2)
       mx1 = fmaxf(mx1, sc[i]);
     else
@@ -338,7 +361,8 @@ __device__ __forceinline__ void softmax(float (&sc)[BK / 2], int k0, int qw0,
     mx1 = fmaxf(mx1, __shfl_xor_sync(~0u, mx1, off));
   }
   const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  const float mc0 = mn0 * c, mc1 = mn1 * c;
+  const float mc0 = mn0 == kNeg ? 0.f : mn0 * c,
+              mc1 = mn1 == kNeg ? 0.f : mn1 * c;
   al0 = ex2(fmaf(m0, c, -mc0));
   al1 = ex2(fmaf(m1, c, -mc1));
   m0 = mn0;
@@ -367,14 +391,14 @@ __device__ __forceinline__ void split_weights(const float (&sc)[BK / 2],
     split3(sc[2 * j], sc[2 * j + 1], ph[j], pm[j], pl[j]);
 }
 
-template <int D>
+template <int D, int DVT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
-                 __nv_bfloat16* __restrict__ o, int s, int g, Strides os_,
-                 float scale) {
-  using C = Cfg<D>;
+                 __nv_bfloat16* __restrict__ o, int s, int g, int window,
+                 Strides os_, float scale) {
+  using C = Cfg<D, DVT>;
   constexpr int NS = C::NS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
@@ -389,7 +413,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hh = blockIdx.x / C::NCOL, b = blockIdx.y, kh = hh / g;
   const int col0 = (blockIdx.x % C::NCOL) * C::DV;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int n_kt = (min(q0 + BQ, s) - 1) / BK + 1;  // causal bound
+  const int kt_end = (min(q0 + BQ, s) - 1) / BK + 1;  // causal bound
+  // the band's first key tile: keys below q0 - window + 1 are outside
+  // every row's band, and their tiles are not loaded
+  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int n_kt = kt_end - kt0;  // tiles the block runs
   // the warpgroup, broadcast from lane 0 so that the compiler sees it is
   // uniform (wgmma in a branch it cannot prove uniform is serialised)
   const int wg = __shfl_sync(~0u, (int)threadIdx.x / 128, 0);
@@ -410,9 +438,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int bx = 0; bx < C::BOXES; ++bx)
         tma_load(q_sm + bx * BQ * C::SPAN, &qmap, qbar, bx * C::BOXC, q0, hh,
                  b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % NS;
-        if (kt >= NS) mbar_wait(empty + 8 * st, (kt / NS - 1) & 1);
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % NS, kt = kt0 + i;
+        if (i >= NS) mbar_wait(empty + 8 * st, (i / NS - 1) & 1);
         const uint32_t ks = kv_sm + st * C::STAGE_BYTES,
                        vs = ks + C::K_BYTES;
         mbar_expect_tx(full + 8 * st, C::STAGE_BYTES);
@@ -420,15 +448,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(ks + bx * BK * C::SPAN, &kmap, full + 8 * st,
                    bx * C::BOXC, kt * BK, kh, b);
         for (int bx = 0; bx < C::VBOXES; ++bx)
-          tma_load(vs + bx * BK * C::SPAN, &vmap, full + 8 * st,
-                   col0 + bx * C::BOXC, kt * BK, kh, b);
+          tma_load(vs + bx * BK * C::VSPAN, &vmap, full + 8 * st,
+                   col0 + bx * C::VBOXC, kt * BK, kh, b);
       }
     }
   } else {  // the consumer warpgroups
     // a consumer warpgroup: rows qw0 .. qw0 + 63; this thread holds rows r0
     // and r0 + 8, columns 8c + 2 quad + {0, 1} of every accumulator.  Both
-    // warpgroups run all n_kt tiles (a tile past a row's diagonal is all
-    // masked and adds nothing), so their turns pair up.
+    // warpgroups run all n_kt tiles (a tile past a row's diagonal or
+    // before its band is all masked and adds nothing), so their turns
+    // pair up.
     const int t = threadIdx.x % 128, lane = t % 32, quad = lane % 4;
     const int qw0 = q0 + wg * 64;
     const int r0 = qw0 + (t / 32) * 16 + lane / 4, r1 = r0 + 8;
@@ -442,48 +471,50 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m0 = kNeg, m1 = kNeg;  // running max of the raw scores
     float l0 = 0.f, l1 = 0.f;    // this thread's part of the row sums
     float al0, al1;
-    float sc[BK / 2];            // scores, then weights, of tile kt
-    uint32_t ph[BK / 4], pm[BK / 4], pl[BK / 4];  // weights of tile kt - 1
+    float sc[BK / 2];            // scores, then weights, of tile i
+    uint32_t ph[BK / 4], pm[BK / 4], pl[BK / 4];  // weights of tile i - 1
     if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
     mbar_wait(qbar, 0);
 
-    // tile 0: its scores and softmax
+    // the block's first tile: its scores and softmax
     mbar_wait(full, 0);
     turn_wait(wg);
     wg_fence();
-    issue_scores<D>(sc, qa, kv_sm);
+    issue_scores<C, D>(sc, qa, kv_sm);
     wg_commit();
     turn_pass(wg);
     wg_wait<0>();
     reg_fence(sc);
-    softmax(sc, 0, qw0, r0, s, quad, c, m0, m1, l0, l1, al0, al1);
+    softmax(sc, kt0 * BK, qw0, r0, s, window, quad, c, m0, m1, l0, l1, al0,
+            al1);
     split_weights(sc, ph, pm, pl);
 
-    // tile kt's scores and tile kt - 1's values in one turn, then tile kt's
+    // tile i's scores and tile i - 1's values in one turn, then tile i's
     // softmax while the values are in flight
-    for (int kt = 1; kt < n_kt; ++kt) {
-      const int st = kt % NS, prev = (kt - 1) % NS;
-      mbar_wait(full + 8 * st, (kt / NS) & 1);
+    for (int i = 1; i < n_kt; ++i) {
+      const int st = i % NS, prev = (i - 1) % NS;
+      mbar_wait(full + 8 * st, (i / NS) & 1);
       turn_wait(wg);
       wg_fence();
-      issue_scores<D>(sc, qa, kv_sm + st * C::STAGE_BYTES);
+      issue_scores<C, D>(sc, qa, kv_sm + st * C::STAGE_BYTES);
       wg_commit();
-      issue_values<D>(acc, ph, pm, pl,
+      issue_values<C>(acc, ph, pm, pl,
                       kv_sm + prev * C::STAGE_BYTES + C::K_BYTES);
       wg_commit();
       turn_pass(wg);
       wg_wait<1>();
       reg_fence(sc);
-      softmax(sc, kt * BK, qw0, r0, s, quad, c, m0, m1, l0, l1, al0, al1);
+      softmax(sc, (kt0 + i) * BK, qw0, r0, s, window, quad, c, m0, m1, l0,
+              l1, al0, al1);
       wg_wait<0>();
       reg_fence(acc);
       reg_fence(ph);
       reg_fence(pm);
       reg_fence(pl);
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * prev);  // tile kt - 1 is read
+      if (lane == 0) mbar_arrive(empty + 8 * prev);  // tile i - 1 is read
 #pragma unroll
-      for (int i = 0; i < C::DV / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+      for (int j = 0; j < C::DV / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
       split_weights(sc, ph, pm, pl);
     }
 
@@ -491,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int last = (n_kt - 1) % NS;
     turn_wait(wg);
     wg_fence();
-    issue_values<D>(acc, ph, pm, pl,
+    issue_values<C>(acc, ph, pm, pl,
                     kv_sm + last * C::STAGE_BYTES + C::K_BYTES);
     wg_commit();
     if (wg == 0) turn_pass(wg);
@@ -521,48 +552,51 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// a (D, S, heads, B) bf16 operand with strides st = (batch, head, seq) in
-// elements, read in boxes of Cfg<D>::BOXC columns x rows, swizzled as
-// the descriptors expect
-template <int D>
+// a (cols, S, heads, B) bf16 operand with strides st = (batch, head, seq)
+// in elements, read in boxes of boxc columns x rows, swizzled as the
+// descriptors expect (span: bytes of a swizzled box row); a box reaching
+// past the row reads zeros
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  int s, int heads, int b, const long long* st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s,
+                  int cols, int boxc, int span, int s, int heads, int b,
+                  const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)s,
                               (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Cfg<D>::BOXC, (cuuint32_t)rows, 1,
-                             1};
+  const cuuint32_t box[4] = {(cuuint32_t)boxc, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Cfg<D>::SPAN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, int DVT>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int hkv, int s, const long long* st, float scale,
-           cudaStream_t stream) {
-  using C = Cfg<D>;
+           int window, cudaStream_t stream) {
+  using C = Cfg<D, DVT>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  CUresult r = make_map<D>(encode, &qm, q, s, h, b, st, BQ);
+  CUresult r =
+      make_map(encode, &qm, q, D, C::BOXC, C::SPAN, s, h, b, st, BQ);
   if (r == CUDA_SUCCESS)
-    r = make_map<D>(encode, &km, k, s, hkv, b, st + 3, BK);
+    r = make_map(encode, &km, k, D, C::BOXC, C::SPAN, s, hkv, b, st + 3, BK);
   if (r == CUDA_SUCCESS)
-    r = make_map<D>(encode, &vm, v, s, hkv, b, st + 6, BK);
+    r = make_map(encode, &vm, v, DVT, C::VBOXC, C::VSPAN, s, hkv, b, st + 6,
+                 BK);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_kernel<D, DVT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(h * C::NCOL, b, (s + BQ - 1) / BQ);
-  flash_kernel<D><<<grid, kThreads, C::SMEM, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, s, h / hkv,
+  flash_kernel<D, DVT><<<grid, kThreads, C::SMEM, stream>>>(
+      qm, km, vm, (__nv_bfloat16*)o, s, h / hkv, window,
       Strides{st[9], st[10], st[11]}, scale);
   return (int)cudaGetLastError();
 }
@@ -587,8 +621,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 //    over the 16 lanes of a half-warp with shuffles.  K rows are padded to
 //    D + 1 floats so the 16 columns a half-warp reads fall in 16 banks.
 //  - Rows past S are not stored and keys past S load as zeros and are
-//    masked.  Every row meets key 0 in its first tile, so its running max
-//    is finite from then on and a masked score adds exp(-1e30 - m) = 0.
+//    masked.  Without a window every row meets key 0 in its first tile,
+//    so its running max is finite from then on and a masked score adds
+//    exp(-1e30 - m) = 0.  With one, a row whose band starts past the
+//    block's first tile weighs its masked keys exp(0) = 1 until its band
+//    begins; that tile's alpha, exp(-1e30 - m), is exactly 0 and clears
+//    them (the values are finite).
 //  - expf, no fast math.
 namespace simt {
 
@@ -596,25 +634,25 @@ constexpr int kThreads = 256;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 
-__host__ __device__ constexpr int smem_floats(int d) {
+__host__ __device__ constexpr int smem_floats(int d, int dv) {
   return BQ * (d + 1)    // Q tile (padded)
          + BK * (d + 1)  // K tile (padded)
-         + BK * d        // V tile
+         + BK * dv       // V tile
          + BQ * BK;      // weights
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int s,
-                 int g, Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                 float scale) {
-  constexpr int QP = D + 1, KP = D + 1, NC = D / 16;
+                 int g, int window, Strides qs_, Strides ks_, Strides vs_,
+                 Strides os_, float scale) {
+  constexpr int QP = D + 1, KP = D + 1, NC = DV / 16;
   extern __shared__ float sm[];
   float* qs = sm;
   float* ks = qs + BQ * QP;
   float* vs = ks + BK * KP;
-  float* ps = vs + BK * D;
+  float* ps = vs + BK * DV;
 
   const int tile = gridDim.x - 1 - blockIdx.x;
   const int hh = blockIdx.y, b = blockIdx.z, kh = hh / g;
@@ -640,14 +678,19 @@ __global__ void __launch_bounds__(kThreads)
 
   const int q_hi = min(q0 + BQ, s);       // rows [q0, q_hi)
   const int n_kt = (q_hi + BK - 1) / BK;  // causal bound: keys < q_hi
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // the band's first key tile (window > 0): no row of the block reaches
+  // a key below q0 - window + 1
+  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q is loaded; the previous tile's readers are done
     for (int i = tid; i < BK * D; i += kThreads) {
       const int j = i / D, d = i - j * D, key = k0 + j;
-      const bool in = key < s;
-      ks[j * KP + d] = in ? kb[key * ks_.s + d] : 0.f;
-      vs[j * D + d] = in ? vb[key * vs_.s + d] : 0.f;
+      ks[j * KP + d] = key < s ? kb[key * ks_.s + d] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += kThreads) {
+      const int j = i / DV, d = i - j * DV, key = k0 + j;
+      vs[j * DV + d] = key < s ? vb[key * vs_.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -676,7 +719,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + tx + 16 * c;
-        if (col > row || col >= s) sc[r][c] = kNeg;
+        if (col > row || col >= s || (window > 0 && col <= row - window))
+          sc[r][c] = kNeg;
         mx = fmaxf(mx, sc[r][c]);
       }
 #pragma unroll
@@ -707,7 +751,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < 4; ++r) pv[r] = ps[(ty * 4 + r) * BK + j];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[j * D + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = vs[j * DV + tx + 16 * c];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -727,20 +771,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int hkv, int s, const long long* st, float scale,
-           cudaStream_t stream) {
-  const int smem = smem_floats(D) * (int)sizeof(float);
+           int window, cudaStream_t stream) {
+  const int smem = smem_floats(D, DV) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((s + BQ - 1) / BQ, h, b);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, s,
-      h / hkv, qs, ks, vs, os, scale);
+      h / hkv, window, qs, ks, vs, os, scale);
   return (int)cudaGetLastError();
 }
 
@@ -750,35 +795,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// q (B, H, S, D), k/v (B, Hkv, S, D), o (B, H, S, D), each given by its
-// batch, head and sequence strides in elements (12 values: q, k, v, o),
-// the head dim contiguous.  is_bf16: the Hopper kernel (q, k, v and their
-// strides 16-byte aligned), else fp32 on the SIMT kernel; D in {32, 64,
-// 128, 192, 256}; H a multiple of Hkv.
+// q (B, H, S, D), k (B, Hkv, S, D), v (B, Hkv, S, DV), o (B, H, S, DV),
+// each given by its batch, head and sequence strides in elements (12
+// values: q, k, v, o), the head dim contiguous.  is_bf16: the Hopper
+// kernel (q, k, v and their strides 16-byte aligned), else fp32 on the
+// SIMT kernel; (D, DV) in {(32, 32), (64, 64), (128, 128), (192, 192),
+// (256, 256), (192, 128), (48, 32)}; H a multiple of Hkv; window > 0
+// bands each query i to keys j > i - window.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int h, int hkv, int s, int d,
-                           const long long* strides, int is_bf16,
-                           float scale, int device, cudaStream_t stream) {
+                           int dv, const long long* strides, int is_bf16,
+                           float scale, int window, int device,
+                           cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || s <= 0 || hkv <= 0 || h % hkv != 0 || b > 65535 ||
-      h > 65535)
+      h > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (is_bf16 && (s + hopper::BQ - 1) / hopper::BQ > 65535)
     return (int)cudaErrorInvalidValue;
-#define FLASH_CASE(D)                                                    \
-  case D:                                                                \
-    return is_bf16 ? hopper::launch<D>(q, k, v, o, b, h, hkv, s, strides, \
-                                       scale, stream)                    \
-                   : simt::launch<D>(q, k, v, o, b, h, hkv, s, strides,   \
-                                     scale, stream);
-  switch (d) {
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    FLASH_CASE(192)
-    FLASH_CASE(256)
-  }
+#define FLASH_CASE(D, DV)                                                   \
+  if (d == D && dv == DV)                                                   \
+    return is_bf16 ? hopper::launch<D, DV>(q, k, v, o, b, h, hkv, s,        \
+                                           strides, scale, window, stream)  \
+                   : simt::launch<D, DV>(q, k, v, o, b, h, hkv, s, strides, \
+                                         scale, window, stream);
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(192, 192)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)
+  FLASH_CASE(48, 32)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

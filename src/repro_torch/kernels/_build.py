@@ -67,10 +67,10 @@ _SIGNATURES = {
     "rac_value_slots": [_B, _P],
     "eq1_value_floor": [_B],
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _P],
-    "decode_attention_slots": [_I, _I, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-                               _F, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "decode_attention_slots": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                               _I, _F, _I, _I, _P],
 }
 
 

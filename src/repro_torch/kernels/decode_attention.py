@@ -1,5 +1,6 @@
-"""One-token GQA decode attention over a KV cache:
-``csrc/decode_attention.cu`` and its wrapper.
+"""One-token GQA decode attention over a KV cache, V's head dim free of
+K's and V possibly a column-prefix view of the K rows (MLA's absorbed
+decode): ``csrc/decode_attention.cu`` and its wrapper.
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention_pallas``.
 The wrapper launches the CUDA kernel for CUDA tensors and takes the plain
@@ -20,8 +21,12 @@ from . import _build, ref
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the head dims of configs/ and of every smoke_variant (32)
-_HEAD_DIMS = (32, 64, 128, 192, 256)
+# the (K, V) head dims the kernel takes: every dense and hybrid config's
+# and smoke variant's (32 to 256, V as wide as K) and MLA's absorbed
+# decode, deepseek-v2-lite-16b's 512 latent + 64 rope columns with V the
+# latent 512 and its smoke variant's 64 + 16 with V at 64
+SHAPES = ((32, 32), (64, 64), (128, 128), (192, 192), (256, 256),
+          (576, 512), (80, 64))
 # the split plan: four waves of the card's resident blocks were every row's
 # cache full, and no split longer than _MAX_KEYS keys
 _WAVES, _MAX_KEYS = 4, 2048
@@ -46,26 +51,37 @@ def split_plan(rows: int, s_max: int, keys: int, wave: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(index: int, g: int, d: int, bf16: bool, stages: int) -> int:
-    """The blocks at (G, D, dtype, ring stages) the card holds at once (-1:
-    the kernel does not take this G at this D)."""
+def _slots(index: int, g: int, d: int, dv: int, v_in_k: bool, bf16: bool,
+           stages: int) -> int:
+    """The blocks at (G, D, Dv, V in K, dtype, ring stages) the card holds
+    at once (-1: the kernel does not take this G at these head dims)."""
     slots = ctypes.c_int(0)
     _build.check(_build.library().decode_attention_slots(
-        g, d, int(bf16), stages, index, ctypes.addressof(slots)),
-        "decode_attention_slots")
+        g, d, dv, int(v_in_k), int(bf16), stages, index,
+        ctypes.addressof(slots)), "decode_attention_slots")
     return slots.value
 
 
-def _check(q, k, v, pos) -> tuple[int, int, int, int, int]:
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"decode_attention: expected q (B,H,D) and k/v "
-                         f"(B,S,Hkv,D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+def v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether v is a column-prefix view of k's rows: the same storage,
+    base and strides, its head dim no wider (the kernel then reads each
+    cache row once, for the scores and the values)."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[3] <= k.shape[3])
+
+
+def _check(q, k, v, pos) -> tuple[int, int, int, int, int, int]:
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"decode_attention: expected q (B,H,D), k "
+                         f"(B,S,Hkv,D) and v (B,S,Hkv,Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, d = q.shape
     _, s_max, hkv, dk = k.shape
     if k.shape[0] != b or dk != d or hkv == 0 or h % hkv != 0:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not "
-                         f"match k/v {tuple(k.shape)}")
+                         f"match k {tuple(k.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode_attention: q, k, v must share one dtype "
                          f"of {_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -77,35 +93,42 @@ def _check(q, k, v, pos) -> tuple[int, int, int, int, int]:
         if t.device != dev:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
                              f"q on {dev}")
-    return b, h, d, s_max, hkv
+    return b, h, d, v.shape[3], s_max, hkv
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-    """q (B,H,D); k/v (B,S,Hkv,D); pos (B,) int32, the newest valid cache
-    index of each row (keys ``[0, pos]``).  Returns (B,H,D) in q's dtype
-    (fp32 or bf16; fp32 arithmetic).  On the card D is 32, 64, 128, 192
-    or 256, G = H / Hkv at most 16, every tensor contiguous and k/v
-    16-byte aligned (TMA reads them); ``pos`` past the cache attends to
-    all of it."""
+                     pos: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """q (B,H,D); k (B,S,Hkv,D); v (B,S,Hkv,Dv); pos (B,) int32, the
+    newest valid cache index of each row (keys ``[0, pos]``); ``scale``
+    (default 1/sqrt(D)) multiplies the scores.  Returns (B,H,Dv) in q's
+    dtype (fp32 or bf16; fp32 arithmetic).  On the card (D, Dv) is one of
+    :data:`SHAPES`, G = H / Hkv at most 16, q, k and pos contiguous, v
+    contiguous or a column-prefix view of k (:func:`v_in_k`: the kernel
+    then reads each row once, with no copy), k/v 16-byte aligned (TMA
+    reads them); ``pos`` past the cache attends to all of it."""
     global launches
-    b, h, d, s_max, hkv = _check(q, k, v, pos)
+    b, h, d, dv, s_max, hkv = _check(q, k, v, pos)
+    scale = d ** -0.5 if scale is None else float(scale)
     dev = q.device
     if dev.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, pos)
+        return ref.decode_attention_ref(q, k, v, pos, scale)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {dev}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {d} not in "
-                         f"{_HEAD_DIMS} on the card")
+    if (d, dv) not in SHAPES:
+        raise ValueError(f"decode_attention: head dims (D, Dv) = ({d}, "
+                         f"{dv}) not in {SHAPES} on the card")
+    in_k = v_in_k(k, v)
     for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
-        if not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be contiguous")
+        if not (t.is_contiguous() or (name == "v" and in_k)):
+            raise ValueError(f"decode_attention: {name} must be contiguous"
+                             + (" or a column-prefix view of k"
+                                if name == "v" else ""))
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must start on a "
                              "16-byte boundary (TMA reads it)")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, dv))
     if b == 0 or h == 0:
         return out
     if s_max == 0:
@@ -114,16 +137,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys = stage_keys(d, q.dtype)
     # the wave of full rings plans the splits; a split then takes the
     # ring stages it needs
-    wave = _slots(dev.index, h // hkv, d, bf16, -(-s_max // keys))
+    wave = _slots(dev.index, h // hkv, d, dv, in_k, bf16,
+                  -(-s_max // keys))
     if wave < 0:
         raise ValueError(f"decode_attention: {h // hkv} query heads a kv "
-                         f"head at head dim {d} do not fit the kernel")
+                         f"head at head dims ({d}, {dv}) do not fit the "
+                         "kernel")
     splits = split_plan(b * hkv, s_max, keys, wave)
     longest = -(-s_max // splits)              # keys of the longest split
     stages = -(-longest // keys)
     part_acc = part_ml = None
     if splits > 1:
-        part_acc = torch.empty(b * h * splits * d, dtype=torch.float32,
+        part_acc = torch.empty(b * h * splits * dv, dtype=torch.float32,
                                device=dev)
         part_ml = torch.empty(b * h * splits * 2, dtype=torch.float32,
                               device=dev)
@@ -132,7 +157,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), b, s_max, hkv,
-        h // hkv, d, splits, stages, int(bf16), d ** -0.5,
+        h // hkv, d, dv, int(in_k), splits, stages, int(bf16), scale,
         dev.index, _build.stream_of(q)), "decode_attention")
     launches += 1
     return out

@@ -1,4 +1,5 @@
-"""Causal GQA prefill attention: ``csrc/flash_attention.cu`` and its
+"""Causal GQA prefill attention, optionally banded to a sliding window,
+with V's head dim free of Q's and K's: ``csrc/flash_attention.cu`` and its
 wrapper.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
@@ -27,21 +28,28 @@ launches = 0
 wgmma_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the head dims of configs/ and of every smoke_variant (32)
-_HEAD_DIMS = (32, 64, 128, 192, 256)
+# the (Q/K, V) head dims the kernels take: every dense config's and smoke
+# variant's (32 to 256, V as wide as K) and MLA's decompressed heads,
+# deepseek-v2-lite-16b's 128 + 64 rope columns with V at 128 and its smoke
+# variant's 32 + 16 with V at 32
+SHAPES = ((32, 32), (64, 64), (128, 128), (192, 192), (256, 256),
+          (192, 128), (48, 32))
+_HEAD_DIMS = tuple(sorted({d for d, _ in SHAPES}))
 
 
-def _check(q, k, v) -> tuple[int, int, int, int, int]:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: expected q (B,H,S,D) and k/v "
-                         f"(B,Hkv,S,D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: expected q (B,H,S,D), k "
+                         f"(B,Hkv,S,D) and v (B,Hkv,S,Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[3]
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hkv == 0 \
             or h % hkv != 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
-                         f"match k/v {tuple(k.shape)}")
+                         f"match k {tuple(k.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share one dtype "
                          f"of {_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -49,12 +57,13 @@ def _check(q, k, v) -> tuple[int, int, int, int, int]:
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-    return b, h, s, d, hkv
+    return b, h, s, d, hkv, dv
 
 
 def _check_head(d: int, operands) -> None:
-    """D in ``_HEAD_DIMS`` and the head dim contiguous, for both kernels;
-    ``operands`` holds ``(name, strides)`` pairs, strides over (B,H,S,D)."""
+    """D (Q's and K's head dim) in ``_HEAD_DIMS`` and the head dim
+    contiguous, for both kernels; ``operands`` holds ``(name, strides)``
+    pairs, strides over (B,H,S,D)."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in "
                          f"{_HEAD_DIMS} on the card")
@@ -95,21 +104,39 @@ def _tma_strides(t: torch.Tensor) -> tuple[int, ...]:
     return tuple(out)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal attention: q (B,H,S,D), k/v (B,Hkv,S,D), H a multiple of
-    Hkv (query head ``h`` reads kv head ``h // (H/Hkv)``), scale
-    1/sqrt(D).  Returns (B,H,S,D) in q's dtype (fp32 or bf16; fp32
-    arithmetic) with q's strides.  On the card D is 32, 64, 128, 192 or
-    256 and the head dim of every operand is contiguous; bf16 operands
-    also pass :func:`check_tma`."""
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty (B,H,S,Dv) output laid out as q is (the model's (B,S,H,D)
+    projections come as transposed views; the output follows them)."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)    # q's strides if dense, else contiguous
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    buf = torch.empty([q.shape[i] for i in order] + [dv], dtype=q.dtype,
+                      device=q.device)
+    return buf.permute([order.index(i) for i in range(3)] + [3])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    """Causal attention: q (B,H,S,D), k (B,Hkv,S,D), v (B,Hkv,S,Dv), H a
+    multiple of Hkv (query head ``h`` reads kv head ``h // (H/Hkv)``),
+    scale 1/sqrt(D); ``window > 0`` keeps key ``j`` for query ``i`` only
+    where ``j > i - window`` (the kernels skip key tiles outside the band).
+    Returns (B,H,S,Dv) in q's dtype (fp32 or bf16; fp32 arithmetic), laid
+    out as q is.  On the card (D, Dv) is one of :data:`SHAPES` and the
+    head dim of every operand is contiguous; bf16 operands also pass
+    :func:`check_tma`."""
     global launches, wgmma_launches
-    b, h, s, d, hkv = _check(q, k, v)
+    b, h, s, d, hkv, dv = _check(q, k, v)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     dev = q.device
     if dev.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=True)
+        return ref.attention_ref(q, k, v, causal=True, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    if (d, dv) not in SHAPES:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = ({d}, {dv})"
+                         f" not in {SHAPES} on the card")
     bf16 = q.dtype == torch.bfloat16
     stride_of = _tma_strides if bf16 else torch.Tensor.stride
     operands = [(name, stride_of(t), t.data_ptr())
@@ -118,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         check_tma(d, operands)
     else:
         _check_head(d, operands)
-    out = torch.empty_like(q)     # q's strides if dense, else contiguous
+    out = _out_like(q, dv)
     if b == 0 or h == 0 or s == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*(
@@ -126,7 +153,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     lib = _build.library()
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        s, d, strides, int(bf16), d ** -0.5, dev.index,
+        s, d, dv, strides, int(bf16), d ** -0.5, window, dev.index,
         _build.stream_of(q)), "flash_attention")
     launches += 1
     wgmma_launches += bf16

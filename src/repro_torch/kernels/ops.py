@@ -289,17 +289,20 @@ def victim_value_multi(tsi, tid, occ, tp_last, t_last, t_now, *,
 
 
 @_counted
-def flash_attention(q, k, v):
-    """Causal GQA flash attention.  q (B,H,S,D); k/v (B,Hkv,S,D) ->
-    (B,H,S,D), any S (the kernel masks the ragged tail: no padding)."""
-    return _flash_attention(q, k, v)
+def flash_attention(q, k, v, window: int = 0):
+    """Causal GQA flash attention, banded to ``window`` keys when it is
+    positive.  q (B,H,S,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,S,Dv),
+    any S (the kernel masks the ragged tail: no padding)."""
+    return _flash_attention(q, k, v, window)
 
 
 @_counted
-def decode_attention(q, k, v, pos):
-    """One-token GQA decode.  q (B,H,D); k/v (B,S,Hkv,D); pos (B,) int32
-    on the tensors' device (read there: no host sync) -> (B,H,D)."""
-    return _decode_attention(q, k, v, pos)
+def decode_attention(q, k, v, pos, scale=None):
+    """One-token GQA decode.  q (B,H,D); k (B,S,Hkv,D); v (B,S,Hkv,Dv),
+    possibly a column-prefix view of k; pos (B,) int32 on the tensors'
+    device (read there: no host sync) -> (B,H,Dv); ``scale`` defaults to
+    1/sqrt(D)."""
+    return _decode_attention(q, k, v, pos, scale)
 
 
 @_counted

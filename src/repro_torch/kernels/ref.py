@@ -136,36 +136,47 @@ def victim_value_multi_ref(tsi: torch.Tensor, tid: torch.Tensor,
 # -- attention: fp32 softmax, the reference's layouts ----------------------
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
-    """q (B,H,S,D); k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype.  Query head
-    ``h`` reads kv head ``h // (H/Hkv)``; scores, softmax and the weighted
-    sum are fp32.  Any strides."""
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,H,S,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,S,Dv) in q's
+    dtype.  Query head ``h`` reads kv head ``h // (H/Hkv)``; scores,
+    softmax and the weighted sum are fp32.  ``window > 0`` keeps key ``j``
+    for query ``i`` only where ``j > i - window`` (the reference's band).
+    Any strides."""
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[-1]
     g = h // hkv
     qf = q.to(torch.float32).reshape(b, hkv, g, s, d) / d ** 0.5
     scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32))
-    if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, float("-inf"))
+    if causal or window > 0:
+        idx = torch.arange(s, device=q.device)
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= idx[None, :] <= idx[:, None]
+        if window > 0:
+            keep &= idx[None, :] > idx[:, None] - window
+        scores = scores.masked_fill(~keep, float("-inf"))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, v.to(torch.float32))
-    return out.reshape(b, h, s, d).to(q.dtype)
+    return out.reshape(b, h, s, dv).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         pos: torch.Tensor) -> torch.Tensor:
-    """One query token per batch row over a KV cache: q (B,H,D); k/v
-    (B,S,Hkv,D); pos (B,) the newest valid cache index (keys ``[0, pos]``
+                         pos: torch.Tensor,
+                         scale: float | None = None) -> torch.Tensor:
+    """One query token per batch row over a KV cache: q (B,H,D); k
+    (B,S,Hkv,D); v (B,S,Hkv,Dv) (it may be a view of k's first Dv
+    columns); pos (B,) the newest valid cache index (keys ``[0, pos]``
     are attended; ``pos`` stays on its device, nothing reads it on the
-    host) -> (B,H,D) in q's dtype, fp32 softmax."""
+    host) -> (B,H,Dv) in q's dtype, fp32 softmax; ``scale`` defaults to
+    1/sqrt(D)."""
     b, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
-    qf = q.to(torch.float32).reshape(b, hkv, g, d) / d ** 0.5
+    qf = q.to(torch.float32).reshape(b, hkv, g, d)
+    qf = qf / d ** 0.5 if scale is None else qf * scale
     scores = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32))
     valid = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.to(torch.float32))
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(b, h, dv).to(q.dtype)

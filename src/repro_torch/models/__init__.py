@@ -1,5 +1,6 @@
-"""The port's model stack: the dense decoder-only LMs on the hand-written
-attention kernels (B8 for prefill, B9 for decode)."""
+"""The port's model stack: the decoder-only LMs of the dense, MoE/MLA and
+hybrid (attention + Mamba) families on the hand-written attention kernels
+(B8 for prefill, B9 for decode)."""
 from .config import SHAPES, ModelConfig, ShapeConfig, smoke_variant
 from .model import Model, build_model, params_from_reference
 from .steps import make_decode_step, make_prefill_step

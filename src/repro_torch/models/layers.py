@@ -1,18 +1,25 @@
-"""Dense transformer layers of the port: RMSNorm, RoPE, GQA self-attention
-and the four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU), after
+"""Transformer layers of the port: RMSNorm, RoPE, GQA self-attention
+(causal, optionally over a sliding window), multi-head latent attention
+(MLA, DeepSeek-V2), the four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU)
+and the capacity-factor MoE with token dispatch, after
 ``repro/models/layers.py``.
 
 Functional style, as in the reference: ``init_*`` builds a param dict of
 tensors with the reference's shapes; ``*_apply`` consumes it.  Attention
 runs on the hand-written kernels through :mod:`repro_torch.kernels.ops`:
-prefill and full-sequence passes through ``flash_attention`` (B8), decode
-through an in-place write of the new K/V at ``pos`` followed by
-``decode_attention`` (B9) over ``[0, pos]``; on the card both take every
-head dim ``configs/`` and the smoke variants use (32, 64, 128, 192, 256).
-On CPU tensors those take their plain PyTorch versions.
+prefill and full-sequence passes through ``flash_attention`` (B8, which
+skips key tiles outside a window's band), decode through an in-place
+write of the new K/V followed by ``decode_attention`` (B9) over the valid
+cache slots.  MLA's prefill decompresses K/V per head and runs B8 at
+(Q/K, V) head dims (hd + rope, hd); its absorbed decode scores the
+``r``-wide latent plus the rope key of each cache row through B9 with one
+kv head for all query heads, V being a view of the row's first ``r``
+columns.  On CPU tensors the kernels take their plain PyTorch versions.
+The MoE's dispatch and expert products are plain PyTorch, as they are XLA
+in the reference.
 
-Not ported (``NotImplementedError``): MLA, MoE, sliding-window, non-causal
-and cross attention (``ROADMAP.md`` queue A item 11).
+Not ported (``NotImplementedError``): non-causal and cross attention
+(``ROADMAP.md`` queue A item 11).
 """
 from __future__ import annotations
 
@@ -99,19 +106,21 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: int = 0, kv_cache: Optional[dict] = None,
                     cache_positions: Optional[torch.Tensor] = None,
+                    attend_pos: Optional[torch.Tensor] = None,
                     xattn_kv=None, rope=None):
-    """Causal GQA self-attention.  Modes:
+    """Causal GQA self-attention, banded to the last ``window`` keys when
+    ``window > 0``.  Modes:
        - train/prefill: ``kv_cache`` None; x (B,S,d) through B8;
        - decode: ``kv_cache = dict(k=(B,T,Hkv,D), v=...)``, x (B,1,d),
          ``cache_positions`` (B,) int32 on the device: the new K/V are
-         written at that index IN PLACE (the cache tensors are updated,
-         not copied), then B9 attends over ``[0, cache_positions]``.
+         written at that slot IN PLACE (the cache tensors are updated,
+         not copied), then B9 attends over slots ``[0, attend_pos]``
+         (default ``cache_positions``; a ring-buffer window cache passes
+         its own clamp).
     ``positions`` (B,S) feed RoPE; ``rope`` may carry their precomputed
     ``(cos, sin)``.  Returns ``(y (B,S,d), kv_cache or None)``."""
     if not causal:
         raise not_ported("non-causal attention")
-    if window > 0:
-        raise not_ported("sliding-window attention")
     if xattn_kv is not None:
         raise not_ported("cross attention")
     cd = cfg.cdtype
@@ -133,12 +142,94 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         kc, vc = kv_cache["k"], kv_cache["v"]
         kc[bidx, idx] = k[:, 0].to(kc.dtype)
         vc[bidx, idx] = v[:, 0].to(vc.dtype)
-        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc,
-                                   idx)[:, None]
+        out = ops.decode_attention(
+            q[:, 0].contiguous(), kc, vc,
+            idx if attend_pos is None else attend_pos)[:, None]
     else:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2)).transpose(1, 2)
+                                  v.transpose(1, 2),
+                                  window=window).transpose(1, 2)
     h, hd = cfg.n_heads, cfg.hd
+    y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
+    return y, kv_cache
+
+
+# ------------------------------------------------------------------- MLA
+def init_mla(cfg: ModelConfig, gen: torch.Generator,
+             device: torch.device) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    r, rh = cfg.kv_lora_rank, cfg.rope_head_dim
+    pd = cfg.pdtype
+    return {
+        "wq": normal(gen, (d, h, hd + rh), pd, device),
+        "wdkv": normal(gen, (d, r), pd, device),
+        "wuk": normal(gen, (r, h, hd), pd, device),
+        "wuv": normal(gen, (r, h, hd), pd, device),
+        "wkr": normal(gen, (d, rh), pd, device),
+        "wo": normal(gen, (h, hd, d), pd, device),
+    }
+
+
+def latent_rows(kv: dict) -> torch.Tensor:
+    """The (B,S,1,r+rh) cache rows ``[c_kv | k_rope]`` that ``kv["c_kv"]``
+    (B,S,r) and ``kv["k_rope"]`` (B,S,rh) are column views of (the layout
+    :meth:`repro_torch.models.Model.init_cache` builds); anything else
+    raises."""
+    c, kr = kv["c_kv"], kv["k_rope"]
+    b, s, r = c.shape
+    w = r + kr.shape[-1]
+    if (c.stride(-1) != 1 or c.stride(-2) != w or kr.stride() != c.stride()
+            or kr.data_ptr() != c.data_ptr() + r * c.element_size()):
+        raise ValueError("MLA decode: c_kv and k_rope must be column views "
+                         "of one (B, S, r + rope_head_dim) row buffer")
+    return c.as_strided((b, s, 1, w), (c.stride(0), w, w, 1))
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, kv_cache: Optional[dict] = None,
+              cache_positions: Optional[torch.Tensor] = None, rope=None):
+    """Multi-head latent attention (DeepSeek-V2).
+
+    Prefill/train: decompress K/V per head and run B8 on the head-dim
+    concat of the nope and rope terms (Q/K at hd + rh, V at hd, Hkv = H).
+    Decode: the *absorbed* path.  ``wuk`` folds into the query, whose
+    ``r`` latent columns plus its rope part score each cache row
+    ``[c_kv | k_rope]`` through B9 (one kv head, G = H), with V the row's
+    first ``r`` columns (a view: the row is read once) and the scale
+    1/sqrt(hd + rh); ``wuv`` then maps the latent output to the heads.
+    The new row is written IN PLACE at ``cache_positions``.  ``rope`` may
+    carry the precomputed ``(cos, sin)`` of ``positions`` at dim rh."""
+    cd = cfg.cdtype
+    hd, h, rh, r = cfg.hd, cfg.n_heads, cfg.rope_head_dim, cfg.kv_lora_rank
+    b, s, _ = x.shape
+    q = _heads(x, p["wq"], cd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    cos, sin = rope if rope is not None else rope_cos_sin(
+        positions, rh, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv = x @ p["wdkv"].to(cd)                                  # (B,S,r)
+    k_rope = apply_rope((x @ p["wkr"].to(cd))[:, :, None, :], cos, sin)
+    scale = 1.0 / float(hd + rh) ** 0.5
+    if kv_cache is None:
+        k_nope = _heads(c_kv, p["wuk"], cd)
+        vv = _heads(c_kv, p["wuv"], cd)
+        q_cat = torch.cat([q_nope, q_rope], dim=-1)
+        k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, rh)], dim=-1)
+        # B8's scale is 1/sqrt(hd + rh), the head dim of q_cat
+        out = ops.flash_attention(q_cat.transpose(1, 2),
+                                  k_cat.transpose(1, 2),
+                                  vv.transpose(1, 2)).transpose(1, 2)
+    else:
+        rows = latent_rows(kv_cache)
+        bidx = torch.arange(b, device=x.device)
+        rows[bidx, cache_positions, 0] = torch.cat(
+            [c_kv[:, 0], k_rope[:, 0, 0]], dim=-1).to(rows.dtype)
+        q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wuk"].to(cd))
+        q_lat = torch.cat([q_abs, q_rope[:, 0]], dim=-1).contiguous()
+        out_c = ops.decode_attention(q_lat, rows, rows[..., :r],
+                                     cache_positions, scale)     # (B,H,r)
+        out = torch.einsum("bhr,rhk->bhk", out_c,
+                           p["wuv"].to(cd))[:, None]
     y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
     return y, kv_cache
 
@@ -149,8 +240,8 @@ def _n_in(mlp: str) -> int:
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator,
-             device: torch.device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+             device: torch.device, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     pd = cfg.pdtype
     p = {"wi": normal(gen, (d, f), pd, device)}
     if _n_in(cfg.mlp) == 2:
@@ -175,3 +266,85 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(cd)
     g = x @ p["wg"].to(cd) if "wg" in p else None
     return _act(h, g, cfg.mlp) @ p["wo"].to(cd)
+
+
+# -------------------------------------------------------------------- MoE
+#: leaves the reference creates in fp32 whatever ``param_dtype`` says: the
+#: MoE router (``repro/models/layers.py``) and Mamba's ``a_log`` and
+#: ``d_skip`` (``repro/models/ssm.py``)
+FP32_LEAVES = ("router", "a_log", "d_skip")
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator,
+             device: torch.device) -> dict:
+    d, e = cfg.d_model, cfg.n_experts
+    f = cfg.expert_d_ff or cfg.d_ff
+    pd = cfg.pdtype
+    p = {"router": normal(gen, (d, e), torch.float32, device),
+         "wi": normal(gen, (e, d, f), pd, device)}
+    if _n_in(cfg.mlp) == 2:
+        p["wg"] = normal(gen, (e, d, f), pd, device)
+    p["wo"] = normal(gen, (e, f, d), pd, device)
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, device,
+                               d_ff=f * cfg.n_shared_experts)
+    return p
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """Top-k routing of tokens xt (T,d): fp32 logits against the fp32
+    router, softmax, the k best experts in descending probability (a
+    stable sort: ties go to the lower expert, as the reference's top_k),
+    their probabilities renormalised.  Returns (weights (T,K) fp32,
+    experts (T,K) int64)."""
+    probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    return topv / topv.sum(-1, keepdim=True).clamp_min(1e-9), topi
+
+
+def moe_slots(topi: torch.Tensor, e: int, cap: int):
+    """Capacity slots of the (token, k) pairs in token-major order: each
+    pair takes its expert's running count, and a pair at or past ``cap``
+    is dropped.  Returns (experts (T*K,), slots (T*K,), kept (T*K,))."""
+    e_flat = topi.reshape(-1)
+    onehot = F.one_hot(e_flat, e)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    return e_flat, pos, pos < cap
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Top-k capacity-factor MoE with scatter dispatch (Switch-style), the
+    reference's dispatch exactly: ``cap = ceil(T k cf / E)`` slots an
+    expert, slots by a running count over the token-major (T*K) pairs, a
+    pair past ``cap`` dropped (it adds nothing), the expert products one
+    ``torch.bmm`` each over (E, cap, d) buffers, the combine a sum over k
+    weighted by the renormalised probabilities, plus the shared experts
+    as one MLP of width ``f * n_shared``.  ``cap`` depends on T, so a
+    forward pass and a decode step drop different pairs, as in the
+    reference."""
+    cd = cfg.cdtype
+    b, s_len, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    cap = max(1, -(-int(t * k * cfg.capacity_factor) // e))
+    topv, topi = moe_route(p["router"], xt, k)
+    e_flat, pos, keep = moe_slots(topi, e, cap)
+    # kept pairs fill distinct (expert, slot) rows; dropped ones go to one
+    # spare row past the buffers, which nothing reads
+    row = torch.where(keep, e_flat * cap + pos, e * cap)
+    src = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = xt.new_zeros((e * cap + 1, d))
+    buf.index_copy_(0, row, xt[src])
+    xb = buf[:e * cap].view(e, cap, d)
+    h = torch.bmm(xb, p["wi"].to(cd))
+    g = torch.bmm(xb, p["wg"].to(cd)) if "wg" in p else None
+    out_buf = torch.bmm(_act(h, g, cfg.mlp), p["wo"].to(cd))
+    gathered = out_buf.reshape(e * cap, d)[
+        e_flat * cap + torch.where(keep, pos, cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    y = (gathered.view(t, k, d) * topv.view(t, k, 1).to(cd)).sum(dim=1)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], cfg, xt)
+    return y.view(b, s_len, d)

@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder-only LMs, after
-``repro/models/model.py``.
+"""Model assembly for the decoder-only LMs of the dense, MoE/MLA and
+hybrid families, after ``repro/models/model.py``.
 
 Three entry points per model (built by :func:`build_model`):
   - ``forward(params, batch)``            -> logits (teacher-forced, causal)
@@ -8,20 +8,30 @@ Three entry points per model (built by :func:`build_model`):
 
 Attention runs on the hand-written kernels: B8 (``flash_attention``) in
 ``forward``/``prefill``, B9 (``decode_attention``) in ``decode_step``, one
-launch per layer each.  The layer stack is a Python loop over a list of
-per-layer param dicts; :func:`params_from_reference` turns the JAX
-package's parameters (as numpy arrays, the scanned layout with a leading
-L axis or the unrolled list) into this form.
+launch per layer each.  A block is the reference's: attention (GQA, MLA
+or, for the hybrid family, a sliding window beside parallel Mamba heads,
+averaged) and then an MLP or an MoE.  The layer stack is a Python loop
+over a list of per-layer param dicts; :func:`params_from_reference` turns
+the JAX package's parameters (as numpy arrays, the scanned layout with a
+leading L axis or the unrolled list) into this form.
 
-The decode cache is ``{"kv": {"k": (L,B,S,Hkv,D), "v": ...}}`` in the
-compute dtype, and ``decode_step`` writes the new K/V into it IN PLACE
-(the returned cache is the same tensors): the reference's functional
-update would copy the whole cache per step.  A decode ``pos`` must lie
-in ``[0, max_seq)``.
+The decode cache holds the reference's keys, stacked on a leading L axis,
+and ``decode_step`` writes into it IN PLACE (the returned cache is the
+same tensors): the reference's functional update would copy the whole
+cache per step.
+  - dense/MoE: ``{"kv": {"k": (L,B,S,Hkv,D), "v": ...}}`` in the compute
+    dtype;
+  - MLA: ``{"kv": {"c_kv": (L,B,S,r), "k_rope": (L,B,S,rh)}}``, both
+    column views of one ``(L,B,S,r+rh)`` row buffer that B9 reads;
+  - hybrid: ``{"kv": {"k", "v": (L,B,W,Hkv,D)}, "mamba": {"ssm":
+    (L,B,di,N), "conv": (L,B,K-1,di)}}``, the attention cache a ring of
+    ``W = min(window, max_seq)`` slots (position ``p`` at slot ``p mod
+    W``, B9 over slots ``[0, min(p, W-1)]``), the Mamba state fp32.
+A decode ``pos`` must lie in ``[0, max_seq)``.
 
-Only ``family == "dense"`` with ``attention == "full"`` is ported; every
-other family raises ``NotImplementedError`` (``ROADMAP.md`` queue A item 11).
-Entry points run on the card unless the caller asks for ``device="cpu"``.
+The ``ssm`` (xLSTM), ``encdec`` and ``vlm`` families raise
+``NotImplementedError`` (``ROADMAP.md`` queue A item 11).  Entry points
+run on the card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -32,14 +42,15 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
+
+_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise L.not_ported(f"the {cfg.family!r} model family")
-    if cfg.attention != "full":
-        raise L.not_ported(f"{cfg.attention!r} attention")
 
 
 def resolve_device(device) -> torch.device:
@@ -77,34 +88,59 @@ def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ blocks
 def init_block(cfg: ModelConfig, gen: torch.Generator,
                device: torch.device) -> dict:
+    """One decoder block's params (family-dependent)."""
     p: dict[str, Any] = {"ln1": L._norm_init(cfg.d_model, cfg.pdtype, device),
-                         "ln2": L._norm_init(cfg.d_model, cfg.pdtype, device),
-                         "attn": L.init_attention(cfg, gen, device)}
-    if cfg.d_ff > 0:
+                         "ln2": L._norm_init(cfg.d_model, cfg.pdtype, device)}
+    if cfg.attention == "mla":
+        p["attn"] = L.init_mla(cfg, gen, device)
+    else:
+        p["attn"] = L.init_attention(cfg, gen, device)
+    if cfg.family == "hybrid" and cfg.ssm_state > 0:
+        p["mamba"] = S.init_mamba(cfg, gen, device)
+    if cfg.is_moe:
+        p["moe"] = L.init_moe(cfg, gen, device)
+    elif cfg.d_ff > 0:
         p["mlp"] = L.init_mlp(cfg, gen, device)
     return p
 
 
 def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache=None, cache_pos=None,
-                rope=None):
-    """Returns (x, new_cache).  ``cache`` is this layer's ``{"kv": ...}``
-    (decode only); ``rope`` the precomputed ``(cos, sin)``."""
+                attend_pos=None, rope=None):
+    """Returns (x, new_cache).  ``cache`` is this layer's cache (decode
+    only), ``cache_pos`` the slot each row writes, ``attend_pos`` the
+    newest slot it attends to; ``rope`` the precomputed ``(cos, sin)``."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn_out, kv = L.attention_apply(
-        p["attn"], cfg, h, positions,
-        kv_cache=None if cache is None else cache["kv"],
-        cache_positions=cache_pos, rope=rope)
+    window = cfg.sliding_window if cfg.attention == "sliding" else 0
+    kv = None if cache is None else cache["kv"]
+    if cfg.attention == "mla":
+        attn_out, kv = L.mla_apply(p["attn"], cfg, h, positions,
+                                   kv_cache=kv, cache_positions=cache_pos,
+                                   rope=rope)
+    else:
+        attn_out, kv = L.attention_apply(
+            p["attn"], cfg, h, positions, window=window, kv_cache=kv,
+            cache_positions=cache_pos, attend_pos=attend_pos, rope=rope)
+    new_cache = {"kv": kv}
+    if cfg.family == "hybrid":
+        mb_out, mb_state = S.mamba_apply(
+            p["mamba"], cfg, h, None if cache is None else cache["mamba"])
+        attn_out = 0.5 * (attn_out + mb_out)       # parallel heads (hymba)
+        new_cache["mamba"] = mb_state
     x = x + attn_out
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        x = x + L.moe_apply(p["moe"], cfg, L.rmsnorm(p["ln2"], x,
+                                                     cfg.norm_eps))
+    elif cfg.d_ff > 0:
         x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x,
                                                      cfg.norm_eps))
-    return x, {"kv": kv}
+    return x, new_cache
 
 
 # ------------------------------------------------------------------- Model
 class Model:
-    """The dense decoder-only model on ``device`` (default the card)."""
+    """A decoder-only model of the dense, MoE/MLA or hybrid family on
+    ``device`` (default the card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         _check_ported(cfg)
@@ -113,9 +149,11 @@ class Model:
 
     # -- init ---------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> dict:
-        """Fresh parameters: the reference's shapes and its 0.02 normal
-        init (unit norm scales, zero qkv biases), drawn from
-        ``generator`` (default: seed 0 on the model's device)."""
+        """Fresh parameters: the reference's shapes, dtypes (the leaves of
+        :data:`~repro_torch.models.layers.FP32_LEAVES` in fp32) and its
+        0.02 normal init (unit norm scales, zero qkv biases, Mamba's
+        constant leaves), drawn from ``generator`` (default: seed 0 on the
+        model's device)."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
@@ -127,14 +165,16 @@ class Model:
     def _tokens(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
-    def _run_stack(self, params, x, positions, cache=None, cache_pos=None):
+    def _run_stack(self, params, x, positions, cache=None, cache_pos=None,
+                   attend_pos=None):
         cfg = self.cfg
-        rope = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        rope_dim = cfg.rope_head_dim if cfg.attention == "mla" else cfg.hd
+        rope = L.rope_cos_sin(positions, rope_dim, cfg.rope_theta)
         for i, layer_p in enumerate(params["blocks"]):
-            layer_cache = None if cache is None else {
-                "kv": {k: a[i] for k, a in cache["kv"].items()}}
+            layer_cache = None if cache is None else _map(
+                lambda a, _, i=i: a[i], cache)
             x, _ = block_apply(layer_p, cfg, x, positions, layer_cache,
-                               cache_pos, rope)
+                               cache_pos, attend_pos, rope)
         return x
 
     # -- full-sequence forward ----------------------------------------
@@ -152,26 +192,52 @@ class Model:
     def cache_spec(self, batch: int, max_seq: int) -> dict:
         """Shapes/dtypes of the decode cache (per layer, stacked on L)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        return {"kv": {"k": (shape, cfg.cdtype), "v": (shape, cfg.cdtype)}}
+        ls, kd = cfg.n_layers, cfg.cdtype
+        if cfg.family == "hybrid":
+            w = min(cfg.sliding_window or max_seq, max_seq)
+            kv = (ls, batch, w, cfg.n_kv_heads, cfg.hd)
+            return {"kv": {"k": (kv, kd), "v": (kv, kd)},
+                    "mamba": {k: ((ls, *v), torch.float32) for k, v in
+                              S.mamba_state_shape(cfg, batch).items()}}
+        if cfg.attention == "mla":
+            return {"kv": {
+                "c_kv": ((ls, batch, max_seq, cfg.kv_lora_rank), kd),
+                "k_rope": ((ls, batch, max_seq, cfg.rope_head_dim), kd)}}
+        kv = (ls, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        return {"kv": {"k": (kv, kd), "v": (kv, kd)}}
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
-        return {"kv": {k: torch.zeros(shape, dtype=dt, device=self.device)
-                       for k, (shape, dt) in
-                       self.cache_spec(batch, max_seq)["kv"].items()}}
+        """A zero cache of :meth:`cache_spec`'s shapes; MLA's ``c_kv`` and
+        ``k_rope`` are column views of one row buffer, so B9 reads each
+        cache row once."""
+        spec = self.cache_spec(batch, max_seq)
+        if self.cfg.attention == "mla":
+            (shape, dt), r = spec["kv"]["c_kv"], self.cfg.kv_lora_rank
+            rows = torch.zeros((*shape[:-1], r + self.cfg.rope_head_dim),
+                               dtype=dt, device=self.device)
+            return {"kv": {"c_kv": rows[..., :r], "k_rope": rows[..., r:]}}
+        return _map(lambda sd, _: torch.zeros(sd[0], dtype=sd[1],
+                                              device=self.device), spec)
 
     # -- decode --------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, params, cache, batch: dict):
         """One-token decode.  batch: tokens (B,1), pos (B,) the current
         position (kept on the device; no host sync reads it).  The cache is
-        updated in place and returned."""
+        updated in place and returned.  The hybrid family's ring writes
+        slot ``pos mod W`` and attends to slots ``[0, min(pos, W-1)]``,
+        both computed on the card."""
         tokens = self._tokens(batch["tokens"])
         pos = torch.as_tensor(batch["pos"], device=self.device).to(
             torch.int32)
+        cache_pos = attend = pos
+        if self.cfg.family == "hybrid":
+            w = cache["kv"]["k"].shape[2]
+            cache_pos = torch.remainder(pos, w)
+            attend = torch.clamp(pos, max=w - 1)
         x = embed(params["emb"], self.cfg, tokens)
         x = self._run_stack(params, x, pos[:, None], cache=cache,
-                            cache_pos=pos)
+                            cache_pos=cache_pos, attend_pos=attend)
         logits = unembed(params["emb"], self.cfg, x)
         return logits[:, 0], cache
 
@@ -193,31 +259,37 @@ def _to_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
 
 
-def _map(fn, tree):
+def _map(fn, tree, key=""):
+    """``fn(leaf, its key)`` over the leaves of a nested dict (a
+    ``(shape, dtype)`` spec pair is a leaf)."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, v, k) for k, v in tree.items()}
+    return fn(tree, key)
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig,
                           device="cuda") -> dict:
     """The JAX package's parameters for ``cfg`` (its nested dict with every
-    leaf passed through ``np.asarray``) as the port's, in ``cfg.pdtype`` on
-    ``device``.  ``tree["blocks"]`` may be the
-    scanned layout (one dict, every leaf stacked on a leading L axis) or
-    the unrolled list of per-layer dicts."""
+    leaf passed through ``np.asarray``) as the port's on ``device``, in
+    ``cfg.pdtype`` but for the leaves the reference keeps in fp32 whatever
+    the config says (:data:`~repro_torch.models.layers.FP32_LEAVES`: the
+    MoE router, whose Top-k a bf16 rounding would change, and Mamba's
+    ``a_log`` and ``d_skip``), which stay fp32.  ``tree["blocks"]`` may be
+    the scanned layout (one dict, every leaf stacked on a leading L axis)
+    or the unrolled list of per-layer dicts."""
     _check_ported(cfg)
     dev = resolve_device(device)
 
-    def conv(a):
-        return _to_tensor(a, cfg.pdtype, dev)
+    def conv(a, name):
+        dt = torch.float32 if name in L.FP32_LEAVES else cfg.pdtype
+        return _to_tensor(a, dt, dev)
     blocks = tree["blocks"]
     if isinstance(blocks, dict):
         n = {np.shape(a)[0] for a in _leaves(blocks)}
         if n != {cfg.n_layers}:
             raise ValueError(f"stacked blocks have leading axes {n}, "
                              f"expected {cfg.n_layers}")
-        blocks = [_map(lambda a, i=i: np.asarray(a)[i], blocks)
+        blocks = [_map(lambda a, _, i=i: np.asarray(a)[i], blocks)
                   for i in range(cfg.n_layers)]
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")

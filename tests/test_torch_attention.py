@@ -167,7 +167,7 @@ def test_check_tma_takes_aligned_layouts(d, strides, ptr):
 
 
 @pytest.mark.parametrize("d,strides,ptr,match", [
-    (48, _DENSE, 0, "head dim"),
+    (40, _DENSE, 0, "head dim"),
     (96, _DENSE, 0, "head dim"),
     (64, (_H * _S * 65, _S * 65, 65, 1), 0, "sequence stride of 130"),
     (64, (_H * _S * _D, 36, _D, 1), 0, "head stride of 72"),

@@ -1075,6 +1075,138 @@ def test_attention_wrappers_never_take_the_plain_version_on_the_card(
     torch.cuda.synchronize()
 
 
+# MLA's (Q/K, V) head dims (deepseek-v2-lite-16b's 192/128, its smoke
+# variant's 48/32) and sliding windows (hymba-1.5b's 2,048 at G = 5, D =
+# 64; its smoke variant's 64 at D = 32; windows narrower than a 64-key
+# tile, and of one key); S ragged around the stages and the query tiles
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,dv,window", [
+    (1, 16, 16, 300, 192, 128, 0), (2, 4, 4, 129, 48, 32, 0),
+    (1, 4, 4, 1000, 48, 32, 0), (2, 16, 16, 130, 192, 128, 0),
+    (1, 25, 5, 2300, 64, 64, 2048), (1, 10, 2, 600, 64, 64, 256),
+    (2, 4, 2, 300, 32, 32, 64), (1, 4, 2, 200, 32, 32, 40),
+    (1, 6, 3, 257, 64, 64, 17), (1, 4, 2, 150, 64, 64, 1),
+    (1, 4, 4, 257, 192, 128, 100), (2, 4, 4, 130, 48, 32, 33),
+    (1, 8, 2, 700, 128, 128, 129), (1, 4, 1, 300, 256, 256, 65)])
+def test_flash_attention_mla_heads_and_windows_match_plain(
+        cuda, rng, b, h, hkv, s, d, dv, window, dtype):
+    from repro_torch.kernels import flash_attention, ref
+    q = _randn(rng, (b, h, s, d), dtype, cuda)
+    k = _randn(rng, (b, hkv, s, d), dtype, cuda)
+    v = _randn(rng, (b, hkv, s, dv), dtype, cuda)
+    before = flash_attention.launches
+    wgmma = flash_attention.wgmma_launches
+    out = flash_attention.flash_attention(q, k, v, window)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.wgmma_launches == wgmma + (dtype == torch.bfloat16)
+    assert out.shape == (b, h, s, dv) and out.dtype == dtype
+    _attn_close(out, ref.attention_ref(q, k, v, window=window))
+
+
+def test_flash_attention_mla_output_follows_the_model_layout(cuda, rng):
+    """MLA's (B,S,H,192) q/k and (B,S,H,128) v as transpose(1, 2) views:
+    the (B,H,S,128) output is a transposed view of a dense (B,S,H,128)."""
+    from repro_torch.kernels import flash_attention, ref
+    b, s, h, d, dv = 2, 200, 16, 192, 128
+    q, k = (_randn(rng, (b, s, h, d), torch.bfloat16, cuda) for _ in "qk")
+    v = _randn(rng, (b, s, h, dv), torch.bfloat16, cuda)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = flash_attention.flash_attention(qt, kt, vt)
+    assert out.shape == (b, h, s, dv) and out.transpose(1, 2).is_contiguous()
+    _attn_close(out, ref.attention_ref(qt, kt, vt))
+
+
+# MLA's absorbed decode: one kv head, V the first Dv columns of each K row
+# (a view, read once), the scale 1/sqrt(hd + rh) (deepseek: 192, its
+# smoke variant: 48), G = 16 and G = 4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,s,d,dv,scale", [
+    (3, 16, 300, 576, 512, 192 ** -0.5), (4, 16, 2100, 576, 512, 192 ** -0.5),
+    (2, 4, 257, 576, 512, 192 ** -0.5), (8, 16, 40, 576, 512, 0.3),
+    (2, 4, 100, 80, 64, 48 ** -0.5), (5, 4, 2049, 80, 64, 48 ** -0.5),
+    (3, 16, 129, 80, 64, 48 ** -0.5)])
+def test_decode_attention_v_as_a_view_of_k_matches_plain(
+        cuda, rng, b, g, s, d, dv, scale, dtype):
+    from repro_torch.kernels import decode_attention as da, ref
+    q = _randn(rng, (b, g, d), dtype, cuda)
+    rows = _randn(rng, (b, s, 1, d), dtype, cuda)
+    v = rows[..., :dv]
+    assert da.v_in_k(rows, v) and not v.is_contiguous()
+    pos = rng.integers(0, s, b).astype(np.int32)
+    pos[0], pos[-1] = 0, s - 1
+    pos = torch.from_numpy(pos).to(cuda)
+    before = da.launches
+    out = da.decode_attention(q, rows, v, pos, scale)
+    assert da.launches == before + 1
+    assert out.shape == (b, g, dv) and out.dtype == dtype
+    want = ref.decode_attention_ref(q, rows, v, pos, scale)
+    _attn_close(out, want)
+    # V in a tensor of its own: the same function through the second map
+    _attn_close(da.decode_attention(q, rows, v.contiguous(), pos, scale),
+                want)
+
+
+def test_attention_wrappers_raise_on_unsupported_head_dims(cuda, rng):
+    """Shapes the kernels are not built for raise on the card rather than
+    take the plain version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    q = _randn(rng, (1, 4, 64, 192), torch.bfloat16, cuda)
+    v = _randn(rng, (1, 4, 64, 64), torch.bfloat16, cuda)
+    n8, n9 = fa.launches, da.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, v)                     # (192, 64)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, -1)
+    rows = _randn(rng, (2, 50, 1, 576), torch.bfloat16, cuda)
+    qd = _randn(rng, (2, 16, 576), torch.bfloat16, cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        da.decode_attention(qd, rows, rows[..., :256], pos)   # (576, 256)
+    with pytest.raises(ValueError, match="column-prefix"):
+        da.decode_attention(qd, rows, rows[..., 64:], pos)    # not a prefix
+    with pytest.raises(ValueError, match="do not fit"):
+        da.decode_attention(_randn(rng, (2, 17, 576), torch.bfloat16, cuda),
+                            rows, rows[..., :512], pos)
+    assert (fa.launches, da.launches) == (n8, n9)
+
+
+_FAMILIES = ["deepseek-v2-lite-16b", "grok-1-314b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_every_family_runs_on_the_card(cuda, arch):
+    """The MoE/MLA and hybrid smoke variants, fp32: forward on the card
+    (B8 at 48/32 for deepseek, windowed for hymba) within 1e-4 of the same
+    parameters on the host, and teacher-forced decode (B9 at 80/64 with V
+    a view of the latent rows; hymba past its window of 64, through the
+    ring) within 1e-4 of forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import Model, smoke_variant
+    cfg = smoke_variant(get_config(arch))
+    host = Model(cfg, "cpu")
+    params = host.init(torch.Generator().manual_seed(7))
+    card = Model(cfg, "cuda")
+    cparams = _move(params, cuda)
+    s = 90 if cfg.family == "hybrid" else 24
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (2, s)))
+    f0 = flash_attention.launches
+    full = card.forward(cparams, {"tokens": tokens})
+    assert flash_attention.launches == f0 + cfg.n_layers
+    want = host.forward(params, {"tokens": tokens})
+    assert float((full.cpu() - want).abs().max()) <= 1e-4
+    cache = card.init_cache(2, s + 8)
+    d0 = decode_attention.launches
+    for p in range(s):
+        logits, cache = card.decode_step(cparams, cache, {
+            "tokens": tokens[:, p:p + 1],
+            "pos": torch.full((2,), p, dtype=torch.int32)})
+        assert float((logits - full[:, p]).abs().max()) <= 1e-4
+    assert decode_attention.launches == d0 + s * cfg.n_layers
+
+
 def _card_model_cfg():
     """A small dense config the card's kernels take (head dim 64, G = 3),
     in fp32."""

@@ -5,7 +5,8 @@ CPU.
   ``"kernel"`` backends against ``repro.serving.ServingEngine`` with the
   same carried-over fp32 parameters and requests: per-request
   ``out_tokens`` and ``cached`` and the ``stats`` counters must be equal
-  (greedy tokens from logits that agree to ~1e-6).
+  (greedy tokens from logits that agree to ~1e-6); also for the MoE/MLA
+  (deepseek) and hybrid (hymba) smoke variants.
 - The port's facade built with ``policy=`` each of the 16 baselines makes
   the reference facade's event stream on one trace.
 - The synchronous, single-tier surface (``flush``/``drain``, ``close``,
@@ -77,6 +78,30 @@ def test_engine_matches_the_reference_engine(reference_run, backend):
     # every decode step dispatches decode attention once per layer
     assert ops.dispatch_stats["launches"] - d0 >= \
         stats["batches"] * cfg.n_layers
+    eng.close()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hymba-1.5b"])
+def test_engine_serves_the_other_families_like_the_reference(arch):
+    """The MoE/MLA and hybrid smoke variants behind the engine, with no
+    family branch of its own: the reference engine's tokens, cached flags
+    and counters from the same carried-over parameters (every slot steps,
+    idle ones too, and a reused slot keeps its Mamba state, as in the
+    reference)."""
+    rcfg = r_smoke(r_get_config(arch))
+    ref = RServingEngine(rcfg, REngineConfig(**ENGINE),
+                         rng=jax.random.PRNGKey(3))
+    reqs = _requests(rcfg.vocab_size)
+    want, want_stats = _outcome(ref, reqs)
+    cfg = smoke_variant(get_config(arch))
+    eng = ServingEngine(cfg, EngineConfig(**ENGINE, device="cpu"),
+                        params=params_from_reference(
+                            jax.tree.map(np.asarray, ref.params), cfg,
+                            "cpu"))
+    got, stats = _outcome(eng, reqs)
+    assert stats == want_stats
+    assert got == want
+    assert want_stats["hits"] > 0 and want_stats["evictions"] > 0
     eng.close()
 
 
