@@ -1,4 +1,4 @@
-// Causal GQA prefill attention with an online softmax:
+// GQA prefill attention with an online softmax, causal or not:
 //   o[b, h, i] = softmax_{j <= i}(q[b, h, i] . k[b, h/G, j] / sqrt(D))
 //                . v[b, h/G, j]
 // fp32 arithmetic, the output in the input dtype (bf16 or fp32).  V may
@@ -6,14 +6,21 @@
 // 128, its smoke variant's 48 with 32), and a window W > 0 bands each row
 // to keys j > i - W (hymba's sliding window of 2,048): the key tiles
 // below a query block's band are never loaded, only the band's edge tiles
-// are masked, so a banded pass costs O(S W) and not O(S^2).
+// are masked, so a banded pass costs O(S W) and not O(S^2).  Non-causal
+// (causal = 0, no window): every one of the S query rows attends to all T
+// keys, and T may differ from S (whisper's encoder, S = T = 1,500 audio
+// frames, and its cross attention, 448 text rows over those 1,500 frames).
+// Each block then runs all ceil(T / 64) key tiles; the last tile's keys
+// past T are masked in the kernel (TMA fills them with zeros, whose score
+// 0 is no -inf).  Key 0 lies in every block's first tile, so every row's
+// running max is finite from there on.
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention_pallas
 // (_flash_kernel): grid (batch, heads, query blocks), the query tile
 // resident while K/V stream in chunks, the causal bound stopping the chunk
 // loop at the diagonal, kv head h // G with no K/V repeat.  The reference
-// runs MLA's and the window's attention through XLA (sdpa in
-// repro/models/layers.py); here they stay on this kernel.
+// runs MLA's, the window's, the encoder's and the cross attention through
+// XLA (sdpa in repro/models/layers.py); here they stay on this kernel.
 //
 // One C entry, two kernels: bf16 inputs take the Hopper kernel (wgmma fed
 // by a TMA ring, namespace hopper), fp32 inputs the SIMT kernel (namespace
@@ -49,7 +56,9 @@
 //
 // Design:
 //  - Grid (H * DVT / DV, B, ceil(S / 128)): block z takes query tile
-//    n - 1 - z, so the longest causal rows of every head start first;
+//    n - 1 - z, so the longest causal rows of every head start first (in
+//    a non-causal pass every block runs the same T keys: the order is
+//    moot);
 //    block x takes head x / (DVT / DV) and DV of V's DVT output columns
 //    (DV = DVT up to 128; 128 at DVT = 256 and 64 at 192, whose whole O
 //    accumulators do not fit beside the scores and the P pieces, so each
@@ -62,8 +71,8 @@
 //    stage for the next load.  The tensor maps describe each operand in
 //    4-D (D, S, heads, B) with the caller's byte strides, so strided views
 //    go in without a copy (every stride and base a multiple of 16 bytes:
-//    the wrapper raises otherwise).  TMA fills keys and rows past S with
-//    zeros and the kernel masks them.  SWIZZLE_128B: a 64-column bf16 row
+//    the wrapper raises otherwise).  TMA fills keys past T and rows past
+//    S with zeros and the kernel masks those keys.  SWIZZLE_128B: a 64-column bf16 row
 //    is exactly one 128-byte span, tiles sit on 1,024-byte boundaries, and
 //    wider rows load as D / 64 boxes of 64 columns (V as DV / 64: the
 //    block's columns only).  D = 32 rows are 64 bytes: SWIZZLE_64B, one
@@ -75,7 +84,7 @@
 //    memory: the transpose bit), then runs tile kt's online softmax on the
 //    fp32 scores while the P.V product is in flight (a row lives in the 4
 //    threads of a quad: two xor shuffles; the masks only where the tile
-//    crosses the diagonal or S), waits for it, frees tile kt - 1's stage,
+//    crosses the diagonal or T), waits for it, frees tile kt - 1's stage,
 //    rescales O by alpha and splits tile kt's P.  The two warpgroups take
 //    turns at issuing (two named barriers), so one's softmax overlaps the
 //    other's products (without the turns it runs 13% slower at S =
@@ -328,26 +337,26 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // the online softmax of one tile on the raw scores sc (in place: the
-// weights), rows r0 and r1 = r0 + 8; masks where the tile crosses the
-// warpgroup's first row, S or (window > 0) the lower edge of a row's band
-// (keys j > row - window); returns each row's alpha.  A row whose band
+// weights), rows r0 and r1 = r0 + 8; masks where the tile crosses (causal)
+// the warpgroup's first row, the T keys or (window > 0) the lower edge of
+// a row's band (keys j > row - window); returns each row's alpha.  A row whose band
 // starts past this tile has seen only masked keys (its max is still
 // -1e30): it takes 0 as its max's term, so its weights and alpha are
 // exp2(-1e30 c) = 0, and it adds nothing until its band begins.
 __device__ __forceinline__ void softmax(float (&sc)[BK / 2], int k0, int qw0,
-                                        int r0, int s, int window, int quad,
-                                        float c, float& m0, float& m1,
-                                        float& l0, float& l1, float& al0,
-                                        float& al1) {
+                                        int r0, int t, int causal,
+                                        int window, int quad, float c,
+                                        float& m0, float& m1, float& l0,
+                                        float& l1, float& al0, float& al1) {
   const int r1 = r0 + 8;
-  const bool edge = k0 + BK - 1 > qw0 || k0 + BK > s ||
+  const bool edge = (causal && k0 + BK - 1 > qw0) || k0 + BK > t ||
                     (window > 0 && k0 <= qw0 + 63 - window);
   float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
     const int row = (i & 2) ? r1 : r0;
     const int col = k0 + (i / 4) * 8 + 2 * quad + (i & 1);
-    if (edge && (col > row || col >= s ||
+    if (edge && ((causal && col > row) || col >= t ||
                  (window > 0 && col <= row - window)))
       sc[i] = kNeg;
     if (i & 2)
@@ -396,8 +405,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
-                 __nv_bfloat16* __restrict__ o, int s, int g, int window,
-                 Strides os_, float scale) {
+                 __nv_bfloat16* __restrict__ o, int s, int t, int g,
+                 int window, int causal, Strides os_, float scale) {
   using C = Cfg<D, DVT>;
   constexpr int NS = C::NS;
   extern __shared__ uint8_t smem_raw[];
@@ -413,7 +422,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hh = blockIdx.x / C::NCOL, b = blockIdx.y, kh = hh / g;
   const int col0 = (blockIdx.x % C::NCOL) * C::DV;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int kt_end = (min(q0 + BQ, s) - 1) / BK + 1;  // causal bound
+  // the causal bound, or all T keys
+  const int kt_end =
+      causal ? (min(q0 + BQ, s) - 1) / BK + 1 : (t + BK - 1) / BK;
   // the band's first key tile: keys below q0 - window + 1 are outside
   // every row's band, and their tiles are not loaded
   const int kt0 = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
@@ -458,9 +469,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // warpgroups run all n_kt tiles (a tile past a row's diagonal or
     // before its band is all masked and adds nothing), so their turns
     // pair up.
-    const int t = threadIdx.x % 128, lane = t % 32, quad = lane % 4;
+    const int tw = threadIdx.x % 128, lane = tw % 32, quad = lane % 4;
     const int qw0 = q0 + wg * 64;
-    const int r0 = qw0 + (t / 32) * 16 + lane / 4, r1 = r0 + 8;
+    const int r0 = qw0 + (tw / 32) * 16 + lane / 4, r1 = r0 + 8;
     const uint32_t qa = q_sm + wg * 64 * C::SPAN;
     // exp(scale * (x - m)) = exp2(x * c - m * c) on the raw scores x
     const float c = scale * 1.44269504088896341f;
@@ -485,8 +496,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     turn_pass(wg);
     wg_wait<0>();
     reg_fence(sc);
-    softmax(sc, kt0 * BK, qw0, r0, s, window, quad, c, m0, m1, l0, l1, al0,
-            al1);
+    softmax(sc, kt0 * BK, qw0, r0, t, causal, window, quad, c, m0, m1, l0,
+            l1, al0, al1);
     split_weights(sc, ph, pm, pl);
 
     // tile i's scores and tile i - 1's values in one turn, then tile i's
@@ -504,8 +515,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       turn_pass(wg);
       wg_wait<1>();
       reg_fence(sc);
-      softmax(sc, (kt0 + i) * BK, qw0, r0, s, window, quad, c, m0, m1, l0,
-              l1, al0, al1);
+      softmax(sc, (kt0 + i) * BK, qw0, r0, t, causal, window, quad, c, m0,
+              m1, l0, l1, al0, al1);
       wg_wait<0>();
       reg_fence(acc);
       reg_fence(ph);
@@ -576,8 +587,8 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int D, int DVT>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int hkv, int s, const long long* st, float scale,
-           int window, cudaStream_t stream) {
+           int h, int hkv, int s, int t, const long long* st, float scale,
+           int window, int causal, cudaStream_t stream) {
   using C = Cfg<D, DVT>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -585,9 +596,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   CUresult r =
       make_map(encode, &qm, q, D, C::BOXC, C::SPAN, s, h, b, st, BQ);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &km, k, D, C::BOXC, C::SPAN, s, hkv, b, st + 3, BK);
+    r = make_map(encode, &km, k, D, C::BOXC, C::SPAN, t, hkv, b, st + 3, BK);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &vm, v, DVT, C::VBOXC, C::VSPAN, s, hkv, b, st + 6,
+    r = make_map(encode, &vm, v, DVT, C::VBOXC, C::VSPAN, t, hkv, b, st + 6,
                  BK);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -596,7 +607,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(h * C::NCOL, b, (s + BQ - 1) / BQ);
   flash_kernel<D, DVT><<<grid, kThreads, C::SMEM, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, s, h / hkv, window,
+      qm, km, vm, (__nv_bfloat16*)o, s, t, h / hkv, window, causal,
       Strides{st[9], st[10], st[11]}, scale);
   return (int)cudaGetLastError();
 }
@@ -612,6 +623,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // Design (simple and right first):
 //  - Grid (ceil(S / 64), H, B), 256 threads.  Block x takes query tile
 //    n_tiles - 1 - x, so the longest causal rows start first.
+//  - Non-causal: every block runs all ceil(T / 64) key tiles, keys past T
+//    masked; T may differ from S.
 //  - The 64-row query tile (pre-scaled by 1/sqrt(D), as the TPU kernel
 //    does) stays in shared memory; 64-key K and V tiles stream through it
 //    up to the tile that holds the block's last row (the causal bound).
@@ -620,7 +633,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 //    accumulators, which stay in registers; the row max and sum reduce
 //    over the 16 lanes of a half-warp with shuffles.  K rows are padded to
 //    D + 1 floats so the 16 columns a half-warp reads fall in 16 banks.
-//  - Rows past S are not stored and keys past S load as zeros and are
+//  - Rows past S are not stored and keys past T load as zeros and are
 //    masked.  Without a window every row meets key 0 in its first tile,
 //    so its running max is finite from then on and a masked score adds
 //    exp(-1e30 - m) = 0.  With one, a row whose band starts past the
@@ -645,8 +658,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int s,
-                 int g, int window, Strides qs_, Strides ks_, Strides vs_,
-                 Strides os_, float scale) {
+                 int t, int g, int window, int causal, Strides qs_,
+                 Strides ks_, Strides vs_, Strides os_, float scale) {
   constexpr int QP = D + 1, KP = D + 1, NC = DV / 16;
   extern __shared__ float sm[];
   float* qs = sm;
@@ -676,8 +689,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
-  const int q_hi = min(q0 + BQ, s);       // rows [q0, q_hi)
-  const int n_kt = (q_hi + BK - 1) / BK;  // causal bound: keys < q_hi
+  const int q_hi = min(q0 + BQ, s);  // rows [q0, q_hi)
+  // the causal bound (keys < q_hi), or all T keys
+  const int n_kt = causal ? (q_hi + BK - 1) / BK : (t + BK - 1) / BK;
   // the band's first key tile (window > 0): no row of the block reaches
   // a key below q0 - window + 1
   const int kt0 = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
@@ -686,11 +700,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // Q is loaded; the previous tile's readers are done
     for (int i = tid; i < BK * D; i += kThreads) {
       const int j = i / D, d = i - j * D, key = k0 + j;
-      ks[j * KP + d] = key < s ? kb[key * ks_.s + d] : 0.f;
+      ks[j * KP + d] = key < t ? kb[key * ks_.s + d] : 0.f;
     }
     for (int i = tid; i < BK * DV; i += kThreads) {
       const int j = i / DV, d = i - j * DV, key = k0 + j;
-      vs[j * DV + d] = key < s ? vb[key * vs_.s + d] : 0.f;
+      vs[j * DV + d] = key < t ? vb[key * vs_.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -719,7 +733,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + tx + 16 * c;
-        if (col > row || col >= s || (window > 0 && col <= row - window))
+        if ((causal && col > row) || col >= t ||
+            (window > 0 && col <= row - window))
           sc[r][c] = kNeg;
         mx = fmaxf(mx, sc[r][c]);
       }
@@ -773,8 +788,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int hkv, int s, const long long* st, float scale,
-           int window, cudaStream_t stream) {
+           int h, int hkv, int s, int t, const long long* st, float scale,
+           int window, int causal, cudaStream_t stream) {
   const int smem = smem_floats(D, DV) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -784,8 +799,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((s + BQ - 1) / BQ, h, b);
   flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, s,
-      h / hkv, window, qs, ks, vs, os, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, s, t,
+      h / hkv, window, causal, qs, ks, vs, os, scale);
   return (int)cudaGetLastError();
 }
 
@@ -795,31 +810,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// q (B, H, S, D), k (B, Hkv, S, D), v (B, Hkv, S, DV), o (B, H, S, DV),
+// q (B, H, S, D), k (B, Hkv, T, D), v (B, Hkv, T, DV), o (B, H, S, DV),
 // each given by its batch, head and sequence strides in elements (12
 // values: q, k, v, o), the head dim contiguous.  is_bf16: the Hopper
 // kernel (q, k, v and their strides 16-byte aligned), else fp32 on the
 // SIMT kernel; (D, DV) in {(32, 32), (64, 64), (128, 128), (192, 192),
-// (256, 256), (192, 128), (48, 32)}; H a multiple of Hkv; window > 0
-// bands each query i to keys j > i - window.
+// (256, 256), (192, 128), (48, 32)}; H a multiple of Hkv.  causal = 1:
+// T == S, query i attends to keys j <= i, and window > 0 bands it to keys
+// j > i - window; causal = 0: every query attends to all T keys (window
+// 0).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int b, int h, int hkv, int s, int d,
-                           int dv, const long long* strides, int is_bf16,
-                           float scale, int window, int device,
-                           cudaStream_t stream) {
+                           void* o, int b, int h, int hkv, int s, int t,
+                           int d, int dv, const long long* strides,
+                           int is_bf16, float scale, int window, int causal,
+                           int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (b <= 0 || s <= 0 || hkv <= 0 || h % hkv != 0 || b > 65535 ||
-      h > 65535 || window < 0)
+  if (b <= 0 || s <= 0 || t <= 0 || hkv <= 0 || h % hkv != 0 || b > 65535 ||
+      h > 65535 || window < 0 || (causal && t != s) ||
+      (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
   if (is_bf16 && (s + hopper::BQ - 1) / hopper::BQ > 65535)
     return (int)cudaErrorInvalidValue;
 #define FLASH_CASE(D, DV)                                                   \
   if (d == D && dv == DV)                                                   \
-    return is_bf16 ? hopper::launch<D, DV>(q, k, v, o, b, h, hkv, s,        \
-                                           strides, scale, window, stream)  \
-                   : simt::launch<D, DV>(q, k, v, o, b, h, hkv, s, strides, \
-                                         scale, window, stream);
+    return is_bf16 ? hopper::launch<D, DV>(q, k, v, o, b, h, hkv, s, t,     \
+                                           strides, scale, window, causal,  \
+                                           stream)                          \
+                   : simt::launch<D, DV>(q, k, v, o, b, h, hkv, s, t,       \
+                                         strides, scale, window, causal,    \
+                                         stream);
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)
   FLASH_CASE(128, 128)

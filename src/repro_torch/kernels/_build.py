@@ -69,8 +69,8 @@ _SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_slots": [_I, _I, _I, _I, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                               _I, _F, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _I, _F, _I, _I, _I, _P],
 }
 
 

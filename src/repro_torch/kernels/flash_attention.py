@@ -1,13 +1,14 @@
-"""Causal GQA prefill attention, optionally banded to a sliding window,
-with V's head dim free of Q's and K's: ``csrc/flash_attention.cu`` and its
-wrapper.
+"""GQA prefill attention, causal (optionally banded to a sliding window)
+or not (over K/V of their own length: an encoder's self-attention, cross
+attention), with V's head dim free of Q's and K's:
+``csrc/flash_attention.cu`` and its wrapper.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
 The wrapper launches the CUDA kernel for CUDA tensors and takes the plain
 version (:func:`~repro_torch.kernels.ref.attention_ref`) for CPU tensors;
 anything else raises.  bf16 inputs go to the Hopper kernel (wgmma fed by
-TMA loads), fp32 inputs to the SIMT kernel.  Both mask the ragged tail of
-S themselves, so nothing is padded, and read and write by strides: a
+TMA loads), fp32 inputs to the SIMT kernel.  Both mask the ragged tails of
+S and T themselves, so nothing is padded, and read and write by strides: a
 (B,S,H,D) projection passed as its ``transpose(1, 2)`` view goes in without
 a copy, and the output keeps q's strides.  TMA takes a bf16 operand only
 where its base and its batch, head and sequence strides are multiples of
@@ -37,27 +38,32 @@ SHAPES = ((32, 32), (64, 64), (128, 128), (192, 192), (256, 256),
 _HEAD_DIMS = tuple(sorted({d for d, _ in SHAPES}))
 
 
-def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
+def _check(q, k, v, causal: bool, window: int
+           ) -> tuple[int, int, int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: expected q (B,H,S,D), k "
-                         f"(B,Hkv,S,D) and v (B,Hkv,S,Dv), got "
+                         f"(B,Hkv,T,D) and v (B,Hkv,T,Dv), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, s, d = q.shape
-    hkv, dv = k.shape[1], v.shape[3]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hkv == 0 \
-            or h % hkv != 0:
+    hkv, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0], k.shape[3]) != (b, d) or (causal and t != s) \
+            or hkv == 0 or h % hkv != 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
-                         f"match k {tuple(k.shape)}")
+                         f"match k {tuple(k.shape)}"
+                         + (" (causal: T must equal S)" if causal else ""))
+    if window < 0 or (window > 0 and not causal):
+        raise ValueError(f"flash_attention: window {window} (a window must "
+                         "be >= 0, and only a causal pass takes one)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share one dtype "
                          f"of {_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {x.device}, q on "
                              f"{q.device}")
-    return b, h, s, d, hkv, dv
+    return b, h, s, t, d, hkv, dv
 
 
 def _check_head(d: int, operands) -> None:
@@ -116,22 +122,23 @@ def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention: q (B,H,S,D), k (B,Hkv,S,D), v (B,Hkv,S,Dv), H a
+                    window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention of q (B,H,S,D) over k (B,Hkv,T,D), v (B,Hkv,T,Dv), H a
     multiple of Hkv (query head ``h`` reads kv head ``h // (H/Hkv)``),
-    scale 1/sqrt(D); ``window > 0`` keeps key ``j`` for query ``i`` only
-    where ``j > i - window`` (the kernels skip key tiles outside the band).
-    Returns (B,H,S,Dv) in q's dtype (fp32 or bf16; fp32 arithmetic), laid
-    out as q is.  On the card (D, Dv) is one of :data:`SHAPES` and the
-    head dim of every operand is contiguous; bf16 operands also pass
-    :func:`check_tma`."""
+    scale 1/sqrt(D).  ``causal``: T == S and query ``i`` attends to keys
+    ``j <= i``; ``window > 0`` keeps key ``j`` only where ``j > i -
+    window`` (the kernels skip key tiles outside the band).  Not
+    ``causal``: every query attends to all T keys, T free of S, and no
+    window.  Returns (B,H,S,Dv) in q's dtype (fp32 or bf16; fp32
+    arithmetic), laid out as q is.  On the card (D, Dv) is one of
+    :data:`SHAPES` and the head dim of every operand is contiguous; bf16
+    operands also pass :func:`check_tma`."""
     global launches, wgmma_launches
-    b, h, s, d, hkv, dv = _check(q, k, v)
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
+    causal = bool(causal)
+    b, h, s, t, d, hkv, dv = _check(q, k, v, causal, window)
     dev = q.device
     if dev.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=True, window=window)
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if (d, dv) not in SHAPES:
@@ -139,8 +146,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" not in {SHAPES} on the card")
     bf16 = q.dtype == torch.bfloat16
     stride_of = _tma_strides if bf16 else torch.Tensor.stride
-    operands = [(name, stride_of(t), t.data_ptr())
-                for name, t in (("q", q), ("k", k), ("v", v))]
+    operands = [(name, stride_of(x), x.data_ptr())
+                for name, x in (("q", q), ("k", k), ("v", v))]
     if bf16:
         check_tma(d, operands)
     else:
@@ -148,13 +155,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _out_like(q, dv)
     if b == 0 or h == 0 or s == 0:
         return out
+    if t == 0:
+        raise ValueError("flash_attention: no keys (T = 0)")
     strides = (ctypes.c_longlong * 12)(*(
-        stride_of(t)[i] for t in (q, k, v, out) for i in (0, 1, 2)))
+        stride_of(x)[i] for x in (q, k, v, out) for i in (0, 1, 2)))
     lib = _build.library()
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        s, d, dv, strides, int(bf16), d ** -0.5, window, dev.index,
-        _build.stream_of(q)), "flash_attention")
+        s, t, d, dv, strides, int(bf16), d ** -0.5, window, int(causal),
+        dev.index, _build.stream_of(q)), "flash_attention")
     launches += 1
     wgmma_launches += bf16
     return out

@@ -289,11 +289,13 @@ def victim_value_multi(tsi, tid, occ, tp_last, t_last, t_now, *,
 
 
 @_counted
-def flash_attention(q, k, v, window: int = 0):
-    """Causal GQA flash attention, banded to ``window`` keys when it is
-    positive.  q (B,H,S,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,S,Dv),
-    any S (the kernel masks the ragged tail: no padding)."""
-    return _flash_attention(q, k, v, window)
+def flash_attention(q, k, v, window: int = 0, causal: bool = True):
+    """GQA flash attention: causal (T == S), banded to ``window`` keys when
+    it is positive, or, with ``causal=False``, every query over all T keys
+    (an encoder's self-attention, cross attention).  q (B,H,S,D); k
+    (B,Hkv,T,D); v (B,Hkv,T,Dv) -> (B,H,S,Dv), any S and T (the kernel
+    masks the ragged tails: no padding)."""
+    return _flash_attention(q, k, v, window, causal)
 
 
 @_counted

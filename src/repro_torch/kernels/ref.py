@@ -137,23 +137,26 @@ def victim_value_multi_ref(tsi: torch.Tensor, tid: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B,H,S,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,S,Dv) in q's
+    """q (B,H,S,D); k (B,Hkv,T,D); v (B,Hkv,T,Dv) -> (B,H,S,Dv) in q's
     dtype.  Query head ``h`` reads kv head ``h // (H/Hkv)``; scores,
-    softmax and the weighted sum are fp32.  ``window > 0`` keeps key ``j``
-    for query ``i`` only where ``j > i - window`` (the reference's band).
-    Any strides."""
+    softmax and the weighted sum are fp32.  ``causal`` keeps key ``j`` for
+    query ``i`` only where ``j <= i``, ``window > 0`` only where ``j > i -
+    window`` (the reference's band, query and key indices from 0 as in
+    its ``sdpa``); with neither every query attends to all T keys.  Any
+    strides."""
     b, h, s, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
+    hkv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
     qf = q.to(torch.float32).reshape(b, hkv, g, s, d) / d ** 0.5
     scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32))
     if causal or window > 0:
-        idx = torch.arange(s, device=q.device)
-        keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        qi = torch.arange(s, device=q.device)[:, None]
+        ki = torch.arange(t, device=q.device)[None, :]
+        keep = torch.ones((s, t), dtype=torch.bool, device=q.device)
         if causal:
-            keep &= idx[None, :] <= idx[:, None]
+            keep &= ki <= qi
         if window > 0:
-            keep &= idx[None, :] > idx[:, None] - window
+            keep &= ki > qi - window
         scores = scores.masked_fill(~keep, float("-inf"))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, v.to(torch.float32))

@@ -5,9 +5,7 @@ are torch dtypes).
 Families: dense | moe | hybrid | ssm | encdec | vlm.  All dims are the exact
 assignment numbers; ``padded_vocab`` rounds the embedding table up to a
 multiple of ``VOCAB_PAD``, as the reference does, so parameters carry over
-with their shapes.  The port's model stack runs the ``dense``, ``moe``
-(GQA or MLA attention) and ``hybrid`` families; ``ssm``, ``encdec`` and
-``vlm`` are configurations only.
+with their shapes.  The port's model stack runs every family.
 """
 from __future__ import annotations
 

@@ -1,25 +1,25 @@
-"""Transformer layers of the port: RMSNorm, RoPE, GQA self-attention
-(causal, optionally over a sliding window), multi-head latent attention
-(MLA, DeepSeek-V2), the four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU)
-and the capacity-factor MoE with token dispatch, after
+"""Transformer layers of the port: RMSNorm, RoPE, GQA attention (causal,
+optionally over a sliding window; an encoder's non-causal self-attention;
+cross attention over encoder states), multi-head latent attention (MLA,
+DeepSeek-V2), the four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU) and
+the capacity-factor MoE with token dispatch, after
 ``repro/models/layers.py``.
 
 Functional style, as in the reference: ``init_*`` builds a param dict of
 tensors with the reference's shapes; ``*_apply`` consumes it.  Attention
 runs on the hand-written kernels through :mod:`repro_torch.kernels.ops`:
 prefill and full-sequence passes through ``flash_attention`` (B8, which
-skips key tiles outside a window's band), decode through an in-place
-write of the new K/V followed by ``decode_attention`` (B9) over the valid
-cache slots.  MLA's prefill decompresses K/V per head and runs B8 at
-(Q/K, V) head dims (hd + rope, hd); its absorbed decode scores the
-``r``-wide latent plus the rope key of each cache row through B9 with one
-kv head for all query heads, V being a view of the row's first ``r``
-columns.  On CPU tensors the kernels take their plain PyTorch versions.
-The MoE's dispatch and expert products are plain PyTorch, as they are XLA
-in the reference.
-
-Not ported (``NotImplementedError``): non-causal and cross attention
-(``ROADMAP.md`` queue A item 11).
+skips key tiles outside a window's band; non-causal over K/V of their
+own length for an encoder and for cross attention), decode through an
+in-place write of the new K/V followed by ``decode_attention`` (B9) over
+the valid cache slots, and a decoder's one-row cross attention through B9
+over all the encoder's positions.  MLA's prefill decompresses K/V per
+head and runs B8 at (Q/K, V) head dims (hd + rope, hd); its absorbed
+decode scores the ``r``-wide latent plus the rope key of each cache row
+through B9 with one kv head for all query heads, V being a view of the
+row's first ``r`` columns.  On CPU tensors the kernels take their plain
+PyTorch versions.  The MoE's dispatch and expert products are plain
+PyTorch, as they are XLA in the reference.
 """
 from __future__ import annotations
 
@@ -31,11 +31,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(ROADMAP.md, queue A item 11)")
 
 
 def normal(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -107,36 +102,55 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     window: int = 0, kv_cache: Optional[dict] = None,
                     cache_positions: Optional[torch.Tensor] = None,
                     attend_pos: Optional[torch.Tensor] = None,
-                    xattn_kv=None, rope=None):
-    """Causal GQA self-attention, banded to the last ``window`` keys when
-    ``window > 0``.  Modes:
-       - train/prefill: ``kv_cache`` None; x (B,S,d) through B8;
+                    xattn_kv: Optional[torch.Tensor] = None, rope=None):
+    """GQA attention.  Modes:
+       - self-attention train/prefill: ``kv_cache`` None; x (B,S,d)
+         through B8, causal and banded to the last ``window`` keys when
+         ``window > 0``, or with ``causal=False`` (an encoder) every query
+         over all S keys;
        - decode: ``kv_cache = dict(k=(B,T,Hkv,D), v=...)``, x (B,1,d),
          ``cache_positions`` (B,) int32 on the device: the new K/V are
          written at that slot IN PLACE (the cache tensors are updated,
          not copied), then B9 attends over slots ``[0, attend_pos]``
          (default ``cache_positions``; a ring-buffer window cache passes
-         its own clamp).
-    ``positions`` (B,S) feed RoPE; ``rope`` may carry their precomputed
-    ``(cos, sin)``.  Returns ``(y (B,S,d), kv_cache or None)``."""
-    if not causal:
-        raise not_ported("non-causal attention")
-    if xattn_kv is not None:
-        raise not_ported("cross attention")
+         its own clamp);
+       - cross attention: ``xattn_kv`` the encoder's states (B,T,d), from
+         which K and V are projected; no RoPE and no cache.  Every query
+         attends to all T positions: through B8 (non-causal, T free of
+         S), or, for one query row (a decode step), through B9 with every
+         row's ``pos`` at T - 1.
+    ``positions`` (B,S) feed RoPE (self-attention only); ``rope`` may
+    carry their precomputed ``(cos, sin)``.  Returns ``(y (B,S,d),
+    kv_cache or None)``."""
     cd = cfg.cdtype
     b, s, _ = x.shape
+    kv_src = x if xattn_kv is None else xattn_kv.to(cd)
     q = _heads(x, p["wq"], cd)
-    k = _heads(x, p["wk"], cd)
-    v = _heads(x, p["wv"], cd)
+    k = _heads(kv_src, p["wk"], cd)
+    v = _heads(kv_src, p["wv"], cd)
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    cos, sin = rope if rope is not None else rope_cos_sin(
-        positions, cfg.hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)         # decode: positions is (B,1) = current
-    if kv_cache is not None:
+    if xattn_kv is None:
+        cos, sin = rope if rope is not None else rope_cos_sin(
+            positions, cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)     # decode: positions is (B,1) = current
+    if xattn_kv is not None:
+        if window:
+            raise ValueError("cross attention takes no window")
+        kv_cache = None
+        if s == 1:                      # a decode step: B9 over all T keys
+            last = torch.full((b,), k.shape[1] - 1, dtype=torch.int32,
+                              device=x.device)
+            out = ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                       last)[:, None]
+        else:
+            out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2),
+                                      causal=False).transpose(1, 2)
+    elif kv_cache is not None:
         idx = cache_positions                      # (B,) int32 write index
         bidx = torch.arange(b, device=x.device)
         kc, vc = kv_cache["k"], kv_cache["v"]
@@ -147,8 +161,8 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
             idx if attend_pos is None else attend_pos)[:, None]
     else:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2),
-                                  window=window).transpose(1, 2)
+                                  v.transpose(1, 2), window=window,
+                                  causal=causal).transpose(1, 2)
     h, hd = cfg.n_heads, cfg.hd
     y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
     return y, kv_cache

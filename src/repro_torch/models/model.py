@@ -1,5 +1,7 @@
-"""Model assembly for the decoder-only LMs of the dense, MoE/MLA and
-hybrid families, after ``repro/models/model.py``.
+"""Model assembly, after ``repro/models/model.py``: the decoder-only LMs
+of the dense, MoE/MLA, hybrid and xLSTM (``ssm``) families, the
+encoder-decoder (``encdec``, whisper) and the VLM backbone (``vlm``,
+precomputed image embeddings in place of the first text tokens).
 
 Three entry points per model (built by :func:`build_model`):
   - ``forward(params, batch)``            -> logits (teacher-forced, causal)
@@ -10,10 +12,23 @@ Attention runs on the hand-written kernels: B8 (``flash_attention``) in
 ``forward``/``prefill``, B9 (``decode_attention``) in ``decode_step``, one
 launch per layer each.  A block is the reference's: attention (GQA, MLA
 or, for the hybrid family, a sliding window beside parallel Mamba heads,
-averaged) and then an MLP or an MoE.  The layer stack is a Python loop
-over a list of per-layer param dicts; :func:`params_from_reference` turns
-the JAX package's parameters (as numpy arrays, the scanned layout with a
-leading L axis or the unrolled list) into this form.
+averaged) and then an MLP or an MoE.  An xLSTM block is an mLSTM or an
+sLSTM cell (``cfg.slstm_at`` lists the sLSTM layers) and no MLP: the
+reference computes both cells in every layer and blends them with a 0/1
+selector, and the port runs only the selected one, which gives the same
+output; the unselected cell's decode state is left as it was (the
+reference's evolves unused).  The encoder-decoder's ``forward`` runs
+``batch["audio_embeds"]`` (B,T,d) through the encoder (non-causal
+self-attention on B8, RoPE over positions ``0..T-1``, no final norm),
+and every decoder block adds cross attention over its output (B8,
+non-causal with T keys; no RoPE).  ``decode_step`` takes the encoder's
+output as an optional ``batch["enc_out"]`` (cross attention then runs
+on B9 over all T positions); without it the decoder blocks run
+self-attention and the MLP alone, as the reference's do (its serving
+engine passes none).  The layer stacks are Python loops over lists of
+per-layer param dicts; :func:`params_from_reference` turns the JAX
+package's parameters (as numpy arrays, the scanned layout with a leading
+L axis or the unrolled list) into this form.
 
 The decode cache holds the reference's keys, stacked on a leading L axis,
 and ``decode_step`` writes into it IN PLACE (the returned cache is the
@@ -26,12 +41,11 @@ cache per step.
   - hybrid: ``{"kv": {"k", "v": (L,B,W,Hkv,D)}, "mamba": {"ssm":
     (L,B,di,N), "conv": (L,B,K-1,di)}}``, the attention cache a ring of
     ``W = min(window, max_seq)`` slots (position ``p`` at slot ``p mod
-    W``, B9 over slots ``[0, min(p, W-1)]``), the Mamba state fp32.
-A decode ``pos`` must lie in ``[0, max_seq)``.
-
-The ``ssm`` (xLSTM), ``encdec`` and ``vlm`` families raise
-``NotImplementedError`` (``ROADMAP.md`` queue A item 11).  Entry points
-run on the card unless the caller asks for ``device="cpu"``.
+    W``, B9 over slots ``[0, min(p, W-1)]``), the Mamba state fp32;
+  - ssm: ``{"mlstm": {"c": (L,B,H,hd,hd), "n", "m"}, "slstm": {"h", "c",
+    "n", "m": (L,B,H,d/H)}}``, fp32; its ``decode_step`` reads no ``pos``.
+A decode ``pos`` must lie in ``[0, max_seq)``.  Entry points run on the
+card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -45,12 +59,13 @@ from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
 
-_FAMILIES = ("dense", "moe", "hybrid")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise L.not_ported(f"the {cfg.family!r} model family")
+        raise ValueError(f"unknown model family {cfg.family!r} (one of "
+                         f"{_FAMILIES})")
 
 
 def resolve_device(device) -> torch.device:
@@ -91,6 +106,10 @@ def init_block(cfg: ModelConfig, gen: torch.Generator,
     """One decoder block's params (family-dependent)."""
     p: dict[str, Any] = {"ln1": L._norm_init(cfg.d_model, cfg.pdtype, device),
                          "ln2": L._norm_init(cfg.d_model, cfg.pdtype, device)}
+    if cfg.family == "ssm":     # xLSTM: both cells, a layer runs one
+        p["mlstm"] = S.init_mlstm(cfg, gen, device)
+        p["slstm"] = S.init_slstm(cfg, gen, device)
+        return p
     if cfg.attention == "mla":
         p["attn"] = L.init_mla(cfg, gen, device)
     else:
@@ -106,11 +125,18 @@ def init_block(cfg: ModelConfig, gen: torch.Generator,
 
 def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache=None, cache_pos=None,
-                attend_pos=None, rope=None):
+                attend_pos=None, rope=None, slstm: bool = False):
     """Returns (x, new_cache).  ``cache`` is this layer's cache (decode
     only), ``cache_pos`` the slot each row writes, ``attend_pos`` the
-    newest slot it attends to; ``rope`` the precomputed ``(cos, sin)``."""
+    newest slot it attends to; ``rope`` the precomputed ``(cos, sin)``;
+    ``slstm`` picks an xLSTM layer's cell."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.family == "ssm":
+        name = "slstm" if slstm else "mlstm"
+        cell = S.slstm_apply if slstm else S.mlstm_apply
+        out, state = cell(p[name], cfg, h,
+                          None if cache is None else cache[name])
+        return x + out, {name: state}      # d_ff = 0: no MLP
     window = cfg.sliding_window if cfg.attention == "sliding" else 0
     kv = None if cache is None else cache["kv"]
     if cfg.attention == "mla":
@@ -137,13 +163,67 @@ def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, new_cache
 
 
+# ----------------------------------------------------------- encoder blocks
+def init_enc_block(cfg: ModelConfig, gen: torch.Generator,
+                   device: torch.device) -> dict:
+    pd = cfg.pdtype
+    return {"ln1": L._norm_init(cfg.d_model, pd, device),
+            "ln2": L._norm_init(cfg.d_model, pd, device),
+            "attn": L.init_attention(cfg, gen, device),
+            "mlp": L.init_mlp(cfg, gen, device)}
+
+
+def enc_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, rope=None) -> torch.Tensor:
+    """An encoder block: non-causal self-attention (B8 over all T keys,
+    with RoPE), then the MLP."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, _ = L.attention_apply(p["attn"], cfg, h, positions, causal=False,
+                             rope=rope)
+    x = x + a
+    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x,
+                                                     cfg.norm_eps))
+
+
+def init_xattn_block(cfg: ModelConfig, gen: torch.Generator,
+                     device: torch.device) -> dict:
+    pd = cfg.pdtype
+    return {"ln1": L._norm_init(cfg.d_model, pd, device),
+            "lnx": L._norm_init(cfg.d_model, pd, device),
+            "ln2": L._norm_init(cfg.d_model, pd, device),
+            "attn": L.init_attention(cfg, gen, device),
+            "xattn": L.init_attention(cfg, gen, device),
+            "mlp": L.init_mlp(cfg, gen, device)}
+
+
+def xattn_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, enc_out: torch.Tensor,
+                      cache=None, cache_pos=None, rope=None):
+    """A decoder block with cross attention: causal self-attention (B8, or
+    B9 through ``cache`` in decode), cross attention over ``enc_out``
+    (B8 non-causal, or B9 for a decode step's one row; no RoPE), then the
+    MLP.  Returns (x, new_cache)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv = L.attention_apply(p["attn"], cfg, h, positions,
+                              kv_cache=None if cache is None
+                              else cache["kv"], cache_positions=cache_pos,
+                              rope=rope)
+    x = x + a
+    hx = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
+    xa, _ = L.attention_apply(p["xattn"], cfg, hx, positions,
+                              xattn_kv=enc_out)
+    x = x + xa
+    x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, {"kv": kv}
+
+
 # ------------------------------------------------------------------- Model
 class Model:
-    """A decoder-only model of the dense, MoE/MLA or hybrid family on
-    ``device`` (default the card)."""
+    """A model of any of :data:`_FAMILIES` on ``device`` (default the
+    card)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        _check_ported(cfg)
+        _check_family(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -157,42 +237,90 @@ class Model:
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        return {"emb": init_embeddings(cfg, generator, self.device),
-                "blocks": [init_block(cfg, generator, self.device)
-                           for _ in range(cfg.n_layers)]}
+        block = init_xattn_block if cfg.n_enc_layers else init_block
+        params = {"emb": init_embeddings(cfg, generator, self.device),
+                  "blocks": [block(cfg, generator, self.device)
+                             for _ in range(cfg.n_layers)]}
+        if cfg.n_enc_layers:
+            params["enc"] = [init_enc_block(cfg, generator, self.device)
+                             for _ in range(cfg.n_enc_layers)]
+        return params
 
     # -- helpers ------------------------------------------------------
     def _tokens(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
-    def _run_stack(self, params, x, positions, cache=None, cache_pos=None,
-                   attend_pos=None):
+    def _rope(self, positions):
         cfg = self.cfg
-        rope_dim = cfg.rope_head_dim if cfg.attention == "mla" else cfg.hd
-        rope = L.rope_cos_sin(positions, rope_dim, cfg.rope_theta)
+        if cfg.family == "ssm":
+            return None
+        dim = cfg.rope_head_dim if cfg.attention == "mla" else cfg.hd
+        return L.rope_cos_sin(positions, dim, cfg.rope_theta)
+
+    def _run_stack(self, params, x, positions, cache=None, cache_pos=None,
+                   attend_pos=None, enc_out=None):
+        cfg = self.cfg
+        rope = self._rope(positions)
         for i, layer_p in enumerate(params["blocks"]):
             layer_cache = None if cache is None else _map(
                 lambda a, _, i=i: a[i], cache)
-            x, _ = block_apply(layer_p, cfg, x, positions, layer_cache,
-                               cache_pos, attend_pos, rope)
+            if enc_out is not None:
+                x, _ = xattn_block_apply(layer_p, cfg, x, positions, enc_out,
+                                         layer_cache, cache_pos, rope)
+            else:
+                x, _ = block_apply(layer_p, cfg, x, positions, layer_cache,
+                                   cache_pos, attend_pos, rope,
+                                   slstm=i in cfg.slstm_at)
+        return x
+
+    def _encode(self, params, audio_embeds) -> torch.Tensor:
+        """The encoder over (B,T,d) frame embeddings: ``n_enc_layers``
+        blocks of non-causal self-attention and MLP, no final norm."""
+        x = torch.as_tensor(audio_embeds, device=self.device).to(
+            self.cfg.cdtype)
+        b, t = x.shape[:2]
+        positions = torch.arange(t, device=self.device)[None].expand(b, t)
+        rope = self._rope(positions)
+        for layer_p in params["enc"]:
+            x = enc_block_apply(layer_p, self.cfg, x, positions, rope)
         return x
 
     # -- full-sequence forward ----------------------------------------
     @torch.no_grad()
     def forward(self, params, batch: dict) -> torch.Tensor:
+        """Teacher-forced logits (B,S,V) of ``batch["tokens"]`` (B,S);
+        the VLM's ``batch["image_embeds"]`` (B,n_img,d) replace the first
+        n_img token embeddings, the encoder-decoder's
+        ``batch["audio_embeds"]`` (B,T,d) feed its encoder."""
+        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         b, s_len = tokens.shape
-        x = embed(params["emb"], self.cfg, tokens)
+        x = embed(params["emb"], cfg, tokens)
+        if cfg.family == "vlm":
+            img = torch.as_tensor(batch["image_embeds"],
+                                  device=self.device).to(cfg.cdtype)
+            n_img = img.shape[1]
+            if n_img > s_len:
+                raise ValueError(f"vlm: {n_img} image tokens exceed "
+                                 f"seq_len {s_len}")
+            x = torch.cat([img, x[:, n_img:]], dim=1)
         positions = torch.arange(s_len, device=self.device)[None].expand(
             b, s_len)
-        x = self._run_stack(params, x, positions)
-        return unembed(params["emb"], self.cfg, x)
+        enc_out = (self._encode(params, batch["audio_embeds"])
+                   if cfg.n_enc_layers else None)
+        x = self._run_stack(params, x, positions, enc_out=enc_out)
+        return unembed(params["emb"], cfg, x)
 
     # -- caches --------------------------------------------------------
     def cache_spec(self, batch: int, max_seq: int) -> dict:
         """Shapes/dtypes of the decode cache (per layer, stacked on L)."""
         cfg = self.cfg
         ls, kd = cfg.n_layers, cfg.cdtype
+        if cfg.family == "ssm":
+            return {cell: {k: ((ls, *v), torch.float32)
+                           for k, v in shape(cfg, batch).items()}
+                    for cell, shape in (("mlstm", S.mlstm_state_shape),
+                                        ("slstm", S.slstm_state_shape))}
         if cfg.family == "hybrid":
             w = min(cfg.sliding_window or max_seq, max_seq)
             kv = (ls, batch, w, cfg.n_kv_heads, cfg.hd)
@@ -223,21 +351,28 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache, batch: dict):
         """One-token decode.  batch: tokens (B,1), pos (B,) the current
-        position (kept on the device; no host sync reads it).  The cache is
-        updated in place and returned.  The hybrid family's ring writes
-        slot ``pos mod W`` and attends to slots ``[0, min(pos, W-1)]``,
-        both computed on the card."""
+        position (kept on the device; no host sync reads it; the xLSTM
+        family reads none), and for the encoder-decoder an optional
+        ``enc_out`` (B,T,d), the encoder's output.  The cache is updated
+        in place and returned.  The hybrid family's ring writes slot ``pos
+        mod W`` and attends to slots ``[0, min(pos, W-1)]``, both computed
+        on the card."""
+        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         pos = torch.as_tensor(batch["pos"], device=self.device).to(
             torch.int32)
         cache_pos = attend = pos
-        if self.cfg.family == "hybrid":
+        if cfg.family == "hybrid":
             w = cache["kv"]["k"].shape[2]
             cache_pos = torch.remainder(pos, w)
             attend = torch.clamp(pos, max=w - 1)
-        x = embed(params["emb"], self.cfg, tokens)
+        enc_out = batch.get("enc_out")
+        if enc_out is not None:
+            enc_out = torch.as_tensor(enc_out, device=self.device)
+        x = embed(params["emb"], cfg, tokens)
         x = self._run_stack(params, x, pos[:, None], cache=cache,
-                            cache_pos=cache_pos, attend_pos=attend)
+                            cache_pos=cache_pos, attend_pos=attend,
+                            enc_out=enc_out)
         logits = unembed(params["emb"], self.cfg, x)
         return logits[:, 0], cache
 
@@ -274,27 +409,38 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
     ``cfg.pdtype`` but for the leaves the reference keeps in fp32 whatever
     the config says (:data:`~repro_torch.models.layers.FP32_LEAVES`: the
     MoE router, whose Top-k a bf16 rounding would change, and Mamba's
-    ``a_log`` and ``d_skip``), which stay fp32.  ``tree["blocks"]`` may be
-    the scanned layout (one dict, every leaf stacked on a leading L axis)
-    or the unrolled list of per-layer dicts."""
-    _check_ported(cfg)
+    ``a_log`` and ``d_skip``), which stay fp32.  ``tree["blocks"]`` (and
+    an encoder-decoder's ``tree["enc"]``) may be the scanned layout (one
+    dict, every leaf stacked on a leading L axis) or the unrolled list of
+    per-layer dicts."""
+    _check_family(cfg)
     dev = resolve_device(device)
 
     def conv(a, name):
         dt = torch.float32 if name in L.FP32_LEAVES else cfg.pdtype
         return _to_tensor(a, dt, dev)
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):
-        n = {np.shape(a)[0] for a in _leaves(blocks)}
-        if n != {cfg.n_layers}:
-            raise ValueError(f"stacked blocks have leading axes {n}, "
-                             f"expected {cfg.n_layers}")
-        blocks = [_map(lambda a, _, i=i: np.asarray(a)[i], blocks)
-                  for i in range(cfg.n_layers)]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
-    return {"emb": _map(conv, tree["emb"]),
-            "blocks": [_map(conv, blk) for blk in blocks]}
+    out = {"emb": _map(conv, tree["emb"]),
+           "blocks": [_map(conv, blk) for blk in
+                      _unstack(tree["blocks"], cfg.n_layers, "blocks")]}
+    if cfg.n_enc_layers:
+        out["enc"] = [_map(conv, blk) for blk in
+                      _unstack(tree["enc"], cfg.n_enc_layers, "enc")]
+    return out
+
+
+def _unstack(layers, n: int, what: str) -> list:
+    """Per-layer dicts from the scanned layout (one dict, every leaf
+    stacked on a leading axis of ``n``) or the unrolled list."""
+    if isinstance(layers, dict):
+        lead = {np.shape(a)[0] for a in _leaves(layers)}
+        if lead != {n}:
+            raise ValueError(f"stacked {what} have leading axes {lead}, "
+                             f"expected {n}")
+        layers = [_map(lambda a, _, i=i: np.asarray(a)[i], layers)
+                  for i in range(n)]
+    if len(layers) != n:
+        raise ValueError(f"{len(layers)} {what} for {n} layers")
+    return layers
 
 
 def _leaves(tree):

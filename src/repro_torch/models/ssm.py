@@ -1,6 +1,7 @@
-"""Mamba-style selective SSM heads (hymba's parallel heads), after
-``repro/models/ssm.py``.  Plain PyTorch: the reference runs them through
-XLA, with no Pallas kernel.
+"""Mamba-style selective SSM heads (hymba's parallel heads) and xLSTM's
+mLSTM and sLSTM cells, after ``repro/models/ssm.py``.  Plain PyTorch: the
+reference runs them through XLA (``associative_scan`` and ``lax.scan``),
+with no Pallas kernel.
 
 Prefill runs the recurrence ``h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t``
 as a scan over chunks of :data:`CHUNK` tokens: inside a chunk a
@@ -11,11 +12,23 @@ hymba-1.5b's S = 4,096 one whole-sequence tensor would be 839 MB a
 layer).  Decode is one O(1) state update, written IN PLACE into the
 state it is given.
 
-xLSTM's mLSTM and sLSTM cells are not ported yet (``ROADMAP.md`` queue A
-item 11).
+The xLSTM cells run the reference's stabilised recurrences (Beck et al.
+'24), token by token, all state and gate arithmetic in fp32.  Prefill
+starts from the reference's constants (mLSTM ``m = -1e30``; sLSTM ``n =
+1``, ``m = -1e30``), decode from the state it is given (the model's
+``init_cache`` zeros, as in the reference), which it updates IN PLACE.
+The sLSTM feeds ``h`` back into its gates, so its prefill is a loop over
+tokens; the mLSTM's is one too, which keeps the reference's stabiliser
+``m_t = max(log_f_t + m_{t-1}, log_i_t)`` and its order of operations
+exactly.  A token costs 22 elementwise and product launches in an mLSTM
+layer's loop (:func:`_mlstm_step`) and 24 in an sLSTM layer's
+(:func:`_slstm_step`): xlstm-125m's prefill runs ~272 CUDA kernels a
+token over its 12 layers (17,401 for 64 tokens on an H100), host-bound;
+decode adds the projections around one step.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -134,3 +147,170 @@ def mamba_state_shape(cfg: ModelConfig, batch: int) -> dict:
     if cfg.ssm_conv > 1:
         st["conv"] = (batch, cfg.ssm_conv - 1, di)
     return st
+
+
+# ------------------------------------------------------------------ mLSTM
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator,
+               device: torch.device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    di = cfg.xlstm_expand * d
+    pd = cfg.pdtype
+    b_if = torch.cat([torch.zeros(h), torch.full((h,), 3.0)])
+    return {
+        "w_up": normal(gen, (d, 2 * di), pd, device),
+        "w_qkv": normal(gen, (di, 3 * di), pd, device),
+        "w_if": normal(gen, (di, 2 * h), pd, device),
+        "b_if": b_if.to(device=device, dtype=pd),
+        "w_down": normal(gen, (di, d), pd, device),
+        "gn_scale": torch.ones(di, dtype=pd, device=device),
+    }
+
+
+def _mlstm_step(c, n, m, q, k, v, log_i, log_f):
+    """One stabilised mLSTM step (Beck et al. '24, eqs. 19-27): state c
+    (B,H,hd,hd), n (B,H,hd), m (B,H); inputs q, k, v (B,H,hd), log_i,
+    log_f (B,H).  Returns (c, n, m, h (B,H,hd))."""
+    m_new = torch.maximum(log_f + m, log_i)
+    i_g = torch.exp(log_i - m_new)[..., None]
+    f_g = torch.exp(log_f + m - m_new)[..., None]
+    c = f_g[..., None] * c + i_g[..., None] * (v[..., :, None]
+                                               * k[..., None, :])
+    n = f_g * n + i_g * k
+    denom = torch.maximum((n * q).sum(-1).abs()[..., None],
+                          torch.exp(-m_new)[..., None])
+    h = (c @ q[..., None])[..., 0] / denom
+    return c, n, m_new, h
+
+
+def mlstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[dict] = None):
+    """``state=None``: prefill of x (B,S,d) from the reference's initial
+    state, a loop over the S tokens.  ``state=dict(c, n, m)`` (fp32, see
+    :func:`mlstm_state_shape`): one decode step, the new state written
+    into those tensors IN PLACE.  Returns ``(out (B,S,d), state)``."""
+    cd = cfg.cdtype
+    b, s_len, d = x.shape
+    hh = cfg.n_heads
+    di = cfg.xlstm_expand * d
+    hd = di // hh
+    up = x @ p["w_up"].to(cd)
+    u, z = up[..., :di], up[..., di:]
+    q, k, v = (u @ p["w_qkv"].to(cd)).to(torch.float32).chunk(3, dim=-1)
+    root = math.sqrt(hd)
+    q = q.reshape(b, s_len, hh, hd) / root                    # (B,S,H,hd)
+    k = k.reshape(b, s_len, hh, hd) / root
+    v = v.reshape(b, s_len, hh, hd)
+    gates = (u @ p["w_if"].to(cd) + p["b_if"].to(cd)).to(torch.float32)
+    log_i, f_pre = gates[..., :hh], gates[..., hh:]
+    log_f = -F.softplus(-f_pre)                               # log sigmoid
+    if state is None:
+        c = x.new_zeros((b, hh, hd, hd), dtype=torch.float32)
+        n = x.new_zeros((b, hh, hd), dtype=torch.float32)
+        m = x.new_full((b, hh), -1e30, dtype=torch.float32)
+        hs = []
+        for t in range(s_len):
+            c, n, m, h = _mlstm_step(c, n, m, q[:, t], k[:, t], v[:, t],
+                                     log_i[:, t], log_f[:, t])
+            hs.append(h)
+        h_seq = torch.stack(hs, dim=1)                        # (B,S,H,hd)
+        new_state = {"c": c, "n": n, "m": m}
+    else:
+        c, n, m, h = _mlstm_step(state["c"], state["n"], state["m"],
+                                 q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                                 log_f[:, 0])
+        for key, val in (("c", c), ("n", n), ("m", m)):
+            state[key].copy_(val)
+        h_seq = h[:, None]
+        new_state = state
+    h_flat = h_seq.reshape(b, -1, di).to(cd)
+    # group-norm-ish stabilisation, then the gate
+    h_flat = h_flat * torch.rsqrt(
+        (h_flat.to(torch.float32) ** 2).mean(-1, keepdim=True) + 1e-6
+    ).to(cd) * p["gn_scale"].to(cd)
+    return (h_flat * F.silu(z)) @ p["w_down"].to(cd), new_state
+
+
+def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
+    di = cfg.xlstm_expand * cfg.d_model
+    hd = di // cfg.n_heads
+    return {"c": (batch, cfg.n_heads, hd, hd),
+            "n": (batch, cfg.n_heads, hd),
+            "m": (batch, cfg.n_heads)}
+
+
+# ------------------------------------------------------------------ sLSTM
+def init_slstm(cfg: ModelConfig, gen: torch.Generator,
+               device: torch.device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    pd = cfg.pdtype
+    return {
+        "w_x": normal(gen, (d, 4 * d), pd, device),
+        "r_h": normal(gen, (h, hd, 4 * hd), pd, device),
+        "b": torch.zeros(4 * d, dtype=pd, device=device),
+        "w_up": normal(gen, (d, 2 * cfg.xlstm_expand * d), pd, device),
+        "w_down": normal(gen, (cfg.xlstm_expand * d, d), pd, device),
+    }
+
+
+def _slstm_step(r_h, h_prev, c_prev, n_prev, m_prev, x_t):
+    """One stabilised sLSTM step with per-head recurrent mixing: state h,
+    c, n, m (B,H,hd) fp32, r_h (H,hd,4hd) fp32, x_t (B,4d) the input's
+    gate pre-activations.  Returns (h, c, n, m)."""
+    b, hh, hd = h_prev.shape
+    rec = torch.einsum("bhd,hde->bhe", h_prev, r_h)
+    gates = x_t.reshape(b, hh, 4 * hd).to(torch.float32) + rec
+    zi, ii, fi, oi = gates.chunk(4, dim=-1)
+    z = torch.tanh(zi)
+    o = torch.sigmoid(oi)
+    log_f = -F.softplus(-fi)
+    m_new = torch.maximum(log_f + m_prev, ii)
+    i_g = torch.exp(ii - m_new)
+    f_g = torch.exp(log_f + m_prev - m_new)
+    c = f_g * c_prev + i_g * z
+    n = f_g * n_prev + i_g
+    h = o * c / torch.clamp(n, min=1e-6)
+    return h, c, n, m_new
+
+
+def slstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[dict] = None):
+    """``state=None``: prefill of x (B,S,d) from the reference's initial
+    state (h = c = 0, n = 1, m = -1e30), a loop over the S tokens (h
+    feeds the next token's gates).  ``state=dict(h, c, n, m)`` (fp32, see
+    :func:`slstm_state_shape`): one decode step, the new state written
+    into those tensors IN PLACE.  Returns ``(out (B,S,d), state)``."""
+    cd = cfg.cdtype
+    b, s_len, d = x.shape
+    hh = cfg.n_heads
+    hd = d // hh
+    xg = x @ p["w_x"].to(cd) + p["b"].to(cd)
+    r_h = p["r_h"].to(torch.float32)
+    if state is None:
+        h = x.new_zeros((b, hh, hd), dtype=torch.float32)
+        c = torch.zeros_like(h)
+        n = torch.ones_like(h)
+        m = torch.full_like(h, -1e30)
+        hs = []
+        for t in range(s_len):
+            h, c, n, m = _slstm_step(r_h, h, c, n, m, xg[:, t])
+            hs.append(h)
+        h_seq = torch.stack(hs, dim=1).reshape(b, s_len, d)
+        new_state = {"h": h, "c": c, "n": n, "m": m}
+    else:
+        new = _slstm_step(r_h, state["h"], state["c"], state["n"],
+                          state["m"], xg[:, 0])
+        for key, val in zip(("h", "c", "n", "m"), new):
+            state[key].copy_(val)
+        h_seq = new[0].reshape(b, 1, d)
+        new_state = state
+    up = h_seq.to(cd) @ p["w_up"].to(cd)
+    di = cfg.xlstm_expand * d
+    u, z = up[..., :di], up[..., di:]
+    return (u * F.silu(z)) @ p["w_down"].to(cd), new_state
+
+
+def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
+    hd = cfg.d_model // cfg.n_heads
+    sh = (batch, cfg.n_heads, hd)
+    return {"h": sh, "c": sh, "n": sh, "m": sh}

@@ -1171,6 +1171,139 @@ def test_attention_wrappers_raise_on_unsupported_head_dims(cuda, rng):
     assert (fa.launches, da.launches) == (n8, n9)
 
 
+# non-causal B8: every query over all T keys, T free of S (whisper's
+# encoder, S = T = 1,500 frames, and its cross attention, 448 text rows over
+# 1,500 frames; T around the 64-key stages, and one key)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 1500])
+@pytest.mark.parametrize("s", [1, 448, 1500])
+def test_flash_attention_non_causal_matches_plain(cuda, rng, s, t, dtype):
+    from repro_torch.kernels import flash_attention, ref
+    b, h, hkv, d = 1, 4, 2, 64
+    q = _randn(rng, (b, h, s, d), dtype, cuda)
+    k = _randn(rng, (b, hkv, t, d), dtype, cuda)
+    v = _randn(rng, (b, hkv, t, d), dtype, cuda)
+    before = flash_attention.launches
+    wgmma = flash_attention.wgmma_launches
+    out = flash_attention.flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.wgmma_launches == wgmma + (dtype == torch.bfloat16)
+    assert out.shape == (b, h, s, d) and out.dtype == dtype
+    _attn_close(out, ref.attention_ref(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,t,d,dv", [
+    (1, 16, 16, 1500, 1500, 64, 64), (1, 16, 16, 448, 1500, 64, 64),
+    (2, 6, 2, 130, 77, 128, 128), (1, 4, 4, 200, 300, 32, 32),
+    (1, 4, 4, 129, 40, 192, 128), (1, 2, 1, 70, 130, 256, 256)])
+def test_flash_attention_non_causal_heads_match_plain(cuda, rng, b, h, hkv,
+                                                      s, t, d, dv, dtype):
+    """whisper's two shapes at its 16 heads (passed as the model passes
+    them: transposed (B,S,H,D) projections), and the other head dims."""
+    from repro_torch.kernels import flash_attention, ref
+    q = _randn(rng, (b, s, h, d), dtype, cuda).transpose(1, 2)
+    k = _randn(rng, (b, t, hkv, d), dtype, cuda).transpose(1, 2)
+    v = _randn(rng, (b, t, hkv, dv), dtype, cuda).transpose(1, 2)
+    out = flash_attention.flash_attention(q, k, v, causal=False)
+    assert out.shape == (b, h, s, dv)
+    if dv == d:
+        assert out.stride() == q.stride()
+    _attn_close(out, ref.attention_ref(q, k, v, causal=False))
+
+
+def test_flash_attention_non_causal_refuses_what_it_does_not_take(cuda,
+                                                                   rng):
+    """A causal pass needs T == S; a window only with the causal mask; the
+    card never takes the plain version for a non-causal call."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _randn(rng, (1, 4, 30, 64), torch.bfloat16, cuda)
+    kv = _randn(rng, (1, 2, 20, 64), torch.bfloat16, cuda)
+    n8 = fa.launches
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, kv, kv, 8, causal=False)
+    assert fa.launches == n8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t", [(8, 16, 1500), (3, 4, 1), (2, 4, 65),
+                                   (1, 16, 1499)])
+def test_decode_attention_cross_decode_matches_plain(cuda, rng, b, h, t,
+                                                     dtype):
+    """B9 as whisper's cross-attention decode: one query row over all T
+    encoder positions (pos = T - 1 for every row; T = 1,500 is no multiple
+    of a stage), K/V the (B,T,H,D) projections of the encoder's output."""
+    from repro_torch.kernels import decode_attention as da, ref
+    q = _randn(rng, (b, h, 64), dtype, cuda)
+    k = _randn(rng, (b, t, h, 64), dtype, cuda)
+    v = _randn(rng, (b, t, h, 64), dtype, cuda)
+    pos = torch.full((b,), t - 1, dtype=torch.int32, device=cuda)
+    before = da.launches
+    out = da.decode_attention(q, k, v, pos)
+    assert da.launches == before + 1
+    _attn_close(out, ref.decode_attention_ref(q, k, v, pos))
+    # the same function as non-causal B8 of one query row
+    full = ref.attention_ref(q[:, :, None], k.transpose(1, 2),
+                             v.transpose(1, 2), causal=False)[:, :, 0]
+    _attn_close(out, full)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "xlstm-125m",
+                                  "internvl2-26b"])
+def test_the_last_families_run_on_the_card(cuda, arch):
+    """The encoder-decoder, xLSTM (with an sLSTM layer) and VLM smoke
+    variants, fp32: forward on the card within 1e-4 of the same parameters
+    on the host (whisper: B8 non-causal in its encoder and its cross
+    attention, causal in its decoder: 3 launches a layer), teacher-forced
+    decode within 1e-4 of the host's decode (whisper with the encoder's
+    output: B9 twice a layer, self and cross)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import Model, smoke_variant
+    cfg = smoke_variant(get_config(arch))
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, slstm_at=(1,))
+    host, card = Model(cfg, "cpu"), Model(cfg, "cuda")
+    params = host.init(torch.Generator().manual_seed(7))
+    cparams = _move(params, cuda)
+    rng = np.random.default_rng(1)
+    s = 24
+    batch = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                                     (2, s)))}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    per_layer = {"encdec": 3, "ssm": 0}.get(cfg.family, 1)
+    f0 = flash_attention.launches
+    full = card.forward(cparams, batch)
+    assert flash_attention.launches == f0 + per_layer * cfg.n_layers
+    want = host.forward(params, batch)
+    assert float((full.cpu() - want).abs().max()) <= 1e-4
+    extra = {}
+    if cfg.family == "encdec":
+        extra["enc_out"] = card._encode(cparams, batch["audio_embeds"])
+    hcache, cache = host.init_cache(2, s), card.init_cache(2, s)
+    d0 = decode_attention.launches
+    for p in range(s):
+        step = {"tokens": batch["tokens"][:, p:p + 1],
+                "pos": torch.full((2,), p, dtype=torch.int32)}
+        logits, cache = card.decode_step(cparams, cache, {**step, **extra})
+        hlogits, hcache = host.decode_step(params, hcache, {
+            **step, **{k: v.cpu() for k, v in extra.items()}})
+        assert float((logits.cpu() - hlogits).abs().max()) <= 1e-4
+        if cfg.family != "vlm":
+            assert float((logits - full[:, p]).abs().max()) <= 1e-4
+    per_step = {"encdec": 2, "ssm": 0}.get(cfg.family, 1)
+    assert decode_attention.launches == d0 + s * per_step * cfg.n_layers
+
+
 _FAMILIES = ["deepseek-v2-lite-16b", "grok-1-314b", "hymba-1.5b"]
 
 

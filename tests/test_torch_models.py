@@ -6,10 +6,11 @@ list); ``forward``, ``prefill`` and ``decode_step`` logits must then agree
 with ``repro.models.Model``'s within 1e-4 (fp32 products summed in another
 order; the logits are O(1)).  Teacher-forced decode through the KV cache
 must reproduce the port's own forward at every position (1e-4, as
-``tests/test_models.py`` checks the reference's), and the families the port
-does not run raise ``NotImplementedError``.  The MoE/MLA (deepseek, grok)
-and hybrid (hymba) families run the same checks; hymba's decode runs past
-its smoke window of 64, so its ring cache wraps.
+``tests/test_models.py`` checks the reference's).  The MoE/MLA (deepseek,
+grok) and hybrid (hymba) families run the same checks; hymba's decode runs
+past its smoke window of 64, so its ring cache wraps.  The xLSTM,
+encoder-decoder and VLM families are held to the reference in
+``tests/test_torch_families_rest.py``; here, what each of them refuses.
 """
 import dataclasses
 
@@ -36,7 +37,7 @@ ATOL = 1e-4
 DENSE = ["paper", "smollm-360m", "gemma-7b", "qwen1.5-110b",
          "nemotron-4-340b"]
 FAMILIES = ["deepseek-v2-lite-16b", "grok-1-314b", "hymba-1.5b"]
-# the families that still raise, under the reference's arch ids
+# the families ported last, under the reference's arch ids
 UNPORTED = [a for a in R_ARCH_IDS
             if r_get_config(a).family in ("ssm", "encdec", "vlm")]
 
@@ -251,23 +252,49 @@ def test_fresh_parameters_have_the_reference_shapes_and_scale(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_other_families_raise(arch):
+    """These families build now; what raises is a family the port does
+    not know (under this arch's config), a stacked layout of the wrong
+    depth, and the family's own refusal: whisper's forward without its
+    audio frames, internvl2's with more image rows than tokens (the
+    reference's assertion)."""
     _, tc = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(tc, "cpu")
-    with pytest.raises(NotImplementedError):
-        params_from_reference({"emb": {}, "blocks": []}, tc, "cpu")
+    model = Model(tc, "cpu")
+    other = dataclasses.replace(tc, family="retnet")
+    with pytest.raises(ValueError, match="family"):
+        Model(other, "cpu")
+    with pytest.raises(ValueError, match="family"):
+        params_from_reference({"emb": {}, "blocks": []}, other, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    stacked = {"w": np.zeros((tc.n_layers + 1, 2))}
+    with pytest.raises(ValueError, match="leading axes"):
+        params_from_reference({"emb": {}, "blocks": stacked}, tc, "cpu")
+    tok = _tokens(tc, s=6)
+    if tc.family == "encdec":
+        with pytest.raises(KeyError, match="audio_embeds"):
+            model.forward(params, {"tokens": tok})
+    elif tc.family == "vlm":
+        img = np.zeros((2, 7, tc.d_model), np.float32)
+        with pytest.raises(ValueError, match="image tokens"):
+            model.forward(params, {"tokens": tok, "image_embeds": img})
+    else:
+        assert model.forward(params, {"tokens": tok}).shape[:2] == (2, 6)
 
 
 def test_unported_attention_modes_raise():
+    """Non-causal and cross attention run now (held to the reference in
+    ``tests/test_torch_families_rest.py``); a window beside either, which
+    no config has, raises."""
     tc = smoke_variant(get_config("paper"))
     p = L.init_attention(tc, torch.Generator().manual_seed(0),
                          torch.device("cpu"))
     x = torch.zeros((1, 4, tc.d_model))
     pos = torch.arange(4)[None]
-    for kw in ({"causal": False},
-               {"xattn_kv": torch.zeros((1, 3, tc.d_model))}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            L.attention_apply(p, tc, x, pos, **kw)
+    enc = torch.zeros((1, 3, tc.d_model))
+    for kw in ({"causal": False}, {"xattn_kv": enc}):
+        y, _ = L.attention_apply(p, tc, x, pos, **kw)
+        assert y.shape == x.shape
+        with pytest.raises(ValueError, match="window"):
+            L.attention_apply(p, tc, x, pos, window=2, **kw)
 
 
 def test_the_card_is_the_default_and_is_never_replaced(monkeypatch):

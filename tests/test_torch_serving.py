@@ -6,7 +6,9 @@ CPU.
   same carried-over fp32 parameters and requests: per-request
   ``out_tokens`` and ``cached`` and the ``stats`` counters must be equal
   (greedy tokens from logits that agree to ~1e-6); also for the MoE/MLA
-  (deepseek) and hybrid (hymba) smoke variants.
+  (deepseek), hybrid (hymba), encoder-decoder (whisper, its decoder
+  alone, as the reference's engine serves it), xLSTM and VLM (internvl2)
+  smoke variants, and ``launch/serve.py`` for each of the last three.
 - The port's facade built with ``policy=`` each of the 16 baselines makes
   the reference facade's event stream on one trace.
 - The synchronous, single-tier surface (``flush``/``drain``, ``close``,
@@ -81,13 +83,16 @@ def test_engine_matches_the_reference_engine(reference_run, backend):
     eng.close()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hymba-1.5b",
+                                  "whisper-medium", "xlstm-125m",
+                                  "internvl2-26b"])
 def test_engine_serves_the_other_families_like_the_reference(arch):
-    """The MoE/MLA and hybrid smoke variants behind the engine, with no
-    family branch of its own: the reference engine's tokens, cached flags
-    and counters from the same carried-over parameters (every slot steps,
-    idle ones too, and a reused slot keeps its Mamba state, as in the
-    reference)."""
+    """The MoE/MLA, hybrid, encoder-decoder, xLSTM and VLM smoke variants
+    behind the engine, with no family branch of its own: the reference
+    engine's tokens, cached flags and counters from the same carried-over
+    parameters (every slot steps, idle ones too; a reused slot keeps its
+    Mamba or xLSTM state; whisper decodes without the encoder's output:
+    all as in the reference)."""
     rcfg = r_smoke(r_get_config(arch))
     ref = RServingEngine(rcfg, REngineConfig(**ENGINE),
                          rng=jax.random.PRNGKey(3))
@@ -103,6 +108,22 @@ def test_engine_serves_the_other_families_like_the_reference(arch):
     assert got == want
     assert want_stats["hits"] > 0 and want_stats["evictions"] > 0
     eng.close()
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "xlstm-125m",
+                                  "internvl2-26b"])
+def test_launch_serve_runs_the_new_archs_like_the_reference(arch):
+    """``launch/serve.py --arch <arch> --device cpu`` makes the reference
+    CLI's hit, miss and eviction counts (whisper serves its decoder alone,
+    as the reference's engine does)."""
+    from repro.launch import serve as rserve
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--requests", "30", "--capacity", "10",
+            "--max-new", "2"]
+    want = rserve.main(argv)
+    got = serve.main(argv + ["--device", "cpu"])
+    assert {k: got[k] for k in STATS} == {k: want[k] for k in STATS}
+    assert want["evictions"] > 0
 
 
 def test_launch_serve_matches_the_reference_cli():
