@@ -58,6 +58,23 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                and composed arenas then replay a shorter prefix, each in a
                worker process, and must make the same Stats; the stacked
                int8 Top-K must have launched once per chunk.
+  6b. sharded - the sharded backend (ShardedStore, ShardedKernelBackend):
+               at the main path's geometry (capacity 65,536, D = 768,
+               SHARDS = 4 shards of 16,385 rows) a 512-query chunk's
+               top1_batch (identical cids, the same fp32 bits),
+               decide_batch and rac_value (N = 65,537) against
+               KernelBackend on the same rows in the same slots, on the
+               one-card loop and on the multi-card code path
+               (make_cache_mesh patched to cuda:0 for every shard: one
+               mirror piece a shard, the chunked B3), with the CUDA-event
+               ms a chunk of the 4-shard loop and of the single slab; the
+               4 B1 and 4 B3 launches timed as § 6's rows; phase 4's
+               8,000 requests at 2 and 4 shards against its host-oracle
+               record; the quantized and the fused pruned lookups at 4
+               shards (run as two more workers of phase 5, held to its
+               exact record) and a 2-shard arena on phase 6's shorter
+               prefix (a worker of phase 6, held to the host oracle's
+               Stats there), with their launches.
   7. main    - the batched replay (RAC, backend="kernel", device="cuda") of
                the OASST-style trace's first 71,000 requests at D=768,
                capacity 65,536 (a 65,537 x 768 fp32 slab on the card),
@@ -230,6 +247,10 @@ N_TOPICS = 4_096           # routing-table rows for the kernel check
 N_POL = 15                 # default_factories(): 11 baselines, Belady, 3 RAC
 ARENA_LEN = 8_000          # the arena's trace prefix (host-bound: its cost)
 ARENA_APPROX_LEN = 1_200   # the approximate arenas' shorter prefix
+SHARDS = 4                 # the sharded phase's shards at full geometry
+SHARD_PARITY = (2, 4)      # shard counts of its 8,000-request parity
+SHARD_ARENA = 2            # shards of its arena (on ARENA_APPROX_LEN)
+SHARD_REPS = 20            # timed chunks a path
 ALPHA = 0.001
 TAU_HIT = 0.85             # CacheConfig's default hit threshold
 DEVICE = "cuda"
@@ -1055,6 +1076,7 @@ def phase_parity(trace):
     if sk.evictions == 0 or sk.hits == 0:
         raise AssertionError("parity prefix made no evictions or no hits")
     log(f"parity: {len(ek)} hit/admit/evict events identical")
+    return en
 
 
 def record(cache) -> list:
@@ -1099,10 +1121,41 @@ def _approx_replay(task):
             {k: snap.get(k) for k in ("quant", "prune", "sync")})
 
 
+SHARD_COUNTERS = (("similarity_topk", "launches"),
+                  ("similarity_topk", "topk_launches"),
+                  ("similarity_topk", "topk_q8_launches"),
+                  ("similarity_topk", "topk_q8_wgmma_launches"),
+                  ("similarity_topk", "multi_launches"),
+                  ("decision", "launches"), ("rac_value", "launches"))
+
+
+def shard_counts(reset: bool = False) -> dict:
+    """The launch counters the sharded path moves (reset to 0 first when
+    ``reset``)."""
+    import importlib
+    out = {}
+    for mod, attr in SHARD_COUNTERS:
+        m = importlib.import_module("repro_torch.kernels." + mod)
+        if reset:
+            setattr(m, attr, 0)
+        out[f"{mod}.{attr}"] = getattr(m, attr)
+    return out
+
+
+def _sharded_approx_replay(task):
+    """An approximate replay on the sharded backend in a worker, with the
+    launches the replay made."""
+    shard_counts(reset=True)
+    out = _approx_replay(task)
+    return out + (shard_counts(),)
+
+
 def phase_approx_parity(trace):
     """The exact path on the card and the four approximate configurations
     on the card and on the host oracle, each replay in its own process
-    (they are independent and host-bound), all held to the exact events."""
+    (they are independent and host-bound), all held to the exact events;
+    and the sharded backend's quantized and fused pruned lookups at
+    SHARDS shards (the sharded phase reads their results)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     reqs = trace.requests[:APPROX_PARITY_LEN]
@@ -1110,15 +1163,22 @@ def phase_approx_parity(trace):
         (name, backend, device, kw, PARITY_CAP, DIM, reqs)
         for name, kw in APPROX.items()
         for backend, device in (("kernel", DEVICE), ("numpy", "cpu"))]
+    shard_tasks = [(name, "sharded", DEVICE,
+                    {**APPROX[name], "backend_kwargs": {"n_shards": SHARDS}},
+                    PARITY_CAP, DIM, reqs) for name in ("quantized",
+                                                        "pruned")]
     # one BLAS thread per worker: the workers share the host's cores
     threads = {k: os.environ.get(k) for k in
                ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
     os.environ.update({k: "1" for k in threads})
     try:
         with ProcessPoolExecutor(
-                max_workers=len(tasks),
+                max_workers=len(tasks) + len(shard_tasks),
                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            shard_futs = [pool.submit(_sharded_approx_replay, t)
+                          for t in shard_tasks]
             results = list(pool.map(_approx_replay, tasks))
+            sharded = [f.result() for f in shard_futs]
     finally:
         for k, v in threads.items():
             if v is None:
@@ -1138,6 +1198,7 @@ def phase_approx_parity(trace):
             f"wall={wall:.2f}s quant={json.dumps(snap['quant'])} "
             f"prune={json.dumps(snap['prune'])} "
             f"sync={json.dumps(snap['sync'])}")
+    return exact, sharded
 
 
 def prefix(trace, n: int):
@@ -1160,9 +1221,11 @@ def _arena_replay(task):
     """One arena replay in a worker process: per-policy counts, wall, the
     stacked kernels' launches and the approximate ledgers."""
     name, backend, device, approx, sub, cap = task
-    from repro_torch.cache import backends
+    from repro_torch.cache import ShardedKernelBackend, backends
     from repro_torch.core import default_factories, run_arena
     from repro_torch.kernels import similarity_topk as st
+    if backend == "sharded":     # SHARD_ARENA shards (looped on one card)
+        backend = ShardedKernelBackend(n_shards=SHARD_ARENA, device=device)
     made = []
     get_backend = backends.get_backend
 
@@ -1336,7 +1399,9 @@ def phase_arena(trace):
     tasks = [(name, "kernel", DEVICE, kw, sub2, cap2) for name, kw in (
         ("exact", {}), ("quantized", {"quantized": True}),
         ("pruned", {"pruned": True}),
-        ("both", {"quantized": True, "pruned": True}))]
+        ("both", {"quantized": True, "pruned": True}))] + [
+        ("sharded", "sharded", DEVICE, {}, sub2, cap2),
+        ("host oracle", "numpy", "cpu", {}, sub2, cap2)]
     with _workers(len(tasks), 1) as pool:
         results = list(pool.map(_arena_replay, tasks))
     exact = results[0][2]
@@ -1358,15 +1423,292 @@ def phase_arena(trace):
         raise AssertionError(f"arena quantized: {q8_launches - on_wgmma} of "
                              f"{q8_launches} stacked int8 launches at "
                              f"D={DIM} missed the wgmma kernel")
-    log(f"arena: the quantized, pruned and composed arenas made the exact "
-        f"arena's Stats for all {N_POL} policies")
-    return {"sim_top1_multi": launches["similarity_topk.multi_launches"],
+    log(f"arena: the quantized, pruned, composed and sharded arenas and "
+        f"the host oracle made the exact arena's Stats for all {N_POL} "
+        "policies")
+    return results[4], {"sim_top1_multi": launches["similarity_topk.multi_launches"],
             "victim_value_multi": launches["decision.multi_launches"],
             "victim_value_multi (vector)":
                 launches["decision.multi_vec_launches"],
             "rac_value": launches["rac_value.launches"],
             "sim_topk_q8_multi": q8_launches,
             "sim_topk_q8_multi (wgmma)": on_wgmma}
+
+
+def shard_twins(rng, trace_embs: np.ndarray):
+    """A ShardedStore of SHARDS shards at the main path's geometry (capacity
+    CAPACITY, so ceil((CAPACITY + 1) / SHARDS) rows a shard) filled with
+    seeded unit rows, a dense ResidentStore holding the same rows in the
+    same slots, a seeded policy table over those slots (the main path's
+    T = 512 topics), and a chunk of queries: half near resident rows, half
+    the trace's own."""
+    from repro_torch.cache import ShardedStore
+    from repro_torch.core.policy_table import PolicyTable
+    from repro_torch.core.store import ResidentStore
+    rows = unit_rows(rng, CAPACITY, DIM)
+    sh = ShardedStore(CAPACITY, DIM, SHARDS)
+    for i in range(CAPACITY):
+        sh.insert(i, rows[i])
+    n_slots = sh.emb.shape[0]
+    dense = ResidentStore(CAPACITY, DIM, n_slots=n_slots)
+    dense.emb[:], dense.occ[:], dense.cid[:] = sh.emb, sh.occ, sh.cid
+    dense.slot_of, dense.hwm = dict(sh.slot_of), sh.hwm
+    dense._free = [s for s in range(n_slots - 1, -1, -1) if not sh.occ[s]]
+    t = 512
+    table = PolicyTable(n_slots, DIM, n_topics=t)
+    table.tsi[:] = np.where(sh.occ, rng.random(n_slots) * 8, 0.0)
+    table.topic_of[:] = np.where(sh.occ, rng.integers(0, t, n_slots), -1)
+    table.tp_last[:] = rng.random(t) * 20
+    table.t_last[:] = rng.integers(0, 60_000, t)
+    table.rep[:] = unit_rows(rng, t, DIM)
+    table.rep_valid[:] = True
+    table.topic_hwm = t
+    near = rows[::CAPACITY // (CHUNK // 2)][:CHUNK // 2]
+    near = near + 0.1 * unit_rows(rng, len(near), DIM)
+    q = np.concatenate([near / np.linalg.norm(near, axis=1, keepdims=True),
+                        trace_embs[:CHUNK // 2]])
+    return sh, dense, table, q.astype(np.float32)
+
+
+def bit_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """The same values bit for bit (on the card every entry of the sharded
+    and the dense paths comes from the same arithmetic)."""
+    return np.array_equal(a, b)
+
+
+def check_shard_geometry(label: str, sh, dense, table, q) -> dict:
+    """The sharded backend against KernelBackend on the same rows in the
+    same slots: top1_batch (identical cids, the same fp32 bits),
+    decide_batch (every column in the same bits) and rac_value at
+    N = CAPACITY + 1 (the same bits as one B3), then the CUDA-event ms a
+    chunk of both lookups and the launches a sharded lookup makes."""
+    from repro_torch.cache import KernelBackend, ShardedKernelBackend
+    from repro_torch.kernels import rac_value as rv_mod
+    from repro_torch.kernels import similarity_topk as st
+    be = ShardedKernelBackend(n_shards=SHARDS, device=DEVICE)
+    kb = KernelBackend(DEVICE)
+    on_mesh = be.mesh() is not None
+    n0 = st.launches
+    got = be.top1_batch(sh, q)
+    b1_chunk = st.launches - n0
+    want = kb.top1_batch(dense, q)
+    if not (np.array_equal(got[0], want[0]) and bit_equal(got[1], want[1])):
+        bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        raise AssertionError(f"sharded {label}: top1_batch differs from "
+                             f"KernelBackend's in {bad} places")
+    if b1_chunk != SHARDS:
+        raise AssertionError(f"sharded {label}: {b1_chunk} B1 launches for "
+                             f"{SHARDS} shards")
+    t_now = 72_000
+    ds = be.decide_batch(sh, table, q, alpha=ALPHA, t_now=t_now)
+    dk = kb.decide_batch(dense, table, q, alpha=ALPHA, t_now=t_now)
+    for f in ("hit_cid", "hit_sim", "route_tid", "route_sim",
+              "victim_value"):
+        if not bit_equal(getattr(ds, f), getattr(dk, f)):
+            raise AssertionError(f"sharded {label}: decide_batch's {f} "
+                                 "differs from KernelBackend's")
+    rng = np.random.default_rng(29)
+    n, t = CAPACITY + 1, 4_096
+    args = (rng.random(n) * 8, rng.integers(0, t, n), rng.random(t) * 20,
+            rng.integers(0, 60_000, t), ALPHA, t_now)
+    n0 = rv_mod.launches
+    vs = be.rac_value(*args)
+    b3_call = rv_mod.launches - n0
+    if not bit_equal(vs, kb.rac_value(*args)):
+        raise AssertionError(f"sharded {label}: rac_value differs from one "
+                             "B3's")
+    if b3_call != (SHARDS if on_mesh else 1):
+        raise AssertionError(f"sharded {label}: {b3_call} B3 launches")
+    ms = event_ms(lambda: be.top1_batch(sh, q), SHARD_REPS)
+    ms_dense = event_ms(lambda: kb.top1_batch(dense, q), SHARD_REPS)
+    log(f"sharded {label}: {len(q)} queries x {SHARDS} shards of "
+        f"{sh.rows_per_shard} rows (local hwm {sh.local_hwm.tolist()}): "
+        f"cids identical, sims, decide_batch and rac_value (N={n}, "
+        f"{b3_call} B3) bit-equal to KernelBackend; {ms:.3f} ms a chunk "
+        f"({b1_chunk} B1 launches) against {ms_dense:.3f} ms on the single "
+        f"slab (1 launch); sync={json.dumps(be.sync_stats)}")
+    return {"ms_chunk": ms, "ms_chunk_dense": ms_dense,
+            "b1_launches_chunk": b1_chunk, "b3_launches_call": b3_call}
+
+
+def shard_kernel_rows(sh, q) -> tuple[dict, dict]:
+    """§ 6's rows at the sharded shapes: the SHARDS B1 launches of one
+    lookup (Q = CHUNK over SHARDS shards) and the SHARDS B3 launches of a
+    chunked rac_value (N = CAPACITY + 1), each group timed as one call
+    against its plain versions."""
+    from repro_torch.kernels import rac_value as rv_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import similarity_topk as st
+    dev = torch.device(DEVICE)
+    r = sh.rows_per_shard
+    slab = torch.from_numpy(sh.emb).to(dev)
+    parts = [slab[s * r:(s + 1) * r] for s in range(SHARDS)]
+    nv = [int(x) for x in sh.local_hwm]
+    qd = torch.from_numpy(q).to(dev)
+
+    def loop(fn):
+        return lambda: [fn(qd, parts[s], nv[s]) for s in range(SHARDS)]
+    err = max(float((a[0] - b[0]).abs().max()) for a, b in zip(
+        loop(st.sim_top1)(), loop(ref.sim_top1_ref)()))
+    if not err <= SIM_TOL:
+        raise AssertionError(f"sharded B1: max |err| {err} > {SIM_TOL}")
+    nq, n = qd.shape[0], sum(nv)
+    nb, op = bound((nq * DIM + n * DIM) * 4 + SHARDS * nq * 8,
+                   B1_PRODUCTS * 2.0 * nq * n * DIM, PEAK_TF32)
+    b1 = {"shape": f"sharded: Q={nq} over {SHARDS} x {r} rows D={DIM} "
+                   f"({SHARDS} launches a call)",
+          "max_abs_err": err, "bound_ms": nb, "bound_by": op,
+          **timings(loop(st.sim_top1), loop(ref.sim_top1_ref),
+                    lambda: [torch.mm(qd, p.T) for p in parts], 50)}
+    rng = np.random.default_rng(31)
+    n, t = CAPACITY + 1, 4_096
+    chunk = -(-n // SHARDS)
+    tsi = torch.from_numpy(rng.random(n).astype(np.float32) * 8).to(dev)
+    tid = torch.from_numpy(rng.integers(0, t, n).astype(np.int32)).to(dev)
+    tp = torch.from_numpy(rng.random(t).astype(np.float32) * 20).to(dev)
+    tl = torch.from_numpy((rng.integers(0, 60_000, t) - 72_000)
+                          .astype(np.int32)).to(dev)
+    # one tensor a chunk, as the backend uploads them
+    cuts = [(tsi[lo:lo + chunk].clone(), tid[lo:lo + chunk].clone())
+            for lo in range(0, n, chunk)]
+
+    def b3(fn, tl_):
+        return lambda: [fn(a, b, tp, tl_, ALPHA, 0) for a, b in cuts]
+    got = torch.cat(b3(rv_mod.rac_value, tl)())
+    one = rv_mod.rac_value(tsi, tid, tp, tl, ALPHA, 0)
+    if not bit_equal(got.cpu().numpy(), one.cpu().numpy()):
+        raise AssertionError("sharded B3: the chunks' values differ from "
+                             "one launch's")
+    rel, a = value_rel(got, torch.cat(b3(ref.rac_value_ref, tl.float())()))
+    if not rel <= VALUE_RTOL:
+        raise AssertionError(f"sharded B3: rel err {rel} > {VALUE_RTOL}")
+    nb, op = bound(n * 12 + SHARDS * t * 8, 5.0 * n)
+    b3_row = {"shape": f"sharded: N={n} in {len(cuts)} chunks of {chunk} "
+                       f"T={t} ({len(cuts)} launches a call)",
+              "max_abs_err": a, "max_rel_err": rel, "bound_ms": nb,
+              "bound_by": op,
+              **timings(b3(rv_mod.rac_value, tl),
+                        b3(ref.rac_value_ref, tl.float()), None, 50)}
+    log("sharded kernel rows: " + json.dumps({"sim_top1": b1,
+                                              "rac_value": b3_row}))
+    return b1, b3_row
+
+
+def phase_sharded(trace, parity_events, approx, arena) -> dict:
+    """The sharded backend (ShardedStore, ShardedKernelBackend): at full
+    geometry against KernelBackend, on the one-card loop and on the
+    multi-card code path (make_cache_mesh patched to cuda:0 for every
+    shard); the 8,000-request parity at SHARD_PARITY shards against the
+    numpy record of phase_parity; the approximate replays (run beside
+    phase_approx_parity's) and the arena (beside phase_arena's) held to
+    the host oracle's outcomes."""
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.core import make_rac, replay_batched
+    from repro_torch.launch import mesh
+    t_start = time.perf_counter()
+    sh, dense, table, q = shard_twins(
+        np.random.default_rng(23),
+        np.stack([r.emb for r in trace.requests[:CHUNK]]))
+    geo = {"loop": check_shard_geometry("loop", sh, dense, table, q)}
+    orig = mesh.make_cache_mesh
+    lead = torch.device("cuda", 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    try:
+        mesh.make_cache_mesh = lambda n, device="cuda": [lead] * n
+        geo["mesh"] = check_shard_geometry(f"mesh ({lead} x {SHARDS})", sh,
+                                           dense, table, q)
+    finally:
+        mesh.make_cache_mesh = orig
+    b1_row, b3_row = shard_kernel_rows(sh, q)
+    del sh, dense
+    torch.cuda.empty_cache()
+
+    sub = trace.requests[:PARITY_LEN]
+    launches = {}
+    for n_shards in SHARD_PARITY:
+        events: list = []
+        cache = SemanticCache(CacheConfig(
+            capacity=PARITY_CAP, dim=DIM, backend="sharded", device=DEVICE,
+            backend_kwargs={"n_shards": n_shards}),
+            policy_factory=recording(make_rac(), events))
+        shard_counts(reset=True)
+        t0 = time.perf_counter()
+        replay_batched(cache, sub, chunk=CHUNK, tau_hit=TAU_HIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[n_shards] = shard_counts()
+        m = cache.metrics
+        log(f"sharded parity S={n_shards}: hits={m.hits} "
+            f"evictions={m.evictions} wall={wall:.2f}s launches="
+            f"{json.dumps(launches[n_shards])} "
+            f"load={cache.store.load.tolist()}")
+        if events != parity_events:
+            raise AssertionError(f"sharded parity S={n_shards}: "
+                                 + first_diff(events, parity_events))
+        if m.evictions == 0 or m.hits == 0:
+            raise AssertionError("sharded parity made no evictions or hits")
+        for k in ("similarity_topk.launches", "decision.launches",
+                  "rac_value.launches"):
+            if launches[n_shards][k] < 1:
+                raise AssertionError(f"sharded parity S={n_shards}: {k} "
+                                     "never launched")
+        del cache
+    log(f"sharded parity: {len(parity_events)} events identical to the "
+        f"host oracle's at S = {SHARD_PARITY}")
+
+    exact, results = approx
+    for name, _, ev, wall, hits, evictions, snap, kl in results:
+        log(f"sharded approx {name} S={SHARDS}: {len(ev)} events, hits="
+            f"{hits} evictions={evictions} wall={wall:.2f}s launches="
+            f"{json.dumps(kl)} quant={json.dumps(snap['quant'])} "
+            f"prune={json.dumps(snap['prune'])}")
+        if ev != exact:
+            raise AssertionError(f"sharded approx {name}: "
+                                 + first_diff(ev, exact))
+        ledger = snap["quant" if name == "quantized" else "prune"]
+        if ledger["scans"] < 1:
+            raise AssertionError(f"sharded approx {name}: no scans")
+    q_kl, p_kl = results[0][7], results[1][7]
+    if q_kl["similarity_topk.topk_q8_launches"] < SHARDS:
+        raise AssertionError(f"sharded approx quantized: B5 launches {q_kl}")
+    if q_kl["similarity_topk.topk_q8_wgmma_launches"] \
+            != q_kl["similarity_topk.topk_q8_launches"]:
+        raise AssertionError("sharded approx quantized: a B5 launch on a "
+                             f"shard's rows at D={DIM} missed wgmma: {q_kl}")
+    # the fused pruned lookup: B4 routes, B1 rescores the union (its int8
+    # candidate scan is the pipeline's own glue, kernels/fused.py)
+    if p_kl["similarity_topk.topk_launches"] < 1 \
+            or p_kl["similarity_topk.launches"] < 1:
+        raise AssertionError(f"sharded approx pruned: B4/B1 launches {p_kl}")
+
+    _, _, counts, wall, kl, _ = arena
+    n_chunks = -(-ARENA_APPROX_LEN // CHUNK)
+    log(f"sharded arena S={SHARD_ARENA}: {ARENA_APPROX_LEN} requests, "
+        f"wall={wall:.2f}s launches={json.dumps(kl)} (Stats equal to the "
+        "host oracle's, phase 6)")
+    # one B1-multi a shard for every chunk but the first (an empty arena
+    # answers without a launch, as the reference's sharded backend does)
+    if kl["sim_top1_multi"] != SHARD_ARENA * (n_chunks - 1):
+        raise AssertionError(f"sharded arena: {kl['sim_top1_multi']} "
+                             f"B1-multi launches for {n_chunks} chunks")
+    wall = time.perf_counter() - t_start
+    log(f"sharded: {wall:.1f}s")
+    parity = {k: sum(launches[s][k] for s in SHARD_PARITY)
+              for k in launches[SHARD_PARITY[0]]}
+    return {"geometry": geo, "b1_row": b1_row, "b3_row": b3_row,
+            "launches": {
+                "sim_top1": parity["similarity_topk.launches"]
+                + q_kl["similarity_topk.launches"]
+                + p_kl["similarity_topk.launches"],
+                "victim_value": parity["decision.launches"]
+                + q_kl["decision.launches"] + p_kl["decision.launches"],
+                "rac_value": parity["rac_value.launches"]
+                + q_kl["rac_value.launches"] + p_kl["rac_value.launches"],
+                "sim_topk": p_kl["similarity_topk.topk_launches"],
+                "sim_topk_q8": q_kl["similarity_topk.topk_q8_launches"]
+                + p_kl["similarity_topk.topk_q8_launches"],
+                "sim_top1_multi": kl["sim_top1_multi"]},
+            "wall_s": wall}
 
 
 def phase_main(trace):
@@ -3399,12 +3741,17 @@ def main():
     m1, m5, m2 = phase_multi(trace)
     b8, b9 = phase_attention()
     log(f"kernels: {time.perf_counter() - t_start:.1f}s")
-    phase_parity(trace)
+    parity_events = phase_parity(trace)
     log(f"parity: {time.perf_counter() - t_start:.1f}s")
-    phase_approx_parity(trace)
+    approx_parity = phase_approx_parity(trace)
     log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
-    arena = phase_arena(trace)
+    arena_sharded, arena = phase_arena(trace)
     log(f"arena: {time.perf_counter() - t_start:.1f}s")
+    sharded = phase_sharded(trace, parity_events, approx_parity,
+                            arena_sharded)
+    sim.append(sharded["b1_row"])
+    values["rac_value"].append(sharded["b3_row"])
+    log(f"sharded phase: {time.perf_counter() - t_start:.1f}s")
     launches, warm, real_v = phase_main(trace)
     for k, row in real_v.items():
         values[k].insert(1, row)
@@ -3460,10 +3807,12 @@ def main():
                "cannot read take __dp4a (sim_topk.cu)",
         library_calls="torch._int_mm + float + 2 mul + torch.topk (5 calls)")
 
+    sl = sharded["launches"]
     rows = [row("sim_top1", "sim_top1.cu", "similarity_topk.py:67",
                 launches["sim_top1"], sim,
                 "torch.mm (product only, IEEE fp32)",
-                tiers_launches=tiers_launches["sim_top1"])]
+                tiers_launches=tiers_launches["sim_top1"],
+                sharded_launches=sl["sim_top1"])]
     eq1_kernel = ("eq1_value.cuh's eq1_kernel: one wave, V entries a thread "
                   "from 16-byte loads, topic tables staged by a bulk copy "
                   "where they fit, programmatic dependent launch")
@@ -3472,6 +3821,7 @@ def main():
         extra = ({"kv_launches": kv_launches["rac_value"],
                   "tiers_launches": tiers_launches["rac_value"]}
                  if name == "rac_value" else {})
+        extra["sharded_launches"] = sl[name]
         rows.append(row(name, name + ".cu", replaces, launches[name],
                         values[name], None, kernel=eq1_kernel,
                         floor_ms=values[name][0]["floor_ms"],
@@ -3481,6 +3831,7 @@ def main():
             approx["topk_launches"], b4,
             "torch.mm + torch.topk (IEEE fp32)",
             f32_launches=approx["topk_f32_launches"],
+            sharded_launches=sl["sim_topk"],
             kernel="fp32 SIMT, cp.async rings: Q <= 16 a warp's 32-row "
                    "tiles, Q > 16 128 x 128 tiles of 8 x 8 micro-tiles"),
         row("sim_topk_q8", "sim_topk_q8.cu", "similarity_topk.py:197",
@@ -3488,13 +3839,15 @@ def main():
             "torch._int_mm (product only; Q padded to 32 rows at Q=1, "
             "the slab's first 65,536 rows)",
             wgmma_launches=approx["topk_q8_wgmma_launches"],
+            sharded_launches=sl["sim_topk_q8"],
             library_calls_ms=b5[0]["library_calls_ms"], **q8_extra),
         row("sim_top1 (device n_valid)", "sim_top1.cu",
             "similarity_topk.py:67", approx["dev_n_valid_launches"], b1d,
             "torch.mm (product only, IEEE fp32)"),
         row("sim_top1_multi", "sim_top1.cu", "ops.py:306",
             arena["sim_top1_multi"], m1,
-            "torch.mm over the flat (P*S, D) slab (product only, IEEE fp32)"),
+            "torch.mm over the flat (P*S, D) slab (product only, IEEE fp32)",
+            sharded_launches=sl["sim_top1_multi"]),
         row("sim_topk_q8_multi", "sim_topk_q8.cu", "ops.py:260",
             arena["sim_topk_q8_multi"], m5,
             "torch._int_mm over the flat (P*S, D) int8 slab (product only; "

@@ -20,7 +20,10 @@ representatives live on the card, and every lookup, fused decision pass
 and eviction scoring runs through the CUDA kernels in
 :mod:`repro_torch.kernels`.  ``device="cpu"`` runs the same backend on the
 kernels' plain PyTorch versions; ``backend="numpy"`` is the host oracle.
-Both backends make identical hit/admit/evict decisions.
+``backend="sharded"`` (``backend_kwargs={"n_shards": S}``) splits the
+slab by rows into S shards, one card each where there are S cards, else
+looped on one device.  Every backend makes the same hit/admit/evict
+decisions.
 
 Two approximate lookups cut the bytes a lookup scans while keeping the
 exact scan's decisions: ``CacheConfig(quantized_lookup=True)`` scans an
@@ -46,6 +49,7 @@ from .backends import KernelBackend, LookupBackend, NumpyBackend, get_backend
 from .facade import SemanticCache, load_reference_state
 from .pruned import PrunedLookupConfig
 from .quantized import QuantizedLookupConfig
+from .sharded import ShardedKernelBackend, ShardedStore
 from .tiers import GhostTier, HostTier, TierManager, TierStats
 from .types import (CacheConfig, CacheEvent, CacheHit, CacheMetrics,
                     CacheMiss, CacheResult, DecisionBatch, TierConfig)
@@ -56,4 +60,5 @@ __all__ = [
     "NumpyBackend", "KernelBackend", "get_backend", "load_reference_state",
     "AsyncAdmitter", "TierConfig", "TierManager", "TierStats", "HostTier",
     "GhostTier", "QuantizedLookupConfig", "PrunedLookupConfig",
+    "ShardedKernelBackend", "ShardedStore",
 ]

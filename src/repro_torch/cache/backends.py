@@ -52,8 +52,12 @@ Both also serve the multi-policy arena (:mod:`repro_torch.core.arena`):
 ``top1_multi`` scores a query chunk against every policy's slab of an
 ``ArenaStore`` — on the kernel backend with ONE policy-stacked kernel
 launch (``sim_top1_multi``; ``sim_topk_q8_multi`` when quantized), and on
-the numpy backend with one host gemm.  The sharded backend is not ported
-yet; asking for it raises ``NotImplementedError`` (``ROADMAP.md`` A10).
+the numpy backend with one host gemm.
+
+The third backend, :class:`~repro_torch.cache.sharded.ShardedKernelBackend`
+(``"sharded"``), partitions the slab by rows over the cards of the cache
+mesh, or loops the same per-shard launches on one device, with the same
+decisions (:mod:`repro_torch.cache.sharded`).
 """
 from __future__ import annotations
 
@@ -141,11 +145,6 @@ class LookupBackend(Protocol):
         ...
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md, queue A item {item})")
-
-
 def _miss(b: int) -> tuple[np.ndarray, np.ndarray]:
     return (np.full(b, -1, dtype=np.int64),
             np.full(b, -np.inf, dtype=np.float64))
@@ -196,7 +195,11 @@ class _DeviceMirror:
         self.stats = {"full": 0, "incremental": 0, "rows": 0, "bytes": 0}
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        # a copy on every device: on the CPU ``from_numpy`` would alias the
+        # host array, which the owner keeps writing (a restored checkpoint
+        # then finds the mirror at its version with another lineage's rows)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                            copy=True)
 
     def _upload_rows(self, a: np.ndarray) -> torch.Tensor:
         t = self._upload(a)
@@ -1273,8 +1276,8 @@ class KernelBackend:
                                  np.full(b, -1, dtype=np.int64),
                                  np.full(b, -np.inf, dtype=np.float64), None)
         if self.quantized is not None or self.pruned is not None:
-            return self._decide_batch_quantized(store, table, queries,
-                                                alpha=alpha, t_now=t_now)
+            return self._decide_batch_split(store, table, queries,
+                                            alpha=alpha, t_now=t_now)
         dev = {**self._slab(store), **self._table_state(table)}
         qd = self._tensor(queries, np.float32)
         # ONE fused dispatch: hit Top-1 (runtime n_valid = store hwm) +
@@ -1296,11 +1299,10 @@ class KernelBackend:
         self._flush_sync()
         return DecisionBatch(cids, sims, ri, rv, vv.astype(np.float64))
 
-    def _decide_batch_quantized(self, store, table, queries, *, alpha,
-                                t_now):
-        """Decision pass with a reduced-traffic hit leg: the hit Top-1
-        rides ``top1_batch`` — the topic-pruned and/or int8 scan, whichever
-        is configured — while routing and victim scoring run the same
+    def _decide_batch_split(self, store, table, queries, *, alpha, t_now):
+        """Decision pass with the hit leg split off: the hit Top-1 rides
+        ``top1_batch`` — the topic-pruned and/or int8 scan, whichever is
+        configured, or the sharded backend's per-shard loop — while routing and victim scoring run the same
         ``sim_top1``/``victim_value`` kernels as the exact path's fused
         dispatch (per-leg score independence keeps the decisions
         identical), on the mirrored occupancy."""
@@ -1323,11 +1325,14 @@ class KernelBackend:
 
 
 def _backends() -> dict:
-    return {"numpy": NumpyBackend, "kernel": KernelBackend}
+    from .sharded import ShardedKernelBackend
+    return {"numpy": NumpyBackend, "kernel": KernelBackend,
+            "sharded": ShardedKernelBackend}
 
 
 def get_backend(name: str, **kwargs) -> LookupBackend:
-    """Instantiate a backend by config name (``"kernel"`` | ``"numpy"``).
+    """Instantiate a backend by config name
+    (``"numpy"`` | ``"kernel"`` | ``"sharded"``).
 
     ``kwargs`` are forwarded to the backend constructor *uniformly*;
     unexpected ones raise (a ``TypeError`` from the constructor), they are
@@ -1342,8 +1347,6 @@ def get_backend(name: str, **kwargs) -> LookupBackend:
             raise ValueError(f"backend instance {name!r} cannot take "
                              f"constructor kwargs {sorted(kwargs)}")
         return name
-    if name == "sharded":
-        raise _not_ported("the sharded backend", "10")
     registry = _backends()
     try:
         cls = registry[name]

@@ -139,7 +139,7 @@ class SemanticCache:
             self.backend = backend
         else:
             kw = dict(cfg.backend_kwargs)
-            if cfg.backend == "kernel":
+            if cfg.backend in ("kernel", "sharded"):
                 kw.setdefault("device", cfg.device)
             # the approximate lookups' certain-miss arm needs the hit
             # threshold: semantic mode fills it in from the facade's own
@@ -156,7 +156,11 @@ class SemanticCache:
                 kw.setdefault(kwarg, sub)
             self.backend = get_backend(cfg.backend, **kw)
         self._fb_seen = {"quant": 0, "prune": 0}   # fallback delta bases
-        self.store = ResidentStore(cfg.capacity, cfg.dim)
+        # backends that own their store geometry (the sharded slab) build
+        # it; everyone else gets the plain dense slab
+        self.store = (self.backend.make_store(cfg.capacity, cfg.dim)
+                      if hasattr(self.backend, "make_store")
+                      else ResidentStore(cfg.capacity, cfg.dim))
         self.policy = (policy_factory(cfg.capacity, self.store)
                        if policy_factory is not None
                        else _make_policy(cfg, self.store))

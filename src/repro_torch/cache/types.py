@@ -45,12 +45,14 @@ class CacheConfig:
     ``"content"`` (content-id residency; O(1), used for large sweeps).
     ``backend`` selects the lookup/scoring implementation: ``"kernel"``
     (the default: the CUDA kernels behind ``kernels/ops.fused_decide``,
-    ``sim_top1`` and ``rac_value``) or ``"numpy"`` (the host slab scan, the
-    oracle); both produce identical hit decisions.  ``device`` is where the
-    kernel backend keeps its mirrors and launches: ``"cuda"`` (the default;
-    raises on a machine without a card) or ``"cpu"``, where every kernel
-    wrapper runs its plain PyTorch version.  ``backend_kwargs`` are
-    forwarded to the backend constructor.
+    ``sim_top1`` and ``rac_value``), ``"sharded"`` (the same kernels shard
+    by shard over a row-partitioned slab, ``backend_kwargs={"n_shards":
+    S}``) or ``"numpy"`` (the host slab scan, the oracle); all produce
+    identical hit decisions.  ``device`` is where the kernel and sharded
+    backends keep their mirrors and launch: ``"cuda"`` (the default; raises
+    on a machine without a card) or ``"cpu"``, where every kernel wrapper
+    runs its plain PyTorch version.  ``backend_kwargs`` are forwarded to
+    the backend constructor.
 
     ``tracker`` attaches a :class:`repro_torch.telemetry.Tracker` (instance
     or spec string like ``"memory"`` / ``"jsonl:<path>"``) that the facade
@@ -85,11 +87,11 @@ class CacheConfig:
     dim: int
     tau_hit: float = 0.85
     hit_mode: str = "semantic"           # "semantic" | "content"
-    backend: str = "kernel"              # "kernel" | "numpy"
+    backend: str = "kernel"              # "kernel" | "sharded" | "numpy"
     policy: str = "RAC"                  # "RAC", "RadixRAC" or a BASELINES
                                          # name
     policy_kwargs: dict = dataclasses.field(default_factory=dict)
-    device: str = "cuda"                 # kernel backend: "cuda" | "cpu"
+    device: str = "cuda"                 # kernel/sharded: "cuda" | "cpu"
     backend_kwargs: dict = dataclasses.field(default_factory=dict)
     async_admit: bool | str = False      # False | True (worker) | "sync"
     tiers: Optional[TierConfig] = None   # None = single-tier (bit-exact)

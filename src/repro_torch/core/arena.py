@@ -39,8 +39,10 @@ them, so RAC variants ride the arena unchanged and score their evictions
 with the ``rac_value`` kernel on the card.
 
 ``backend`` is ``"kernel"`` (the default, on ``device="cuda"``; pass
-``device="cpu"`` for the kernels' plain versions) or ``"numpy"`` (the host
-oracle).  The sharded backend is not ported (``ROADMAP.md`` A10).
+``device="cpu"`` for the kernels' plain versions), ``"sharded"`` (the
+slot axis cut into shards, one B1-multi a shard and a merge; its flagged
+rescans and eviction scoring run on a dense kernel backend on the same
+device) or ``"numpy"`` (the host oracle).
 """
 from __future__ import annotations
 
@@ -190,13 +192,9 @@ def run_arena(trace: Trace, capacity: int,
     two compose (``pruned`` + ``quantized``)."""
     import dataclasses
 
-    from repro_torch.cache.backends import get_backend
+    from repro_torch.cache.backends import KernelBackend, get_backend
     from repro_torch.cache.facade import _VALUE_HOOKS
 
-    if isinstance(backend, str) and backend == "sharded":
-        raise NotImplementedError(
-            "run_arena(backend='sharded'): the sharded backend is not "
-            "ported to repro_torch yet (ROADMAP.md, queue A item 10: A10)")
     names = list(factories)
     n_pol = len(names)
     if not n_pol:
@@ -204,7 +202,7 @@ def run_arena(trace: Trace, capacity: int,
     # resolve the backend FIRST and classify by the resolved instance, so
     # an already-built backend object (the contract get_backend documents)
     # selects the same arena wiring as its config-name spelling
-    kw = {"device": device} if backend == "kernel" else {}
+    kw = {"device": device} if backend in ("kernel", "sharded") else {}
     if quantized:
         from repro_torch.cache.quantized import as_quantized_config
         qcfg = as_quantized_config(quantized)
@@ -218,7 +216,7 @@ def run_arena(trace: Trace, capacity: int,
             pcfg = dataclasses.replace(pcfg, tau_hit=tau_hit)
         kw["pruned"] = pcfg
     be = get_backend(backend, **kw)
-    on_device = be.name == "kernel"
+    on_device = be.name in ("kernel", "sharded")
     dim = trace.requests[0].emb.shape[0]
     # the quantized mirror and the pruned bucket indices key on the
     # arena's flat journal, so either path needs row tracking even on
@@ -232,11 +230,15 @@ def run_arena(trace: Trace, capacity: int,
         # per-policy routing tables: each table-backed policy probes its
         # own topic structure; None entries take the exact per-view scan
         be.route_tables = [getattr(pol, "table", None) for pol in policies]
-    # flagged single-query rescans run on the backend itself (``top1``)
+    # flagged single-query rescans (``top1``) and eviction scoring run on
+    # the backend itself, except under "sharded", where a dense kernel
+    # backend on the same device computes the same per-row scores without
+    # fanning one query out over the shards
+    ref_be = KernelBackend(be.device) if be.name == "sharded" else be
     for pol in policies:
         for attr, method in _VALUE_HOOKS:
             if hasattr(pol, attr):
-                setattr(pol, attr, getattr(be, method))
+                setattr(pol, attr, getattr(ref_be, method))
 
     stats = [Stats(policy=n, capacity=capacity, requests=len(trace.requests))
              for n in names]
@@ -257,7 +259,7 @@ def run_arena(trace: Trace, capacity: int,
                                  block, embs, gram,
                                  np.asarray(snap_cid[p], np.int64).copy(),
                                  np.asarray(snap_sim[p], np.float64).copy(),
-                                 capacity, tau_hit, be)
+                                 capacity, tau_hit, ref_be)
     else:
         for lo in range(0, len(reqs), step):
             block = reqs[lo:lo + step]

@@ -29,9 +29,9 @@ the host tier (``decide_batch``'s ``host_cid`` columns) and a host hit is
 served and promoted like a device hit.
 
 ``EngineConfig.device`` places the model, its KV cache and the
-``"kernel"`` cache backend (the default): the card by default, ``"cpu"``
-for the host (the kernels' plain versions).  ``cache_backend="numpy"``
-asks for the host oracle instead.
+``"kernel"`` cache backend (the default) or the ``"sharded"`` one: the
+card by default, ``"cpu"`` for the host (the kernels' plain versions).
+``cache_backend="numpy"`` asks for the host oracle instead.
 """
 from __future__ import annotations
 
@@ -57,6 +57,8 @@ class EngineConfig:
     max_seq: int = 256
     emb_dim: int = 64
     cache_backend: str = "kernel"  # "kernel" (placed by ``device``) |
+                                   # "sharded" (the row-sharded slab, one
+                                   # shard a card, placed by ``device``) |
                                    # "numpy" (the host oracle)
     async_admit: bool = False     # queue admissions, flush at batch bounds
     host_capacity: int = 0        # host-DRAM tier rows (0 = single-tier);
@@ -69,7 +71,7 @@ class EngineConfig:
                                   # "a+b"), shared with the cache; None
                                   # (default) disables emission
     device: str = "cuda"          # the model, its KV cache and the
-                                  # "kernel" cache backend
+                                  # "kernel"/"sharded" cache backend
 
 
 @dataclasses.dataclass

@@ -163,16 +163,19 @@ def test_prebuilt_backend_rejects_approximate_flags():
 def test_arena_and_sharded_surfaces_still_raise():
     # the stacked approximate arena scans are ported, and refuse an arena
     # that keeps no row journal (their mirrors key on it), as the
-    # reference's do; the sharded backend is still not ported
+    # reference's do; the sharded backend, ported now, refuses it too and
+    # takes the approximate lookups' configs as the kernel backend does
     from repro_torch.core.arena import ArenaStore
     arena = ArenaStore(2, 10, 4, track_rows=False)
     arena.views[0].insert(1, np.full(4, 0.5, np.float32))
+    sharded = get_backend("sharded", quantized=True, pruned=True,
+                          device="cpu")
     for be in (NumpyBackend(quantized=True),
-               KernelBackend("cpu", pruned=True)):
+               KernelBackend("cpu", pruned=True), sharded):
         with pytest.raises(ValueError, match="track_rows"):
             be.top1_multi(arena, np.zeros((1, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_backend("sharded", quantized=True)
+    assert sharded.quantized == KernelBackend("cpu", quantized=True).quantized
+    assert sharded.pruned == KernelBackend("cpu", pruned=True).pruned
 
 
 # ------------------------------------------------- fused helpers (host)

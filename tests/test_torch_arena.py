@@ -3,8 +3,8 @@
 ``run_arena`` with the 15 ``default_factories`` policies, in content and
 semantic mode, with the exact, quantized, pruned and composed stacked
 scans, on the port's numpy oracle and on its kernel backend on the CPU
-(the kernels' plain versions) against the reference's numpy and kernel
-(``use_pallas=False``) backends: identical per-policy ``Stats`` and
+(the kernels' plain versions) and on its sharded backend against the
+reference's numpy, kernel and sharded (``use_pallas=False``) backends: identical per-policy ``Stats`` and
 identical ``quant_stats``/``prune_stats`` ledgers.  Also the arena against
 the port's own sequential replays (``run_many``), ``top1_multi`` across
 backends and across mutations, and the three stacked plain versions
@@ -33,7 +33,9 @@ DIM, CAP, LEN, CHUNK = 32, 40, 400, 64
 # (the port's backend kwargs, the reference's)
 BACKENDS = {"numpy": ({"backend": "numpy"}, {"backend": "numpy"}),
             "kernel": ({"backend": "kernel", "device": "cpu"},
-                       {"backend": "kernel", "use_pallas": False})}
+                       {"backend": "kernel", "use_pallas": False}),
+            "sharded": ({"backend": "sharded", "device": "cpu"},
+                        {"backend": "sharded", "use_pallas": False})}
 APPROX = {"exact": {}, "quantized": {"quantized": True},
           "pruned": {"pruned": True},
           "both": {"quantized": True, "pruned": True}}
@@ -125,8 +127,18 @@ def test_arena_counts_one_stacked_launch_per_chunk(traces):
 
 
 def test_run_arena_sharded_raises_naming_a10(traces):
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_arena(traces[1], CAP, default_factories(), backend="sharded")
+    """The sharded arena, which raised before, runs: one shard a device
+    (one on the CPU) and a prebuilt two-shard backend both give the numpy
+    oracle's per-policy ``Stats``."""
+    from repro_torch.cache import ShardedKernelBackend
+    _, tr = traces
+    kw = dict(hit_mode="semantic", chunk=CHUNK, seed=0)
+    want = run_arena(tr, CAP, default_factories(seed=0), backend="numpy",
+                     **kw)
+    for be in ({"backend": "sharded", "device": "cpu"},
+               {"backend": ShardedKernelBackend(n_shards=2, device="cpu")}):
+        got = run_arena(tr, CAP, default_factories(seed=0), **be, **kw)
+        assert _counts(got) == _counts(want)
 
 
 def test_run_arena_defaults_to_the_card():

@@ -6,12 +6,14 @@ semantic mode.  Hit/miss/admit/evict event streams must be identical,
 ``decide_batch`` columns must agree (similarities within 1e-5, Eq. 1
 values within 1e-6 relative), ``checkpoint``/``restore`` must round-trip,
 and ``load_reference_state`` must continue a warmed reference cache with
-identical decisions.  Also: torch ``pagerank_power`` against
-``pagerank_power_jax``, the features that used to raise (asynchronous
-admission, tiers, ``"RadixRAC"``) serving like the reference's, and the
-sharded backend, which the port has not reached yet, raising
-``NotImplementedError`` (the approximate lookups are held against
-the reference in ``tests/test_torch_approx.py``).
+identical decisions.  The ``"sharded"`` backend (one shard a device: one
+on the CPU) takes the same event, peek and checkpoint checks.  Also:
+torch ``pagerank_power`` against ``pagerank_power_jax``, and the features
+that used to raise (asynchronous admission, tiers, ``"RadixRAC"``, the
+sharded backend) serving like the reference's (the approximate lookups
+are held against the reference in ``tests/test_torch_approx.py``, the
+sharded backend at several shard counts in
+``tests/test_torch_sharded.py``).
 """
 import dataclasses
 
@@ -106,7 +108,7 @@ def _assert_decisions(got, want):
 
 
 @pytest.mark.parametrize("hit_mode", ["semantic", "content"])
-@pytest.mark.parametrize("backend", ["kernel", "numpy"])
+@pytest.mark.parametrize("backend", ["kernel", "numpy", "sharded"])
 def test_event_streams_and_decisions_match_reference(requests, backend,
                                                      hit_mode):
     ref, port = _ref(hit_mode, backend), _port(hit_mode, backend)
@@ -135,7 +137,7 @@ def test_kernel_backend_reads_the_slab_through_its_mirror(requests):
     assert set(snap["dispatch"]) == {"launches", "host_syncs", "kernel_s"}
 
 
-@pytest.mark.parametrize("backend", ["kernel", "numpy"])
+@pytest.mark.parametrize("backend", ["kernel", "numpy", "sharded"])
 def test_peek_rows_matches_reference(requests, backend):
     ref, port = _ref("semantic", backend), _port("semantic", backend)
     for c in (ref, port):
@@ -148,7 +150,7 @@ def test_peek_rows_matches_reference(requests, backend):
     np.testing.assert_allclose(ps, rs, atol=SIM_ATOL)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "numpy"])
+@pytest.mark.parametrize("backend", ["kernel", "numpy", "sharded"])
 def test_checkpoint_restore_round_trips(requests, backend):
     port, ref = _port("semantic", backend), _ref("semantic", backend)
     for c in (port, ref):
@@ -255,16 +257,10 @@ def test_pagerank_power_matches_jax(rng, n):
     ("tiers", TierConfig(host_capacity=8)),
     ("policy", "RadixRAC"), ("backend", "sharded")])
 def test_unported_features_raise_and_point_at_the_roadmap(field, value):
-    """Only the sharded backend (queue A item A10) still raises and points
-    at the roadmap.  Asynchronous admission, the tiers and RadixRAC, which
-    raised before, build and serve one admit and one lookup as the
-    reference does."""
+    """Nothing raises any more.  Asynchronous admission, the tiers,
+    RadixRAC and the sharded backend, which raised before, build and serve
+    one admit and one lookup as the reference does."""
     kw = {"hit_mode": "semantic", "backend": "numpy", field: value}
-    if field == "backend":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SemanticCache(CacheConfig(capacity=CAP, dim=DIM, device="cpu",
-                                      **kw))
-        return
     if value == "RadixRAC":
         kw["hit_mode"] = "content"
     port = SemanticCache(CacheConfig(capacity=CAP, dim=DIM, device="cpu",
@@ -289,16 +285,26 @@ def test_unported_features_raise_and_point_at_the_roadmap(field, value):
 
 
 def test_unported_backend_options_raise():
-    # the quantized and pruned lookups and their policy-stacked arena
-    # surface are ported; the sharded backend is not, for the facade and
-    # for the arena alike
+    # the quantized and pruned lookups, their policy-stacked arena surface
+    # and the sharded backend are all ported: the sharded backend builds
+    # (on the card by default, so a machine without one must ask for the
+    # CPU) and serves the facade and the arena as the others do
+    from repro_torch.cache import ShardedKernelBackend
     from repro_torch.core import OASSTConfig, oasst_style_trace, run_arena
     from repro_torch.core.policies import BASELINES
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_backend("sharded")
-    tr = oasst_style_trace(OASSTConfig(trace_len=8, dim=DIM, seed=0))
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_arena(tr, 4, {"LRU": BASELINES["LRU"]}, backend="sharded")
+    assert isinstance(get_backend("sharded", device="cpu"),
+                      ShardedKernelBackend)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_backend("sharded")
+    tr = oasst_style_trace(OASSTConfig(trace_len=300, dim=DIM, seed=0))
+    facs = {"LRU": BASELINES["LRU"]}
+    got, want = (run_arena(tr, 4, facs, hit_mode="semantic", **kw)
+                 for kw in ({"backend": "sharded", "device": "cpu"},
+                            {"backend": "numpy"}))
+    assert [(s.hits, s.misses, s.evictions) for s in got] == \
+        [(s.hits, s.misses, s.evictions) for s in want]
+    assert got[0].evictions > 0
 
 
 def test_disabled_tier_config_is_single_tier(requests):

@@ -1574,3 +1574,181 @@ def test_engine_async_on_the_card_matches_its_synchronous_run(cuda):
                             eng.cache.tier_stats)
     assert out[True] == out[False]
     assert out[False][1]["hits"] > 0 and out[False][2]["demotions"] > 0
+
+
+# ------------------------------------------------------ the sharded backend
+def _sharded_pair(rng, n_shards, capacity, n, d, dev):
+    """A ShardedStore filled with ``n`` seeded unit rows, and a dense
+    ResidentStore holding the same rows in the same slots."""
+    from repro_torch.cache import ShardedStore
+    from repro_torch.core.store import ResidentStore
+    rows = _unit(rng, n, d, "cpu").numpy()
+    sh = ShardedStore(capacity, d, n_shards)
+    for i, e in enumerate(rows):
+        sh.insert(i, e)
+    for c in range(0, n, 7):                 # freed rows inside shards
+        sh.remove(c)
+    dense = ResidentStore(capacity, d, n_slots=sh.emb.shape[0])
+    dense.emb[:], dense.occ[:], dense.cid[:] = sh.emb, sh.occ, sh.cid
+    dense.slot_of, dense.hwm = dict(sh.slot_of), sh.hwm
+    dense._free = [s for s in range(sh.emb.shape[0] - 1, -1, -1)
+                   if not sh.occ[s]]
+    near = rows[::3] + 0.1 * _unit(rng, len(rows[::3]), d, "cpu").numpy()
+    q = np.concatenate([near / np.linalg.norm(near, axis=1, keepdims=True),
+                        _unit(rng, 40, d, "cpu").numpy()])
+    return sh, dense, q.astype(np.float32)
+
+
+@pytest.fixture(params=["loop", "mesh"])
+def shard_path(request, monkeypatch):
+    """The one-card loop, or the multi-card code path with every shard's
+    card patched to ``cuda:0``."""
+    if request.param == "mesh":
+        from repro_torch.launch import mesh
+        monkeypatch.setattr(mesh, "make_cache_mesh",
+                            lambda n, device="cuda": [torch.device(
+                                "cuda", 0)] * n)
+    return request.param
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_top1_is_bit_equal_to_the_kernel_backend(cuda, rng,
+                                                         shard_path,
+                                                         n_shards):
+    from repro_torch.cache import KernelBackend, ShardedKernelBackend
+    from repro_torch.kernels import similarity_topk as st
+    sh, dense, q = _sharded_pair(rng, n_shards, 6_000, 5_000, 768, cuda)
+    be = ShardedKernelBackend(n_shards=n_shards)
+    assert (be.mesh() is not None) == (shard_path == "mesh")
+    before = st.launches
+    got = be.top1_batch(sh, q)
+    assert st.launches == before + n_shards       # one B1 a shard
+    want = KernelBackend().top1_batch(dense, q)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])   # the same fp32 bits
+    assert (got[0] >= 0).sum() > 100
+
+
+def test_sharded_shards_as_one_multi_launch_give_the_loops_bits(cuda, rng):
+    """The shards scored by one B1-multi (the shard as the policy axis,
+    per-shard counts on the card) give the B1 loop's bits: one tile shape,
+    one arithmetic."""
+    from repro_torch.kernels import similarity_topk as st
+    sh, _, q = _sharded_pair(rng, 4, 6_000, 5_000, 768, cuda)
+    slab = torch.from_numpy(sh.shard_view().copy()).to(cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    mv, mi = st.sim_top1_multi(qd, slab, _counts(
+        tuple(int(x) for x in sh.local_hwm), cuda))
+    for s in range(4):
+        v, i = st.sim_top1(qd, slab[s], int(sh.local_hwm[s]))
+        assert torch.equal(v, mv[s]) and torch.equal(i, mi[s])
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_decide_batch_equals_the_kernel_backend(cuda, shard_path,
+                                                        n_shards):
+    """A RAC replay through decide_batch on the sharded backend makes the
+    kernel backend's decisions; the last pass's columns agree cid by cid
+    (hit sims and victim values in the same bits)."""
+    from repro_torch.cache import CacheConfig, SemanticCache
+    from repro_torch.core import OASSTConfig, oasst_style_trace
+    from repro_torch.core.simulator import replay_batched
+    tr = oasst_style_trace(OASSTConfig(trace_len=3_000, dim=128, seed=4))
+    caches = {}
+    for backend, kw in (("sharded", {"n_shards": n_shards}),
+                        ("kernel", {})):
+        cache = SemanticCache(CacheConfig(capacity=300, dim=128,
+                                          backend=backend,
+                                          backend_kwargs=kw))
+        ev = []
+        for kind in ("hit", "miss", "admit", "evict"):
+            cache.subscribe(kind, lambda e, k=kind: ev.append((k, e.cid)))
+        replay_batched(cache, tr.requests, chunk=256)
+        caches[backend] = (cache, ev)
+    (sc, sev), (kc, kev) = caches["sharded"], caches["kernel"]
+    assert sev == kev and any(k == "evict" for k, _ in kev)
+    q = np.stack([r.emb for r in tr.requests[:256]]).astype(np.float32)
+    ds, dk = sc.decide_batch(q), kc.decide_batch(q)
+    np.testing.assert_array_equal(ds.hit_cid, dk.hit_cid)
+    np.testing.assert_array_equal(ds.hit_sim, dk.hit_sim)
+    np.testing.assert_array_equal(ds.route_tid, dk.route_tid)
+    np.testing.assert_array_equal(ds.route_sim, dk.route_sim)
+    cids = sorted(kc.store.slot_of)
+    assert cids == sorted(sc.store.slot_of)
+    np.testing.assert_array_equal(
+        [ds.victim_value[sc.store.slot_of[c]] for c in cids],
+        [dk.victim_value[kc.store.slot_of[c]] for c in cids])
+    assert np.isposinf(ds.victim_value[~sc.store.occ]).all()
+
+
+def test_sharded_rac_value_in_chunks_is_bit_equal_to_one_launch(cuda, rng):
+    from repro_torch.cache import KernelBackend, ShardedKernelBackend
+    from repro_torch.kernels import rac_value
+    from repro_torch.launch import mesh
+    n, t = 65_537, 4_096
+    args = (rng.random(n), rng.integers(0, t, n), rng.random(t),
+            rng.integers(0, 10_000, t), 0.001, 12_000)
+    valid = rng.random(n) < 0.9
+    want = KernelBackend().rac_value(*args)
+    want_m = KernelBackend().rac_value_masked(*args, valid)
+    orig = mesh.make_cache_mesh
+    try:
+        mesh.make_cache_mesh = lambda s, device="cuda": [
+            torch.device("cuda", 0)] * s
+        be = ShardedKernelBackend(n_shards=4)
+        before = rac_value.launches
+        got = be.rac_value(*args)
+        assert rac_value.launches == before + 4
+        got_m = be.rac_value_masked(*args, valid)
+    finally:
+        mesh.make_cache_mesh = orig
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_m, want_m)
+
+
+@pytest.mark.parametrize("n_shards,k", [(2, 8), (4, 8), (4, 300)])
+def test_sharded_quantized_merge_is_bit_equal_to_plain(cuda, rng,
+                                                       shard_path,
+                                                       n_shards, k):
+    """The merged int8 shortlist on the card (one B5 a shard, the stable
+    sort) against the same merge over the plain versions on the CPU: the
+    same values and rows; the certified lookups equal the exact scan's."""
+    from repro_torch.cache import ShardedKernelBackend
+    from repro_torch.kernels import similarity_topk as st
+    sh, _, q = _sharded_pair(rng, n_shards, 1_200, 1_000, 768, cuda)
+    card = ShardedKernelBackend(n_shards=n_shards, quantized={"k": k})
+    plain = ShardedKernelBackend(n_shards=n_shards, device="cpu",
+                                 quantized={"k": k})
+    plain._mesh, plain._mesh_built = None, True
+    before = st.topk_q8_launches
+    v, r, *_ = card._quantized_candidates(sh, q)
+    assert st.topk_q8_launches == before + n_shards
+    pv, pr, *_ = plain._quantized_candidates(sh, q)
+    np.testing.assert_array_equal(np.isfinite(v), np.isfinite(pv))
+    fin = np.isfinite(pv)
+    np.testing.assert_array_equal(v[fin], pv[fin])
+    np.testing.assert_array_equal(r[fin], pr[fin])
+    exact = ShardedKernelBackend(n_shards=n_shards).top1_batch(sh, q)
+    for a, b in zip(card.top1_batch(sh, q), exact):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_arena_on_the_card_matches_the_host_oracle(cuda,
+                                                           shard_path):
+    from repro_torch.cache import ShardedKernelBackend
+    from repro_torch.core import (OASSTConfig, default_factories,
+                                  oasst_style_trace, run_arena)
+    from repro_torch.kernels import similarity_topk
+    tr = oasst_style_trace(OASSTConfig(trace_len=1_500, dim=128, seed=4))
+    similarity_topk.multi_launches = 0
+    out = {}
+    for name, backend in (("sharded", ShardedKernelBackend(n_shards=2)),
+                          ("numpy", "numpy")):
+        stats = run_arena(tr, 120, default_factories(seed=0),
+                          hit_mode="semantic", backend=backend, chunk=128)
+        out[name] = [(s.policy, s.hits, s.misses, s.evictions)
+                     for s in stats]
+    assert out["sharded"] == out["numpy"]
+    # one B1-multi a shard for every chunk but the first: an empty arena
+    # answers without a launch
+    assert similarity_topk.multi_launches == 2 * (-(-1_500 // 128) - 1)

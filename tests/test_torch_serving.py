@@ -65,7 +65,7 @@ def reference_run():
     return jax.tree.map(np.asarray, eng.params), reqs, out
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_engine_matches_the_reference_engine(reference_run, backend):
     tree, reqs, (want, want_stats) = reference_run
     cfg = smoke_variant(get_config("paper"))
@@ -247,18 +247,22 @@ def test_synchronous_single_tier_surface():
 
 
 def test_unported_cache_features_still_raise():
-    """Only the sharded backend still raises; asynchronous admission and
-    RadixRAC, which raised before, serve one admit and one lookup as the
-    reference's facade does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SemanticCache(CacheConfig(capacity=4, dim=4, backend="sharded"))
+    """Nothing raises any more: asynchronous admission, RadixRAC and the
+    sharded backend, which raised before, serve one admit and one lookup
+    as the reference's facade does (the sharded one on the card by
+    default, so without a card it asks for ``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SemanticCache(CacheConfig(capacity=4, dim=4, backend="sharded"))
     emb = np.eye(4, dtype=np.float32)[1]
     for kw in ({"async_admit": True},
-               {"policy": "RadixRAC", "hit_mode": "content"}):
-        port = SemanticCache(CacheConfig(capacity=4, dim=4, backend="numpy",
+               {"policy": "RadixRAC", "hit_mode": "content"},
+               {"backend": "sharded", "backend_kwargs": {"n_shards": 2}}):
+        kw = {"backend": "numpy", **kw}
+        port = SemanticCache(CacheConfig(capacity=4, dim=4, device="cpu",
                                          **kw))
         ref = RSemanticCache(RCacheConfig(capacity=4, dim=4,
-                                          backend="numpy", **kw))
+                                          use_pallas=False, **kw))
         logs = [_events(c) for c in (port, ref)]
         for cache in (port, ref):
             if "policy" in kw:

@@ -2,8 +2,9 @@
 and the full hit/admit/eviction sequences of RAC must be equal, for the
 exact incremental batched replay at chunks {1, 7, 512} and the
 per-request loop, on a synthetic and an OASST-style trace.  The port runs
-on the ``"kernel"`` backend on the CPU (the kernels' plain versions) and
-on its ``"numpy"`` host oracle; the reference on its numpy oracle, which
+on the ``"kernel"`` backend on the CPU (the kernels' plain versions), on
+its ``"sharded"`` backend (one shard a device: one on the CPU) and on its
+``"numpy"`` host oracle; the reference on its numpy oracle, which
 the reference's own tests hold equal to its kernel backend.
 """
 import numpy as np
@@ -87,7 +88,7 @@ def _reference(trace, key, runner, **kw):
     return _REF_CACHE[key]
 
 
-@pytest.mark.parametrize("backend", ["kernel", "numpy"])
+@pytest.mark.parametrize("backend", ["kernel", "numpy", "sharded"])
 @pytest.mark.parametrize("chunk", [1, 7, 512])
 def test_batched_replay_matches_reference(traces, chunk, backend):
     ref_tr, port_tr = traces

@@ -9,7 +9,8 @@ tier counters and residency, besides the reference's own assertions.
 Event streams are held to the reference's synchronous host oracle across
 content/semantic mode x ``async_admit`` in {False, True, "sync"} x the
 port's numpy and kernel (plain versions, ``device="cpu"``) backends, with
-a checkpoint/restore in the middle; ``render_text`` renders equal tracker
+a checkpoint/restore in the middle (the tier flows also on the sharded
+backend, two shards); ``render_text`` renders equal tracker
 content identically; and the serving engine with ``async_admit=True`` and
 tiers makes the reference engine's outputs on carried-over weights.
 """
@@ -38,11 +39,18 @@ from repro_torch.telemetry import (InMemoryTracker, render_text, summarize,
 SIM_ATOL = 1e-5
 
 
+def _bkw(backend) -> dict:
+    """The sharded backend runs two shards, as the reference's tier tests
+    run it."""
+    return {"n_shards": 2} if backend == "sharded" else {}
+
+
 def _caches(capacity, dim, *, backend="numpy", tiers=None, **kw):
     """The port's cache and the reference's (numpy backend, inline
     admission unless asked) over the same configuration."""
     port = SemanticCache(CacheConfig(
         capacity=capacity, dim=dim, backend=backend, device="cpu",
+        backend_kwargs=_bkw(backend),
         tiers=None if tiers is None else TierConfig(**tiers), **kw))
     ref = RCache(RConfig(
         capacity=capacity, dim=dim, backend="numpy", use_pallas=False,
@@ -353,7 +361,7 @@ def _replay(cache, *, n=80):
     return log, _counters(cache), events
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 @pytest.mark.parametrize("hit_mode", ["content", "semantic"])
 def test_disabled_tiers_identical_to_single_tier(backend, hit_mode):
     """Both capacities 0: no tier manager, and every decision equals the
@@ -368,7 +376,7 @@ def test_disabled_tiers_identical_to_single_tier(backend, hit_mode):
     assert _key(a[2]) == _key(b[2]) == _key(c[2])
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_tiered_decisions_match_the_reference(backend):
     port, ref = _caches(8, 32, backend=backend, tau_hit=0.85,
                         hit_mode="semantic", policy="RAC",
@@ -380,7 +388,7 @@ def test_tiered_decisions_match_the_reference(backend):
     assert port.tier_stats["demotions"] > 0
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_checkpoint_restore_roundtrip_includes_tiers(backend):
     space = EmbeddingSpace(dim=32, seed=31)
     port, ref = _caches(4, 32, backend=backend, tau_hit=0.85, policy="RAC",
@@ -425,7 +433,7 @@ def test_restore_accepts_pre_tiering_snapshots():
     assert 1 in cache and 2 not in cache and cache.payloads == {1: ["x"]}
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_decide_batch_reports_host_fallthrough_columns(backend):
     port, ref = _tiered(backend=backend)
     _, embs = _space_embs()
@@ -454,7 +462,8 @@ def _drive_batches(mode, backend, *, capacity=16, dim=32, batch=5):
     space = EmbeddingSpace(dim=dim, seed=2)
     cache = SemanticCache(CacheConfig(capacity=capacity, dim=dim,
                                       policy="RAC", async_admit=mode,
-                                      backend=backend, device="cpu"))
+                                      backend=backend, device="cpu",
+                                      backend_kwargs=_bkw(backend)))
     events = []
     for kind in ("hit", "miss", "admit", "evict"):
         cache.subscribe(kind, lambda ev, k=kind: events.append((k, ev.cid)))
@@ -475,7 +484,7 @@ def _drive_batches(mode, backend, *, capacity=16, dim=32, batch=5):
     return cache, _counters(cache), events
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_flush_matches_synchronous_admit(backend):
     ref_cache, ref_counters, ref_events = _drive_batches(False, "numpy")
     ref_admits = [e for e in ref_events if e[0] in ("admit", "evict")]
@@ -576,11 +585,12 @@ def test_capacity_zero_admit_never_leaks_payload():
     assert cache.payloads == {} and len(cache) == 0
 
 
-@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("backend", ["numpy", "kernel", "sharded"])
 def test_peek_rows_matches_full_peek(backend):
     space = EmbeddingSpace(dim=64, seed=6)
     cache = SemanticCache(CacheConfig(capacity=40, dim=64, policy="LRU",
-                                      backend=backend, device="cpu"))
+                                      backend=backend, device="cpu",
+                                      backend_kwargs=_bkw(backend)))
     embs = [space.content_embedding(i % 8, i).astype(np.float32)
             for i in range(32)]
     for i, e in enumerate(embs):
