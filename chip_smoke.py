@@ -55,9 +55,10 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                Top-1 must have launched once per chunk.  The stacked
                victim values of the three RAC variants' final tables are
                then checked in one launch.  The exact, quantized, pruned
-               and composed arenas then replay a shorter prefix, each in a
-               worker process, and must make the same Stats; the stacked
-               int8 Top-K must have launched once per chunk.
+               and composed arenas replay a shorter prefix, each in a
+               worker process started before the card's arena and running
+               beside it, and must make the same Stats; the stacked int8
+               Top-K must have launched once per chunk.
   6b. sharded - the sharded backend (ShardedStore, ShardedKernelBackend):
                at the main path's geometry (capacity 65,536, D = 768,
                SHARDS = 4 shards of 16,385 rows) a 512-query chunk's
@@ -97,7 +98,8 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                beside the library yardstick (scaled_dot_product_attention:
                causal for B8, over a [0, pos] mask for B9, its max |err|
                recorded): B8 at bf16 (B,H,Hkv,S,D) =
-               (1,15,5,4096,64) and (2,15,5,1000,64), fp32 (1,8,2,513,128),
+               (1,15,5,4096,64), (2,15,5,1000,64) and smollm-360m's
+               training batch (8,15,5,1024,64), fp32 (1,8,2,513,128),
                gemma-7b's heads (1,16,16,4096,256) and nemotron-4-340b's
                (1,96,8,4096,192) in bf16, a smoke variant's (2,4,2,4096,32)
                in fp32, and the kernel alone at S = 32,768; B9 at bf16
@@ -156,7 +158,11 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                windowed B8 (every layer held to plain); at fp32 compute,
                prefill against plain attention and 2,112 teacher-forced
                decode steps through the ring of 2,048 slots, the last 64
-               positions' logits within LOGIT_TOL of forward's.
+               positions' logits within LOGIT_TOL of forward's.  The fp32
+               gates (host-bound decode steps, the card ~7% busy) run in a
+               child process (chip_smoke.py --hymba-child OUT.json) on the
+               same seeded weights, started after phase 9 and joined (its
+               lines printed) after phase 6: phases 4-6 time no kernel.
  10g. whisper - whisper-medium at full width and depth (24 encoder and 24
                decoder layers, d_model 1,024, 16 heads of 64, GELU 4,096,
                vocab 51,865, bf16, 0.91 B parameters drawn on the card
@@ -184,7 +190,28 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                768 text tokens (48 B8 launches on wgmma at G = 6, each
                held to plain); 64 teacher-forced decode steps (B9) against
                the text-only forward; at fp32 compute both within
-               LOGIT_TOL.
+               LOGIT_TOL; the forward's peak memory in grad mode (its
+               parameters need none) no higher than under no_grad.
+ 10j. train  - smollm-360m (launch/train.py's default arch) trained through
+               launch/train.py's code path on the card: at full width
+               with 2 layers in fp32 (B8's SIMT kernel), one step's loss
+               and gradients against the same step on plain attention
+               (loss within 1e-5 relative, each gradient leaf within 1e-4
+               relative L2); at full width and depth in bf16, batch 8 x
+               1,024 tokens, 20 steps checkpointed every 10 (the forward
+               on B8, again in each block's remat recompute, all on
+               wgmma: 64 launches a step; the gradient the plain
+               attention's, recomputed), then a restart from step 10
+               whose losses are bit-equal to the uninterrupted run's
+               (torch.use_deterministic_algorithms), the loss falling;
+               ms a step, tokens/s, MFU, the backward's share (CUDA
+               events), the busy share of one profiled step (its device
+               time over its wall, torch.profiler), peak memory,
+               checkpoint save and restore seconds, and the plain
+               attention backward at the training shape.  The phase runs
+               in a child process, the only one with cuBLAS's fixed
+               workspace (CUBLAS_WORKSPACE_CONFIG) that deterministic
+               mode wants.
  10c. tiers  - RAC at D=768 over the first 5,000 requests, device capacity
                1,024, a host tier of 2,048 rows and ghost lists of 8,192,
                request by request with a flush after each, queued
@@ -206,7 +233,7 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                10,000 evictions, B3 launched for each (one launch, the mask
                in the kernel), B1 never.
                The host replays of 10c and 10d run in four worker
-               processes while phases 10, 10b and 10e-10i use the card.
+               processes while phases 10, 10b and 10e-10j use the card.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -295,7 +322,8 @@ PEAK_BF16 = 989e12         # dense bf16 on the tensor cores
 
 # B8 at the model's prefill shapes, (B, H, Hkv, S, D, Dv, window), dtype,
 # timing reps: the paper LM's heads (the last at prefill_32k's length,
-# where the plain version does not fit), gemma-7b's (16 of 256) and
+# where the plain version does not fit; the third smollm-360m's training
+# batch of 8 x 1,024), gemma-7b's (16 of 256) and
 # nemotron-4-340b's (96/8 of 192) at S = 4,096, a smoke variant's (4/2 of
 # 32, fp32), deepseek-v2-lite-16b's MLA prefill (16 heads, Q/K 192, V 128)
 # and its smoke variant's (48/32), hymba-1.5b's band of 2,048 keys (25/5
@@ -303,6 +331,7 @@ PEAK_BF16 = 989e12         # dense bf16 on the tensor cores
 # and its smoke variant's window of 64 at head dim 32
 FLASH_SHAPES = [((1, 15, 5, 4096, 64, 64, 0), torch.bfloat16, 5),
                 ((2, 15, 5, 1000, 64, 64, 0), torch.bfloat16, 20),
+                ((8, 15, 5, 1024, 64, 64, 0), torch.bfloat16, 10),
                 ((1, 8, 2, 513, 128, 128, 0), torch.float32, 20),
                 ((1, 16, 16, 4096, 256, 256, 0), torch.bfloat16, 5),
                 ((1, 96, 8, 4096, 192, 192, 0), torch.bfloat16, 3),
@@ -403,6 +432,19 @@ XLSTM_ARCH, XLSTM_S, XLSTM_STEPS = "xlstm-125m", 512, 64
 XLSTM_PROFILE_S = 64           # the profiled prefill's tokens (a loop)
 INTERNVL_ARCH, INTERNVL_TEXT, INTERNVL_STEPS = "internvl2-26b", 768, 64
 FAMILY_SERVE_LEN = 32
+# training (phase 10j): smollm-360m, launch/train.py's default arch, at full
+# width and depth in bf16, batch 8 x 1,024 tokens: TRAIN_STEPS steps
+# checkpointed every TRAIN_CKPT_EVERY, then a restart from that step; the
+# gradient check at full width with TRAIN_CHECK_LAYERS layers in fp32 (B8's
+# SIMT kernel against the plain version: fp32 sums in another order, ~1e-6
+# relative in the attention outputs)
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "smollm-360m", 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_CHECK_LAYERS = 2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4         # relative L2 of each gradient leaf
+TRAIN_CHILD = "--train-child"  # the argument that runs phase 10j alone
+HYMBA_CHILD = "--hymba-child"  # the argument that runs 10f's fp32 gates
 # full-width bf16 logits (max |logit| ~3.3): the kernels' and the plain
 # versions' roundings, and decode's and forward's GEMM shapes, differ in
 # the last bf16 bit of some activations, and that spreads over 32 layers;
@@ -424,10 +466,15 @@ def phase_device() -> str:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    # the plain versions and the library yardstick run IEEE fp32 products
+    _no_tf32()
+    return torch.cuda.get_device_name(0)
+
+
+def _no_tf32():
+    """The plain versions and the library yardstick run IEEE fp32
+    products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.cuda.get_device_name(0)
 
 
 def phase_build():
@@ -1317,8 +1364,9 @@ def stacked_victims(policies, views, t_now: int):
 
 def phase_arena(trace):
     """The 15-policy arena on the card against the host oracle (run at the
-    same time in a worker), then the approximate arenas on a shorter
-    prefix against the exact one."""
+    same time in a worker), and the approximate arenas on a shorter prefix
+    against the exact one (in workers started first: host-bound, they run
+    beside the card's arena)."""
     from repro_torch.core import default_factories, run_arena
     from repro_torch.kernels import ops
     from repro_torch.kernels import similarity_topk as st
@@ -1334,38 +1382,54 @@ def phase_arena(trace):
             return kept[-1][0]
         return make
     facs = {n: keeping(f) for n, f in default_factories(seed=0).items()}
-    with _workers(1, 4) as pool:
-        oracle = pool.submit(_arena_replay,
-                             ("exact", "numpy", "cpu", {}, sub, cap))
-        counters = ((st, "multi_launches"), (st, "topk_q8_multi_launches"),
-                    (st, "launches"))
-        for mod, attr in counters:
-            setattr(mod, attr, 0)
-        eq1_reset()
-        d0 = dict(ops.dispatch_stats)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        stats = run_arena(sub, cap, facs, hit_mode="semantic",
-                          tau_hit=TAU_HIT, backend="kernel", device=DEVICE,
-                          chunk=CHUNK)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        disp = {k: ops.dispatch_stats[k] - d0[k] for k in d0}
-        peak = torch.cuda.max_memory_allocated()
-        eq1_run = eq1_counts()
-        rac = [(pol, v) for pol, v in kept if hasattr(pol, "table")]
-        stacked_victims([p for p, _ in rac], [v for _, v in rac],
-                        sub.requests[-1].t)
-        eq1 = eq1_counts()
-        launches = {f"{mod.__name__.split('.')[-1]}.{attr}":
-                    getattr(mod, attr) for mod, attr in counters}
-        launches.update({"rac_value.launches": eq1_run["rac_value"],
-                         "rac_value.vec_launches":
-                             eq1_run["rac_value (vector)"],
-                         "decision.multi_launches": eq1["victim_value_multi"],
-                         "decision.multi_vec_launches":
-                             eq1["victim_value_multi (vector)"]})
-        _, _, want, oracle_wall, _, _ = oracle.result()
+    # the approximate arenas on a shorter prefix, against the exact one,
+    # side by side (host-bound: each rescans its flagged queries one by
+    # one, the quantized ones through the fused lookup)
+    sub2, cap2 = prefix(trace, ARENA_APPROX_LEN)
+    n_chunks2 = -(-len(sub2.requests) // CHUNK)
+    tasks = [(name, "kernel", DEVICE, kw, sub2, cap2) for name, kw in (
+        ("exact", {}), ("quantized", {"quantized": True}),
+        ("pruned", {"pruned": True}),
+        ("both", {"quantized": True, "pruned": True}))] + [
+        ("sharded", "sharded", DEVICE, {}, sub2, cap2),
+        ("host oracle", "numpy", "cpu", {}, sub2, cap2)]
+    with _workers(len(tasks), 1) as approx_pool:
+        approx_arenas = [approx_pool.submit(_arena_replay, t)
+                         for t in tasks]
+        with _workers(1, 4) as pool:
+            oracle = pool.submit(_arena_replay,
+                                 ("exact", "numpy", "cpu", {}, sub, cap))
+            counters = ((st, "multi_launches"), (st, "topk_q8_multi_launches"),
+                        (st, "launches"))
+            for mod, attr in counters:
+                setattr(mod, attr, 0)
+            eq1_reset()
+            d0 = dict(ops.dispatch_stats)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stats = run_arena(sub, cap, facs, hit_mode="semantic",
+                              tau_hit=TAU_HIT, backend="kernel", device=DEVICE,
+                              chunk=CHUNK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            disp = {k: ops.dispatch_stats[k] - d0[k] for k in d0}
+            peak = torch.cuda.max_memory_allocated()
+            eq1_run = eq1_counts()
+            rac = [(pol, v) for pol, v in kept if hasattr(pol, "table")]
+            stacked_victims([p for p, _ in rac], [v for _, v in rac],
+                            sub.requests[-1].t)
+            eq1 = eq1_counts()
+            launches = {f"{mod.__name__.split('.')[-1]}.{attr}":
+                        getattr(mod, attr) for mod, attr in counters}
+            launches.update({"rac_value.launches": eq1_run["rac_value"],
+                             "rac_value.vec_launches":
+                                 eq1_run["rac_value (vector)"],
+                             "decision.multi_launches":
+                                 eq1["victim_value_multi"],
+                             "decision.multi_vec_launches":
+                                 eq1["victim_value_multi (vector)"]})
+            _, _, want, oracle_wall, _, _ = oracle.result()
+        results = [f.result() for f in approx_arenas]
     got = _counts(stats)
     n = len(sub.requests)
     log(f"arena card: wall={wall:.2f}s ({N_POL * n / wall:.0f} "
@@ -1391,19 +1455,6 @@ def phase_arena(trace):
     log(f"arena: {N_POL} policies' hits, misses and evictions identical on "
         f"the card and the host oracle over {n} requests")
 
-    # the approximate arenas on a shorter prefix, against the exact one,
-    # side by side (host-bound: each rescans its flagged queries one by
-    # one, the quantized ones through the fused lookup)
-    sub2, cap2 = prefix(trace, ARENA_APPROX_LEN)
-    n_chunks2 = -(-len(sub2.requests) // CHUNK)
-    tasks = [(name, "kernel", DEVICE, kw, sub2, cap2) for name, kw in (
-        ("exact", {}), ("quantized", {"quantized": True}),
-        ("pruned", {"pruned": True}),
-        ("both", {"quantized": True, "pruned": True}))] + [
-        ("sharded", "sharded", DEVICE, {}, sub2, cap2),
-        ("host oracle", "numpy", "cpu", {}, sub2, cap2)]
-    with _workers(len(tasks), 1) as pool:
-        results = list(pool.map(_arena_replay, tasks))
     exact = results[0][2]
     for name, _, cnt, w, kl, ledgers in results:
         log(f"arena {name}: {len(sub2.requests)} requests, capacity {cap2}, "
@@ -3107,22 +3158,25 @@ def phase_deepseek() -> dict:
             "seconds": wall}
 
 
-def phase_hymba() -> dict:
+def _hymba_tokens(cfg) -> torch.Tensor:
+    """The (1, HYMBA_S) tokens every hymba check feeds (seed 0)."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (1, HYMBA_S))).to(DEVICE)
+
+
+def phase_hymba(fp32: dict) -> dict:
     """hymba-1.5b (32 layers, d_model 1,600, 25/5 heads of 64 over a
     sliding window of 2,048 beside Mamba heads of d_inner 3,200 and state
     16, SwiGLU 5,504, vocab 32,001; bf16) from seeded random weights on
     the card.  Prefill of B=1 x HYMBA_S tokens through the windowed B8
     (every launch on the wgmma kernel; the band of 2,048 active), every
-    layer's output held to its plain version on its own inputs; then, at
-    fp32 compute (B8 and B9 in fp32), prefill against plain attention
-    within LOGIT_TOL and HYMBA_DECODE teacher-forced decode steps through
-    the ring of 2,048 slots (B9 over slots [0, min(pos, 2,047)]; the ring
-    wraps at 2,048), the last 64 positions' logits within LOGIT_TOL of
-    forward's.  HYMBA_BF16_STEPS bf16 decode steps time the deployment
-    dtype's step."""
-    import dataclasses
-
-    from repro_torch.kernels import decode_attention, flash_attention, ref
+    layer's output held to its plain version on its own inputs;
+    HYMBA_BF16_STEPS bf16 decode steps time the deployment dtype's step.
+    ``fp32`` is the record of the gates at fp32 compute (_hymba_fp32, run
+    in a child process beside phases 4-6: child_phase(HYMBA_CHILD)), whose
+    lines were printed when it was joined."""
+    from repro_torch.kernels import decode_attention, ref
     from repro_torch.models import Model
     t_phase = time.perf_counter()
     cfg = family_config(HYMBA_ARCH)
@@ -3136,9 +3190,7 @@ def phase_hymba() -> dict:
         f" state {cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
         f"{cfg.param_dtype}, {_n_params(params)} parameters, init "
         f"{time.perf_counter() - t0:.2f}s")
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        2, cfg.vocab_size, (1, HYMBA_S))).to(DEVICE)
+    tokens = _hymba_tokens(cfg)
     batch = {"tokens": tokens}
     prefill_s, n_b8, _ = _prefill(model, params, batch, "hymba")
     launches = {"b8": n_b8}
@@ -3182,9 +3234,41 @@ def phase_hymba() -> dict:
         "tokens": tokens[:, :1], "pos": torch.full(
             (1,), HYMBA_BF16_STEPS - 1, dtype=torch.int32, device=DEVICE)}),
         "hymba decode step", "decode_ring_kernel")
-    del cache
+    log(f"hymba bf16 decode: {decode_s / HYMBA_BF16_STEPS * 1e3:.2f} ms/step"
+        f" over {HYMBA_BF16_STEPS} steps ({launches['b9']} B9 launches)")
+    del params, cache
+    torch.cuda.empty_cache()
+    launches["b9_fp32"] = fp32["b9_fp32"]
+    wall = time.perf_counter() - t_phase
+    log(f"hymba: phase {wall:.1f}s (the fp32 gates' child "
+        f"{fp32['seconds']:.1f}s, beside phases 4-6)")
+    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_s": HYMBA_S / prefill_s,
+            "decode_ms": decode_s / HYMBA_BF16_STEPS * 1e3,
+            "decode32_ms": fp32["decode32_ms"],
+            "d_plain_bf16": d_plain, "d_plain_fp32": fp32["d_plain_fp32"],
+            "d_decode_fp32": fp32["d_decode_fp32"], "seconds": wall}
 
-    # the gates at fp32 compute
+
+def _hymba_fp32() -> dict:
+    """hymba-1.5b's gates at fp32 compute (B8 and B9 in fp32), on the
+    weights and tokens phase_hymba draws: prefill against plain attention
+    within LOGIT_TOL, and HYMBA_DECODE teacher-forced decode steps through
+    the ring of 2,048 slots (B9 over slots [0, min(pos, 2,047)]; the ring
+    wraps at 2,048), B9 once a layer and step, the last step's B9 outputs
+    held to plain, the last 64 positions' logits within LOGIT_TOL of
+    forward's.  The steps are host-bound (~50 ms each, the card ~7% busy),
+    so this runs in a child process beside phases 4-6, which time no
+    kernel (child_phase); its ms a step is taken there."""
+    import dataclasses
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    cfg = family_config(HYMBA_ARCH)
+    params = Model(cfg, DEVICE).init(torch.Generator(DEVICE).manual_seed(0))
+    tokens = _hymba_tokens(cfg)
+    batch = {"tokens": tokens}
     model32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
                     DEVICE)
     flash_attention.launches = 0
@@ -3193,40 +3277,66 @@ def phase_hymba() -> dict:
         raise AssertionError("hymba fp32: B8 did not launch once a layer")
     with attention_as(prefill=ref.attention_ref):
         d32 = gap(full32, model32.forward(params, batch))
-    calls = []
+    calls: list = []
     decode_attention.launches = 0
     decode32_s, errs, cache = _teacher_forced(model32, params, tokens,
                                               HYMBA_DECODE, full32,
                                               calls=calls)
     ring = cache["kv"]["k"].shape[2]
-    launches["b9_fp32"] = decode_attention.launches
-    if launches["b9_fp32"] != cfg.n_layers * HYMBA_DECODE:
-        raise AssertionError(f"hymba fp32 decode: B9 launched "
-                             f"{launches['b9_fp32']} times")
+    n_b9 = decode_attention.launches
+    if n_b9 != cfg.n_layers * HYMBA_DECODE:
+        raise AssertionError(f"hymba fp32 decode: B9 launched {n_b9} times")
     b9_err = _check_layers(calls, ref.decode_attention_ref, "hymba B9")
     last = float(errs[-64:].max())
     log(f"hymba fp32 compute: max |B8 - plain| {d32:.6f}; "
         f"{HYMBA_DECODE} teacher-forced steps through a ring of {ring} "
         f"slots in {decode32_s:.2f}s ({decode32_s / HYMBA_DECODE * 1e3:.2f}"
-        f" ms/step), {len(calls)} B9 outputs of the last step within "
-        f"{ATT_F32_TOL} of plain (max |err| {b9_err:.3g}); max |decode - "
-        f"forward| over the last 64 positions {last:.6f}, over all "
-        f"{float(errs.max()):.6f} (tolerance {LOGIT_TOL}); bf16 decode "
-        f"{decode_s / HYMBA_BF16_STEPS * 1e3:.2f} ms/step over "
-        f"{HYMBA_BF16_STEPS} steps ({launches['b9']} B9 launches)")
+        f" ms/step, in a child process beside phases 4-6), {len(calls)} B9 "
+        f"outputs of the last step within {ATT_F32_TOL} of plain (max |err| "
+        f"{b9_err:.3g}); max |decode - forward| over the last 64 positions "
+        f"{last:.6f}, over all {float(errs.max()):.6f} (tolerance "
+        f"{LOGIT_TOL}); {n_b9} B9 launches")
     if not (d32 <= LOGIT_TOL and last <= LOGIT_TOL):
         raise AssertionError(f"hymba fp32: logits {d32} / decode {last} "
                              "beyond the tolerance")
-    del params, cache, full32
-    torch.cuda.empty_cache()
-    wall = time.perf_counter() - t_phase
-    log(f"hymba: phase {wall:.1f}s")
-    return {"launches": launches, "prefill_ms": prefill_s * 1e3,
-            "prefill_tok_s": HYMBA_S / prefill_s,
-            "decode_ms": decode_s / HYMBA_BF16_STEPS * 1e3,
+    return {"b9_fp32": n_b9, "d_plain_fp32": d32, "d_decode_fp32": last,
             "decode32_ms": decode32_s / HYMBA_DECODE * 1e3,
-            "d_plain_bf16": d_plain, "d_plain_fp32": d32,
-            "d_decode_fp32": last, "seconds": wall}
+            "seconds": time.perf_counter() - t_phase}
+
+
+@contextlib.contextmanager
+def child_phase(flag: str, **env):
+    """Runs the phase ``flag`` names in a child process (``chip_smoke.py
+    FLAG OUT.json``, its lines to a file, ``env`` added to its
+    environment) and yields a function that waits for it, prints its lines
+    and returns its record; a child still running when the block exits is
+    killed."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_child")
+    out, lines = os.path.join(tmp, "out.json"), os.path.join(tmp, "log")
+    with open(lines, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 flag, out], cwd=ROOT, stdout=f,
+                                env={**os.environ, **env})
+
+    def result() -> dict:
+        rc = proc.wait()
+        with open(lines) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        if rc:
+            raise AssertionError(f"chip_smoke.py {flag}: the child exited "
+                                 f"{rc}")
+        with open(out) as f:
+            return json.load(f)
+    try:
+        yield result
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_whisper() -> dict:
@@ -3470,6 +3580,23 @@ def phase_internvl() -> dict:
     text = {"tokens": tokens, "image_embeds": image[:, :0]}
     prefill_s, n_b8, _ = _prefill(model, params, batch, "internvl")
     launches = {"b8": n_b8}
+    # forward records a graph only where a parameter requires grad: its
+    # peak memory in grad mode equals the peak under no_grad (the serving
+    # forward before training could record one)
+    peaks = []
+    for grad_mode in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.set_grad_enabled(grad_mode):
+            out = model.forward(params, batch)
+        del out
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    log(f"internvl forward peak memory: {peaks[0]} bytes under no_grad, "
+        f"{peaks[1]} bytes in grad mode (parameters need no grad)")
+    if peaks[1] > peaks[0]:
+        raise AssertionError("internvl forward: grad mode raised the peak "
+                             f"memory from {peaks[0]} to {peaks[1]} bytes")
     calls: list = []
     with attention_as(record=calls):
         full = model.forward(params, batch)
@@ -3543,17 +3670,247 @@ def phase_internvl() -> dict:
     log(f"internvl: phase {wall:.1f}s")
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
             "decode_ms": decode_s / INTERNVL_STEPS * 1e3,
+            "peak_bytes_no_grad": peaks[0], "peak_bytes_grad": peaks[1],
             "d_plain_bf16": d_plain, "floor_bf16": floor,
             "d_decode_bf16": d_dec, "d_plain_fp32": d32,
             "d_decode_fp32": dec32, "seconds": wall}
 
 
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    b = b.float()
+    return float(torch.linalg.vector_norm(a.float() - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def phase_train() -> dict:
+    """_phase_train in a child process of its own, the only one that sets
+    CUBLAS_WORKSPACE_CONFIG (the fixed cuBLAS workspace that
+    torch.use_deterministic_algorithms wants from a process's first
+    product on), so the other phases' products run as they did; it
+    returns _phase_train's record."""
+    torch.cuda.empty_cache()
+    with child_phase(TRAIN_CHILD,
+                     CUBLAS_WORKSPACE_CONFIG=":4096:8") as result:
+        return result()
+
+
+def _phase_train() -> dict:
+    """Training through launch/train.py's code path on smollm-360m (32
+    layers, d_model 960, 15/5 heads of 64, vocab 49,152; bf16; remat over
+    every block), its B8 forward launched again in each block's
+    recompute, the gradient the plain attention's.  (1) At full width
+    with TRAIN_CHECK_LAYERS layers in fp32 (B8's SIMT kernel): one step's
+    loss and gradients against the same step on plain attention, within
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL.  (2) Full depth, bf16, batch
+    TRAIN_B x TRAIN_S: TRAIN_STEPS steps checkpointed every
+    TRAIN_CKPT_EVERY, then a restart from a directory that holds only that
+    step (a crash after its commit): its losses bit-equal to the
+    uninterrupted run's under torch.use_deterministic_algorithms; the loss
+    falls; every B8 launch on wgmma.  (3) A step split into forward,
+    backward and optimizer by CUDA events, profiled once, and the plain
+    attention backward timed at the training shape."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.launch import train
+    from repro_torch.models import (Model, make_loss_fn, make_train_step,
+                                    value_and_grad)
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    t_phase = time.perf_counter()
+    cfg = family_config(TRAIN_ARCH)
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=TRAIN_B))
+
+    def on_card(batch):
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+    # (1) gradients on B8 against the plain path, fp32
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32, DEVICE)
+    params32 = model32.init(torch.Generator(DEVICE).manual_seed(0))
+    grad_fn = value_and_grad(make_loss_fn(model32))
+    batch = on_card(data.batch_at(0))
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    loss_k, g_k = grad_fn(params32, batch)
+    if flash_attention.launches != cfg32.n_layers * (2 if cfg.remat else 1) \
+            or flash_attention.wgmma_launches:
+        raise AssertionError(f"train fp32: {flash_attention.launches} B8 "
+                             f"launches ({flash_attention.wgmma_launches} "
+                             "on wgmma)")
+    with attention_as(prefill=ref.attention_ref):
+        loss_p, g_p = grad_fn(params32, batch)
+    d_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    rel = [_rel_l2(a, b) for a, b in zip(tree_leaves(g_k),
+                                         tree_leaves(g_p))]
+    log(f"train fp32 check: {cfg.name} at full width, {cfg32.n_layers} "
+        f"layers, B={TRAIN_B} S={TRAIN_S}: loss {float(loss_k):.6f} on B8 "
+        f"against {float(loss_p):.6f} on plain attention (relative "
+        f"{d_loss:.3g}, tolerance {TRAIN_LOSS_RTOL}); {len(rel)} gradient "
+        f"leaves, max relative L2 {max(rel):.3g} (tolerance "
+        f"{TRAIN_GRAD_RTOL})")
+    if not (d_loss <= TRAIN_LOSS_RTOL and max(rel) <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train fp32: loss {d_loss} / gradients "
+                             f"{max(rel)} beyond the tolerance")
+    del model32, params32, g_k, g_p, grad_fn
+    torch.cuda.empty_cache()
+
+    # (2) the full run and a restart, through launch/train.py
+    base = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "5",
+            "--device", DEVICE] + (["--smoke"] if SMOKE_MODEL else [])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        flash_attention.launches = flash_attention.wgmma_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full = train.run(train.parse_args(base + [
+            "--ckpt-dir", os.path.join(tmp, "a"),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY)]))
+        full_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_b8, n_wgmma = (flash_attention.launches,
+                         flash_attention.wgmma_launches)
+        name = f"step_{TRAIN_CKPT_EVERY:08d}"
+        os.makedirs(os.path.join(tmp, "b", name))
+        for f in os.listdir(os.path.join(tmp, "a", name)):
+            os.link(os.path.join(tmp, "a", name, f),
+                    os.path.join(tmp, "b", name, f))
+        open(os.path.join(tmp, "b", name + ".COMMIT"), "w").close()
+        flash_attention.launches = flash_attention.wgmma_launches = 0
+        resumed = train.run(train.parse_args(base + [
+            "--ckpt-dir", os.path.join(tmp, "b"), "--ckpt-every",
+            str(10 * TRAIN_STEPS)]))
+        n_b8_resumed = flash_attention.launches
+        resumed_wgmma = flash_attention.wgmma_launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = full.losses
+    first, last = (float(np.mean(losses[:TRAIN_STEPS // 2])),
+                   float(np.mean(losses[TRAIN_STEPS // 2:])))
+    n_params = _n_params(full.params)
+    step_s = statistics.median(full.step_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6.0 * n_params * tokens / (step_s * PEAK_BF16)
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}, {n_params} parameters, B="
+        f"{TRAIN_B} S={TRAIN_S}: {TRAIN_STEPS} steps in {full_s:.2f}s "
+        f"(checkpoints included); losses {json.dumps(losses)}")
+    log(f"train step: {step_s * 1e3:.2f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}; first {full.step_s[0] * 1e3:.1f} ms), "
+        f"{tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} (6 x {n_params} "
+        f"parameters x {tokens} tokens over the step time x "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, dense bf16); peak memory "
+        f"{peak} bytes; B8 {n_b8} launches ({n_b8 / TRAIN_STEPS:.0f} a "
+        f"step), {n_wgmma} on wgmma; checkpoint saves "
+        + ", ".join(f"{x:.2f}s" for x in full.save_s)
+        + f", restore {resumed.restore_s:.2f}s")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"train: losses {losses}")
+    if not last < first:
+        raise AssertionError(f"train: the loss did not fall ({first} -> "
+                             f"{last})")
+    if n_b8 != per_step * TRAIN_STEPS or n_b8_resumed != per_step * (
+            TRAIN_STEPS - TRAIN_CKPT_EVERY):
+        raise AssertionError(f"train: B8 launched {n_b8} / {n_b8_resumed} "
+                             f"times ({per_step} a step expected)")
+    bf16 = cfg.cdtype == torch.bfloat16
+    if (n_wgmma, resumed_wgmma) != ((n_b8, n_b8_resumed) if bf16
+                                    else (0, 0)):
+        raise AssertionError(f"train: {n_wgmma} / {resumed_wgmma} of the B8 "
+                             "launches on wgmma")
+    if resumed.start != TRAIN_CKPT_EVERY or len(full.save_s) != \
+            TRAIN_STEPS // TRAIN_CKPT_EVERY:
+        raise AssertionError(f"train: restored step {resumed.start}, "
+                             f"{len(full.save_s)} saves")
+    same = resumed.losses == losses[TRAIN_CKPT_EVERY:]
+    log(f"train restart from step {TRAIN_CKPT_EVERY}: losses "
+        f"{json.dumps(resumed.losses)}, bit-equal to the uninterrupted "
+        f"run's: {same}; loss first {TRAIN_STEPS // 2} mean {first:.4f} -> "
+        f"last {TRAIN_STEPS // 2} mean {last:.4f}")
+    if not same:
+        raise AssertionError("train: the restart's losses differ from the "
+                             "uninterrupted run's")
+    save_s, restore_s = full.save_s, resumed.restore_s
+    del full
+
+    # (3) where a step's time goes
+    model = Model(cfg, DEVICE)
+    loss_fn = make_loss_fn(model)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=max(1, TRAIN_STEPS // 20))
+    params, opt_state = resumed.params, resumed.opt_state
+    batch = on_card(data.batch_at(TRAIN_STEPS))
+
+    def split():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        ev[0].record()
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(params, live), batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, live)
+        ev[2].record()
+        adamw_update(opt_cfg, params, tree_unflatten(params, list(grads)),
+                     opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    split()
+    fwd_ms, bwd_ms, opt_ms = split()
+    total = fwd_ms + bwd_ms + opt_ms
+    log(f"train step split (CUDA events): forward + loss {fwd_ms:.2f} ms, "
+        f"backward {bwd_ms:.2f} ms (share {bwd_ms / total:.4f}), AdamW "
+        f"{opt_ms:.2f} ms")
+    step_fn = make_train_step(model, opt_cfg)
+    # the busy share: the profiled step's device time over that step's
+    # wall (the profiler slows the host, so a floor of the unprofiled one)
+    busy_ms, prof_ms = step_profile(lambda: step_fn(params, opt_state, batch),
+                                    "train step", "flash_kernel")
+    busy = busy_ms / prof_ms
+    del params, opt_state, resumed, batch
+    torch.cuda.empty_cache()
+    # the plain attention backward at the training shape (B8's own time
+    # there is phase 9's row)
+    gen = torch.Generator(DEVICE).manual_seed(6)
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (_randn(gen, (TRAIN_B, TRAIN_S, n, hd), cfg.cdtype)
+               .transpose(1, 2) for n in (h, hkv, hkv))
+    dout = _randn(gen, (TRAIN_B, h, TRAIN_S, hd), cfg.cdtype)
+    att_bwd_ms = event_ms(
+        lambda: flash_attention.attention_grad(q, k, v, dout), 5)
+    log(f"train attention at B={TRAIN_B} H={h} Hkv={hkv} S={TRAIN_S} "
+        f"D={hd} {str(cfg.cdtype)[6:]}: the rematerialised plain backward "
+        f"{att_bwd_ms:.3f} ms a call")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"train: phase {wall:.1f}s")
+    return {"launches": n_b8, "launches_per_step": n_b8 // TRAIN_STEPS,
+            "step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
+            "mfu": mfu, "backward_share": bwd_ms / total,
+            "busy_share": busy, "peak_bytes": peak, "save_s": save_s,
+            "restore_s": restore_s, "attention_backward_ms": att_bwd_ms,
+            "seconds": wall}
+
+
 def step_profile(step, label: str = "decode step",
-                 kernel: str | None = None) -> None:
+                 kernel: str | None = None) -> tuple[float, float]:
     """One call of ``step`` under torch.profiler: its CUDA kernels, their
     summed device time against the call's wall (the card's busy share),
     the device time of the kernels whose name holds ``kernel``, and the
-    aten dispatches the host made."""
+    aten dispatches the host made.  Returns (device ms, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -3575,6 +3932,7 @@ def step_profile(step, label: str = "decode step",
     log(f"model {label} (profiled): {len(kernels)} CUDA kernels, "
         f"device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (busy "
         f"share {busy / (wall * 1e3):.4f}){mine}, {aten} aten dispatches")
+    return busy, wall * 1e3
 
 
 def serve_requests(vocab: int, n: int):
@@ -3741,12 +4099,17 @@ def main():
     m1, m5, m2 = phase_multi(trace)
     b8, b9 = phase_attention()
     log(f"kernels: {time.perf_counter() - t_start:.1f}s")
-    parity_events = phase_parity(trace)
-    log(f"parity: {time.perf_counter() - t_start:.1f}s")
-    approx_parity = phase_approx_parity(trace)
-    log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
-    arena_sharded, arena = phase_arena(trace)
-    log(f"arena: {time.perf_counter() - t_start:.1f}s")
+    # hymba's fp32 gates (~2,100 host-bound decode steps) run in a child
+    # process beside phases 4-6, which time no kernel
+    with child_phase(HYMBA_CHILD) as hymba_fp32:
+        parity_events = phase_parity(trace)
+        log(f"parity: {time.perf_counter() - t_start:.1f}s")
+        approx_parity = phase_approx_parity(trace)
+        log(f"approx parity: {time.perf_counter() - t_start:.1f}s")
+        arena_sharded, arena = phase_arena(trace)
+        log(f"arena: {time.perf_counter() - t_start:.1f}s")
+        hymba32 = hymba_fp32()
+    log(f"hymba fp32 child joined: {time.perf_counter() - t_start:.1f}s")
     sharded = phase_sharded(trace, parity_events, approx_parity,
                             arena_sharded)
     sim.append(sharded["b1_row"])
@@ -3771,7 +4134,7 @@ def main():
         log(f"gemma: {time.perf_counter() - t_start:.1f}s")
         deepseek = phase_deepseek()
         log(f"deepseek: {time.perf_counter() - t_start:.1f}s")
-        hymba = phase_hymba()
+        hymba = phase_hymba(hymba32)
         log(f"hymba: {time.perf_counter() - t_start:.1f}s")
         whisper = phase_whisper()
         log(f"whisper: {time.perf_counter() - t_start:.1f}s")
@@ -3779,6 +4142,8 @@ def main():
         log(f"xlstm: {time.perf_counter() - t_start:.1f}s")
         internvl = phase_internvl()
         log(f"internvl: {time.perf_counter() - t_start:.1f}s")
+        trained = phase_train()
+        log(f"train: {time.perf_counter() - t_start:.1f}s")
         tiers_launches = phase_tiers(trace, tiers_hosts)
         log(f"tiers: {time.perf_counter() - t_start:.1f}s")
         kv_launches, kv_row = phase_kv(trace, kv_hosts)
@@ -3872,7 +4237,9 @@ def main():
             deepseek_launches=deepseek["launches"]["b8"],
             hymba_launches=hymba["launches"]["b8"],
             whisper_launches=whisper["launches"]["b8"],
-            internvl_launches=internvl["launches"]["b8"]),
+            internvl_launches=internvl["launches"]["b8"],
+            train_launches=trained["launches"],
+            train_launches_per_step=trained["launches_per_step"]),
         row("decode_attention", "decode_attention.cu",
             "decode_attention.py:53", serve["decode_attention"], b9,
             "torch.nn.functional.scaled_dot_product_attention(q.view(B, "
@@ -3895,4 +4262,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    children = {TRAIN_CHILD: _phase_train, HYMBA_CHILD: _hymba_fp32}
+    if sys.argv[1:2] and sys.argv[1] in children:
+        _no_tf32()
+        record = children[sys.argv[1]]()
+        with open(sys.argv[2], "w") as f:
+            json.dump(record, f)
+    else:
+        main()

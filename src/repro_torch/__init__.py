@@ -7,5 +7,9 @@ kernel wrappers take their plain PyTorch versions.  Layout mirrors the
 reference: :mod:`repro_torch.core` (host state machines, RAC, simulator),
 :mod:`repro_torch.cache` (the :class:`SemanticCache` facade and its
 backends), :mod:`repro_torch.kernels` (CUDA kernels, their wrappers and
-plain versions), :mod:`repro_torch.telemetry`.
+plain versions), :mod:`repro_torch.models` (the model stack, loss and
+train step), :mod:`repro_torch.serving`, the training path's
+:mod:`repro_torch.optim`, :mod:`repro_torch.data` and
+:mod:`repro_torch.distributed`, :mod:`repro_torch.launch` (``train``,
+``serve``), :mod:`repro_torch.telemetry`.
 """

@@ -2,9 +2,9 @@
 serving config: the port's own copies of ``repro/configs/``.
 ``get_config(arch_id)`` returns the full ModelConfig.
 
-The reference's ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the
-dry-run) waits for the meta-tensor shape check of ``ROADMAP.md`` queue A
-item 12.
+The reference's ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins whose
+only caller is its dry run) waits for the dry-run tooling of ``ROADMAP.md``
+queue A item 12; training needs none.
 """
 from __future__ import annotations
 

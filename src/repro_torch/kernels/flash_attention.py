@@ -14,6 +14,16 @@ a copy, and the output keeps q's strides.  TMA takes a bf16 operand only
 where its base and its batch, head and sequence strides are multiples of
 16 bytes (:func:`check_tma`); the wrapper raises on anything else rather
 than copy it.
+
+The gradient (the reference's B8 has none: it trains through its XLA
+``sdpa``) is the plain version's, recomputed in the backward pass: on a
+CUDA tensor :func:`flash_attention` is a ``torch.autograd.Function`` whose
+forward launches the kernel and saves q, k and v (not the output), and
+whose backward is :func:`attention_grad`, autograd of ``attention_ref``
+on the saved inputs, a chunk of queries at a time past
+``NAIVE_MAX_SEQ`` so that only a (…, chunk, T) score tile is live, as
+the reference's ``sdpa`` rematerialises its query chunks.  On a CPU
+tensor autograd runs through ``attention_ref`` directly.
 """
 from __future__ import annotations
 
@@ -27,6 +37,11 @@ from . import _build, ref
 launches = 0
 #: of those, launches of the Hopper (wgmma + TMA) kernel: every bf16 call
 wgmma_launches = 0
+
+#: past this many queries the backward recomputes attention in chunks of
+#: ``Q_CHUNK`` (the reference's ``sdpa``: ``_NAIVE_MAX_SEQ``, ``q_chunk``)
+NAIVE_MAX_SEQ = 1024
+Q_CHUNK = 512
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the (Q/K, V) head dims the kernels take: every dense config's and smoke
@@ -132,15 +147,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window.  Returns (B,H,S,Dv) in q's dtype (fp32 or bf16; fp32
     arithmetic), laid out as q is.  On the card (D, Dv) is one of
     :data:`SHAPES` and the head dim of every operand is contiguous; bf16
-    operands also pass :func:`check_tma`."""
-    global launches, wgmma_launches
+    operands also pass :func:`check_tma`.  Differentiable in q, k and v
+    (:func:`attention_grad` on the card)."""
     causal = bool(causal)
+    if q.device.type == "cuda":
+        return _FlashAttention.apply(q, k, v, window, causal)
+    _check(q, k, v, causal, window)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B8 forward, the plain version's gradient recomputed backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return _launch(q, k, v, window, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_grad(q, k, v, dout, ctx.causal, ctx.window),
+                None, None)
+
+
+def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor, causal: bool = True, window: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_ref(q, k, v, causal, window)`` against
+    the output gradient ``dout`` (B,H,S,Dv), each in its input's dtype and
+    shape: autograd of the plain version, recomputed on the inputs.  Past
+    :data:`NAIVE_MAX_SEQ` queries, one chunk of :data:`Q_CHUNK` queries at
+    a time (their scores over all T keys, then freed), dk and dv summed
+    over the chunks in fp32."""
+    s = q.shape[2]
+    step = s if s <= NAIVE_MAX_SEQ else Q_CHUNK
+    with torch.enable_grad():
+        kf = k.detach().to(torch.float32).requires_grad_()
+        vf = v.detach().to(torch.float32).requires_grad_()
+        dq, dk, dv = [], None, None
+        for lo in range(0, s, step):
+            qc = q[:, :, lo:lo + step].detach().to(
+                torch.float32).requires_grad_()
+            out = ref.attention_ref(qc, kf, vf, causal=causal,
+                                    window=window, q_start=lo)
+            gq, gk, gv = torch.autograd.grad(
+                out, (qc, kf, vf),
+                dout[:, :, lo:lo + step].to(torch.float32))
+            dq.append(gq)
+            dk = gk if dk is None else dk + gk
+            dv = gv if dv is None else dv + gv
+    return (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _launch(q, k, v, window: int, causal: bool) -> torch.Tensor:
+    """The CUDA launch behind :func:`flash_attention` (checked inputs on a
+    CUDA device)."""
+    global launches, wgmma_launches
     b, h, s, t, d, hkv, dv = _check(q, k, v, causal, window)
     dev = q.device
-    if dev.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     if (d, dv) not in SHAPES:
         raise ValueError(f"flash_attention: head dims (D, Dv) = ({d}, {dv})"
                          f" not in {SHAPES} on the card")

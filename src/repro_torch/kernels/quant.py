@@ -1,4 +1,11 @@
-"""Per-row int8 quantization for the quantized lookup (numpy, host side).
+"""int8 quantization: the per-tensor codec of the gradient compression
+(torch) and the per-row one of the quantized lookup (numpy, host side).
+
+  - **Per-tensor scale** (``quantize_int8`` / ``dequantize_int8``): one
+    fp32 scale for the whole tensor, for the int8 gradient all-reduce with
+    error feedback (:mod:`repro_torch.distributed.compression`).
+  - **Per-row scale** (``quantize_rows_int8``): one symmetric scale per
+    row, for the cache's embedding slab.
 
 The host keeps a per-row-scaled int8 mirror of the embedding slab
 (:class:`repro_torch.cache.quantized.QuantizedSlabMirror`); the card scans
@@ -11,15 +18,30 @@ it with the ``sim_topk_q8`` kernel.  Exactness plumbing for that scan:
   - ``scan_margin`` bounds ``|approx_score - exact_score|`` per query so
     the rescore step can certify decisions.
 
-Copied from the reference's numpy helpers; the per-tensor
-``quantize_int8``/``dequantize_int8`` serve only the gradient compression
-of the distributed stack and are not ported yet (ROADMAP A12).
+Copied from the reference's numpy helpers; the per-tensor codec is its
+``jnp`` one in torch.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["quantize_rows_int8", "int8_scores", "scan_margin"]
+__all__ = ["quantize_int8", "dequantize_int8", "quantize_rows_int8",
+           "int8_scores", "scan_margin"]
+
+
+def quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization: ``(q, scale)`` with ``scale
+    = max|g| / 127 + 1e-30`` in fp32 and ``q = clip(round(g / scale),
+    -127, 127)`` as int8 (``torch.round`` rounds half to even, as
+    ``jnp.round`` does)."""
+    scale = g.abs().max().to(torch.float32) / 127.0 + 1e-30
+    q = torch.clamp(torch.round(g.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
 
 
 def quantize_rows_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -136,13 +136,16 @@ def victim_value_multi_ref(tsi: torch.Tensor, tid: torch.Tensor,
 # -- attention: fp32 softmax, the reference's layouts ----------------------
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  q_start: int = 0) -> torch.Tensor:
     """q (B,H,S,D); k (B,Hkv,T,D); v (B,Hkv,T,Dv) -> (B,H,S,Dv) in q's
     dtype.  Query head ``h`` reads kv head ``h // (H/Hkv)``; scores,
     softmax and the weighted sum are fp32.  ``causal`` keeps key ``j`` for
     query ``i`` only where ``j <= i``, ``window > 0`` only where ``j > i -
     window`` (the reference's band, query and key indices from 0 as in
-    its ``sdpa``); with neither every query attends to all T keys.  Any
+    its ``sdpa``); with neither every query attends to all T keys.  The
+    queries sit at positions ``q_start + i`` (a chunk of a longer query
+    sequence, as the rematerialised backward passes them).  Any
     strides."""
     b, h, s, d = q.shape
     hkv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -150,7 +153,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(torch.float32).reshape(b, hkv, g, s, d) / d ** 0.5
     scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32))
     if causal or window > 0:
-        qi = torch.arange(s, device=q.device)[:, None]
+        qi = q_start + torch.arange(s, device=q.device)[:, None]
         ki = torch.arange(t, device=q.device)[None, :]
         keep = torch.ones((s, t), dtype=torch.bool, device=q.device)
         if causal:

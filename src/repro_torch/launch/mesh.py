@@ -1,8 +1,10 @@
 """The cache mesh: which cards hold the shards of the sharded semantic cache.
 
 A function, not a module-level constant, so importing this module never
-touches the CUDA runtime.  The training and dry-run meshes wait for
-``ROADMAP.md`` queue A item 12.
+touches the CUDA runtime.  Training runs on one card (``launch/train.py``);
+the reference's production and dry-run meshes (``make_production_mesh``,
+``make_local_mesh``, ``abstract_mesh``) wait for ``ROADMAP.md`` queue A
+item 12.
 """
 from __future__ import annotations
 

@@ -54,6 +54,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm as S
@@ -130,13 +131,40 @@ def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     only), ``cache_pos`` the slot each row writes, ``attend_pos`` the
     newest slot it attends to; ``rope`` the precomputed ``(cos, sin)``;
     ``slstm`` picks an xLSTM layer's cell."""
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    out, new_cache = mixer_apply(p, cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 positions, cache, cache_pos, attend_pos,
+                                 rope, slstm)
+    x = x + out
+    if has_ffn(cfg):
+        x = x + ffn_apply(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, new_cache
+
+
+def has_ffn(cfg: ModelConfig) -> bool:
+    """Whether a decoder block has its second half (an MLP or an MoE)."""
+    return cfg.family != "ssm" and (cfg.is_moe or cfg.d_ff > 0)
+
+
+def ffn_apply(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A block's second half on its normed input ``h``: the MoE or the
+    MLP."""
+    if cfg.is_moe:
+        return L.moe_apply(p["moe"], cfg, h)
+    return L.mlp_apply(p["mlp"], cfg, h)
+
+
+def mixer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                positions: torch.Tensor, cache=None, cache_pos=None,
+                attend_pos=None, rope=None, slstm: bool = False):
+    """A block's first half on its normed input ``h``: attention (beside
+    the Mamba heads for the hybrid family) or an xLSTM cell.  Returns
+    (its output, new_cache)."""
     if cfg.family == "ssm":
         name = "slstm" if slstm else "mlstm"
         cell = S.slstm_apply if slstm else S.mlstm_apply
         out, state = cell(p[name], cfg, h,
                           None if cache is None else cache[name])
-        return x + out, {name: state}      # d_ff = 0: no MLP
+        return out, {name: state}          # d_ff = 0: no MLP
     window = cfg.sliding_window if cfg.attention == "sliding" else 0
     kv = None if cache is None else cache["kv"]
     if cfg.attention == "mla":
@@ -153,14 +181,35 @@ def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
             p["mamba"], cfg, h, None if cache is None else cache["mamba"])
         attn_out = 0.5 * (attn_out + mb_out)       # parallel heads (hymba)
         new_cache["mamba"] = mb_state
-    x = x + attn_out
-    if cfg.is_moe:
-        x = x + L.moe_apply(p["moe"], cfg, L.rmsnorm(p["ln2"], x,
-                                                     cfg.norm_eps))
-    elif cfg.d_ff > 0:
-        x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x,
-                                                     cfg.norm_eps))
-    return x, new_cache
+    return attn_out, new_cache
+
+
+def block_remat(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, rope=None, slstm: bool = False,
+                enc_out=None) -> torch.Tensor:
+    """A decoder block of a training forward, rematerialised as the
+    reference's ``cfg.remat`` does: ``remat_policy="none"`` keeps only
+    the block's input and recomputes the whole block in the backward pass;
+    ``"save_boundaries"`` checkpoints the norms and the two halves apart,
+    so the halves' normed inputs are kept (the reference's
+    ``blk_attn_in`` / ``blk_mlp_in``; a block with cross attention names
+    none there, and is recomputed whole)."""
+    def ckpt(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    if enc_out is not None:
+        return ckpt(lambda x_: xattn_block_apply(p, cfg, x_, positions,
+                                                  enc_out, rope=rope)[0], x)
+    if cfg.remat_policy != "save_boundaries":
+        return ckpt(lambda x_: block_apply(p, cfg, x_, positions, rope=rope,
+                                           slstm=slstm)[0], x)
+    eps = cfg.norm_eps
+    h = ckpt(lambda x_: L.rmsnorm(p["ln1"], x_, eps), x)
+    x = x + ckpt(lambda h_: mixer_apply(p, cfg, h_, positions, rope=rope,
+                                        slstm=slstm)[0], h)
+    if has_ffn(cfg):
+        h2 = ckpt(lambda x_: L.rmsnorm(p["ln2"], x_, eps), x)
+        x = x + ckpt(lambda h_: ffn_apply(p, cfg, h_), h2)
+    return x
 
 
 # ----------------------------------------------------------- encoder blocks
@@ -261,7 +310,13 @@ class Model:
                    attend_pos=None, enc_out=None):
         cfg = self.cfg
         rope = self._rope(positions)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer_p in enumerate(params["blocks"]):
+            if remat and (x.requires_grad or any(
+                    t.requires_grad for t in _leaves(layer_p))):
+                x = block_remat(layer_p, cfg, x, positions, rope,
+                                i in cfg.slstm_at, enc_out)
+                continue
             layer_cache = None if cache is None else _map(
                 lambda a, _, i=i: a[i], cache)
             if enc_out is not None:
@@ -285,13 +340,16 @@ class Model:
             x = enc_block_apply(layer_p, self.cfg, x, positions, rope)
         return x
 
-    # -- full-sequence forward ----------------------------------------
-    @torch.no_grad()
+    # -- full-sequence forward (train) --------------------------------
     def forward(self, params, batch: dict) -> torch.Tensor:
         """Teacher-forced logits (B,S,V) of ``batch["tokens"]`` (B,S);
         the VLM's ``batch["image_embeds"]`` (B,n_img,d) replace the first
         n_img token embeddings, the encoder-decoder's
-        ``batch["audio_embeds"]`` (B,T,d) feed its encoder."""
+        ``batch["audio_embeds"]`` (B,T,d) feed its encoder.  Records a
+        graph where grad mode is on and a parameter requires grad (the
+        train step's), each decoder block then rematerialised when
+        ``cfg.remat`` (:func:`block_remat`); the model's own parameters
+        require none, so a serving caller builds no graph."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         b, s_len = tokens.shape
@@ -377,6 +435,7 @@ class Model:
         return logits[:, 0], cache
 
     # -- prefill -------------------------------------------------------
+    @torch.no_grad()
     def prefill(self, params, batch: dict) -> torch.Tensor:
         """Teacher-forced pass returning last-position logits."""
         return self.forward(params, batch)[:, -1]

@@ -96,13 +96,16 @@ def _scan(xc, b_ssm, c_ssm, dt, a):
               * xc[:, sl].to(torch.float32)[..., None])
         # doubling scan of (decay, input): after it, decay[t] is the
         # product of the chunk's decays up to t and hs[t] the state from a
-        # zero carry
+        # zero carry (new tensors each round, so autograd can record it)
         step, n = 1, hs.shape[1]
         while step < n:
-            hs[:, step:] = decay[:, step:] * hs[:, :-step] + hs[:, step:]
-            decay[:, step:] = decay[:, step:] * decay[:, :-step]
+            hs = torch.cat([hs[:, :step],
+                            decay[:, step:] * hs[:, :-step] + hs[:, step:]],
+                           dim=1)
+            decay = torch.cat([decay[:, :step],
+                               decay[:, step:] * decay[:, :-step]], dim=1)
             step *= 2
-        hs += decay * h_prev[:, None]
+        hs = hs + decay * h_prev[:, None]
         ys.append((hs @ c_ssm[:, sl].to(torch.float32)[..., None])[..., 0])
         h_prev = hs[:, -1]
         del decay, hs

@@ -1752,3 +1752,108 @@ def test_sharded_arena_on_the_card_matches_the_host_oracle(cuda,
     # one B1-multi a shard for every chunk but the first: an empty arena
     # answers without a launch
     assert similarity_topk.multi_launches == 2 * (-(-1_500 // 128) - 1)
+
+
+# ------------------------------------------------------- B8's gradient
+# B8's gradient on the card: the forward launches the kernel, the backward
+# recomputes the plain version on the saved inputs (attention_grad).  The
+# plain reference here is torch.autograd.grad of attention_ref.  fp32:
+# within 1e-5 of the gradient's max |g| (fp32 sums in another order where
+# the backward chunks the queries); bf16: within one bf16 ulp (2^-7 |g|)
+# plus 1e-5 of max |g| (both round fp32 values that agree to ~1e-6).
+def _grad_close(got, want):
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        ok = err <= 2.0 ** -7 * want.float().abs() + 1e-5 * scale
+    else:
+        ok = err <= 1e-5 * scale
+    assert bool(ok.all()), f"max |err| {float(err.max())} of {scale}"
+
+
+def _b8_grads(rng, dev, dtype, b, h, hkv, s, t, d, dv, causal, window):
+    """The model's layout: (B,S,H,D) projections as transpose(1, 2)
+    views; returns (kernel grads, plain grads, launches of the forward)."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    q = _randn(rng, (b, s, h, d), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (b, t, hkv, d), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (b, t, hkv, dv), dtype, dev).transpose(1, 2)
+    dout = _randn(rng, (b, h, s, dv), dtype, dev)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = fa.launches
+    out = fa.flash_attention(*leaves, window=window, causal=causal)
+    launched = fa.launches - before
+    got = torch.autograd.grad(out, leaves, dout)
+    assert fa.launches == before + launched      # the backward launches none
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.attention_ref(*leaves, causal=causal, window=window), leaves,
+        dout)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        _grad_close(g, w)
+    return launched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradient_at_the_train_shape(cuda, rng, dtype):
+    """smollm-360m's training attention: B=8, 15/5 heads of 64, S=1,024,
+    one B8 launch (on wgmma in bf16) and the plain version's gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    w0 = fa.wgmma_launches
+    assert _b8_grads(rng, cuda, dtype, 8, 15, 5, 1024, 1024, 64, 64,
+                     True, 0) == 1
+    assert fa.wgmma_launches == w0 + (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(32, 32), (64, 64), (128, 128),
+                                  (192, 192), (256, 256), (192, 128),
+                                  (48, 32)])
+def test_flash_attention_gradient_at_every_head_dim(cuda, rng, d, dv, dtype):
+    """Every (D, Dv) of flash_attention.SHAPES, G = 2, S ragged."""
+    assert _b8_grads(rng, cuda, dtype, 2, 4, 2, 137, 137, d, dv, True,
+                     0) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t,causal,window", [
+    (1100, 1100, True, 0),          # the backward's query chunks
+    (1300, 1300, True, 256),        # chunked, banded
+    (300, 300, True, 64),
+    (200, 333, False, 0),           # non-causal, T != S
+    (1100, 70, False, 0)])
+def test_flash_attention_gradient_windows_and_chunks(cuda, rng, s, t,
+                                                     causal, window, dtype):
+    assert _b8_grads(rng, cuda, dtype, 1, 6, 2, s, t, 64, 64, causal,
+                     window) == 1
+
+
+def test_train_step_on_the_card_matches_the_host(cuda):
+    """One train step of the card model (fp32, B8 forward and its remat
+    recompute) against the same step on the host: loss within 1e-5
+    relative, each gradient leaf within 1e-4 of its max |g|, B8 launched
+    twice a layer (forward, recompute) and never in the backward's plain
+    gradient."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import Model, make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(_card_model_cfg(), remat=True)
+    host = Model(cfg, "cpu")
+    params = host.init(torch.Generator().manual_seed(3))
+    card = Model(cfg, "cuda")
+    rng = np.random.default_rng(2)
+    tok = rng.integers(2, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    f0 = flash_attention.launches
+    loss, grads = value_and_grad(make_loss_fn(card))(
+        _move(params, cuda), _move(batch, cuda))
+    assert flash_attention.launches == f0 + 2 * cfg.n_layers
+    want_loss, want = value_and_grad(make_loss_fn(host))(params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale

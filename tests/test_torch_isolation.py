@@ -47,11 +47,16 @@ def test_sources_name_no_jax_and_no_reference_module():
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.quant", "repro_torch.kernels.fused",
     "repro_torch.cache.quantized", "repro_torch.cache.pruned",
-    "repro_torch.core.policies", "repro_torch.core.arena"])
+    "repro_torch.core.policies", "repro_torch.core.arena",
+    "repro_torch.optim", "repro_torch.data", "repro_torch.distributed",
+    "repro_torch.distributed.checkpoint",
+    "repro_torch.distributed.fault_tolerance",
+    "repro_torch.distributed.compression", "repro_torch.launch.train",
+    "repro_torch.models.steps", "repro_torch.tree"])
 def test_approximate_lookup_modules_stand_alone(module):
-    """The modules of the approximate lookups, the baselines and the
-    arena import alone, with neither JAX nor the reference package (whose
-    numpy-only twins they copy)."""
+    """The modules of the approximate lookups, the baselines, the arena
+    and the training path import alone, with neither JAX nor the
+    reference package (whose numpy-only twins they copy)."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
