@@ -212,6 +212,18 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                in a child process, the only one with cuBLAS's fixed
                workspace (CUBLAS_WORKSPACE_CONFIG) that deterministic
                mode wants.
+ 10k. dryrun - launch/dryrun.py in a child process on the host (python3
+               chip_smoke.py --dryrun-child OUT.json), started with the
+               model phases and joined after 10j: make_local_mesh() on
+               the card as a world of one (NCCL), checked; on it the dry
+               run of 10j's train step (smollm-360m, batch 8 x 1,024;
+               meta DTensors, nothing allocated), whose argument bytes
+               must equal the train child's parameter, moment and batch
+               bytes exactly, its predicted peak printed beside 10j's
+               measured one; then smollm-360m prefill_32k on the fake
+               16 x 16 world, xlstm-125m decode_32k on the fake 2 x 16 x 16
+               one and deepseek-v2-lite-16b decode_32k (MoE) on 16 x 16,
+               at full width and depth, one record a line.
  10c. tiers  - RAC at D=768 over the first 5,000 requests, device capacity
                1,024, a host tier of 2,048 rows and ghost lists of 8,192,
                request by request with a flush after each, queued
@@ -233,7 +245,8 @@ Phases (any fault raises and exits non-zero; nothing is caught):
                10,000 evictions, B3 launched for each (one launch, the mask
                in the kernel), B1 never.
                The host replays of 10c and 10d run in four worker
-               processes while phases 10, 10b and 10e-10j use the card.
+               processes while phases 10, 10b and 10e-10j use the card,
+               beside 10k.
  11. serve   - ServingEngine at that width (kernel cache backend, D=768,
                capacity 64, 8 slots, max_seq 512, 16 new tokens) over the
                first SERVE_LEN requests of the synthetic trace
@@ -250,6 +263,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -445,6 +459,13 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-4         # relative L2 of each gradient leaf
 TRAIN_CHILD = "--train-child"  # the argument that runs phase 10j alone
 HYMBA_CHILD = "--hymba-child"  # the argument that runs 10f's fp32 gates
+DRYRUN_CHILD = "--dryrun-child"  # the argument that runs phase 10k alone
+# the dry run (phase 10k, on the host beside the model phases): the cells
+# tests/test_dryrun.py compiles on the reference and one MoE cell, at full
+# width and depth on fake 256/512-rank worlds: (arch, shape, multi-pod)
+DRYRUN_CELLS = [("smollm-360m", "prefill_32k", False),
+                ("xlstm-125m", "decode_32k", True),
+                ("deepseek-v2-lite-16b", "decode_32k", False)]
 # full-width bf16 logits (max |logit| ~3.3): the kernels' and the plain
 # versions' roundings, and decode's and forward's GEMM shapes, differ in
 # the last bf16 bit of some activations, and that spreads over 32 layers;
@@ -3796,6 +3817,12 @@ def _phase_train() -> dict:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
     losses = full.losses
+    # the bytes of what a step takes: parameters, AdamW's moments and step,
+    # the batch (the dry run's argument bytes, phase 10k)
+    arg_bytes = {k: sum(t.numel() * t.element_size() for t in tree_leaves(v))
+                 for k, v in (("params", full.params),
+                              ("opt_state", full.opt_state),
+                              ("batch", on_card(data.batch_at(0))))}
     first, last = (float(np.mean(losses[:TRAIN_STEPS // 2])),
                    float(np.mean(losses[TRAIN_STEPS // 2:])))
     n_params = _n_params(full.params)
@@ -3902,7 +3929,72 @@ def _phase_train() -> dict:
             "mfu": mfu, "backward_share": bwd_ms / total,
             "busy_share": busy, "peak_bytes": peak, "save_s": save_s,
             "restore_s": restore_s, "attention_backward_ms": att_bwd_ms,
-            "seconds": wall}
+            "argument_bytes": arg_bytes, "seconds": wall}
+
+
+def _phase_dryrun() -> dict:
+    """Phase 10k, the child's body (``python3 chip_smoke.py --dryrun-child
+    OUT.json``; it runs on the host beside the model phases).  (1)
+    launch/mesh.py's make_local_mesh() on the card, a world of one (NCCL,
+    an in-process store), checked: one rank, the (1, 1) ("data",
+    "model") mesh; on it the dry run of TRAIN_ARCH's train step at the
+    train phase's batch and length (meta DTensors, nothing allocated),
+    whose argument bytes the main process holds against the bytes of the
+    train child's parameters, moments and batch, exactly.  (2) On fake
+    256- and 512-rank worlds, the DRYRUN_CELLS at full width and depth,
+    one record a line, each with flops and peak bytes above 0, a
+    bottleneck and its world's rank count."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (PRODUCTION_SHAPES, fake_world,
+                                         make_local_mesh)
+    from repro_torch.models.config import ShapeConfig
+    t0 = time.perf_counter()
+    device_type = torch.device(DEVICE).type
+    mesh = make_local_mesh(device_type)
+    if (mesh.size(), tuple(mesh.shape), mesh.mesh_dim_names,
+            mesh.device_type) != (1, (1, 1), ("data", "model"), device_type):
+        raise AssertionError(f"dryrun: make_local_mesh() gave {mesh}")
+    log(f"dryrun: make_local_mesh(): {mesh}, world {dist.get_world_size()}"
+        f", backend {dist.get_backend()}")
+    shape = ShapeConfig(f"train_b{TRAIN_B}_s{TRAIN_S}", "train", TRAIN_S,
+                        TRAIN_B)
+    train = dryrun.lower_cell(TRAIN_ARCH, shape, False, verbose=False,
+                              mesh=mesh)
+    dist.destroy_process_group()
+    log(f"dryrun record: {json.dumps(train)}")
+    cells = []
+    for arch, cell, multi_pod in DRYRUN_CELLS:
+        n = math.prod(PRODUCTION_SHAPES[multi_pod][0])
+        with fake_world(n):
+            rec = dryrun.lower_cell(arch, cell, multi_pod, verbose=False)
+        log(f"dryrun record: {json.dumps(rec)}")
+        if not (rec["flops"] > 0 and rec["peak_bytes_per_device"] > 0
+                and rec["bottleneck"] in ("compute", "memory", "collective")
+                and rec["n_chips"] == n):
+            raise AssertionError(f"dryrun: {arch} {cell}: {rec}")
+        cells.append(rec)
+    wall = time.perf_counter() - t0
+    log(f"dryrun: {len(cells) + 1} cells in {wall:.1f}s (the child's wall)")
+    return {"train": train, "cells": cells, "seconds": wall}
+
+
+def phase_dryrun(dry: dict, trained: dict) -> dict:
+    """Phase 10k's gate, in the main process: the dry run's argument bytes
+    of the train step equal the train child's parameter, moment and batch
+    bytes exactly; its predicted peak is printed beside the train run's
+    measured max_memory_allocated."""
+    want = sum(trained["argument_bytes"].values())
+    got = dry["train"]["argument_bytes_per_device"]
+    log(f"dryrun vs train: argument bytes {got} predicted, {want} in the "
+        f"train child ({trained['argument_bytes']}); peak "
+        f"{dry['train']['peak_bytes_per_device']} bytes predicted for one "
+        f"step, {trained['peak_bytes']} measured (max_memory_allocated over "
+        f"the {TRAIN_STEPS}-step run); the child's wall {dry['seconds']:.1f}s")
+    if got != want:
+        raise AssertionError(f"dryrun: argument bytes {got} != {want}")
+    return dry
 
 
 def step_profile(step, label: str = "decode step",
@@ -4124,8 +4216,9 @@ def main():
     torch.cuda.empty_cache()
     log(f"approx main: {time.perf_counter() - t_start:.1f}s")
     # the host replays of the kv and tiers phases (the plain B3's is the
-    # longest: ~100 s) run in workers while the model phases use the card
-    with _workers(4, 1) as pool:
+    # longest: ~100 s) run in workers while the model phases use the card,
+    # and so does the dry run (10k)
+    with _workers(4, 1) as pool, child_phase(DRYRUN_CHILD) as dry_child:
         kv_hosts, tiers_hosts = kv_workers(pool, trace), tiers_workers(
             pool, trace)
         fa_launches = phase_model()
@@ -4144,6 +4237,8 @@ def main():
         log(f"internvl: {time.perf_counter() - t_start:.1f}s")
         trained = phase_train()
         log(f"train: {time.perf_counter() - t_start:.1f}s")
+        phase_dryrun(dry_child(), trained)
+        log(f"dryrun: {time.perf_counter() - t_start:.1f}s")
         tiers_launches = phase_tiers(trace, tiers_hosts)
         log(f"tiers: {time.perf_counter() - t_start:.1f}s")
         kv_launches, kv_row = phase_kv(trace, kv_hosts)
@@ -4262,7 +4357,8 @@ def main():
 
 
 if __name__ == "__main__":
-    children = {TRAIN_CHILD: _phase_train, HYMBA_CHILD: _hymba_fp32}
+    children = {TRAIN_CHILD: _phase_train, HYMBA_CHILD: _hymba_fp32,
+                DRYRUN_CHILD: _phase_dryrun}
     if sys.argv[1:2] and sys.argv[1] in children:
         _no_tf32()
         record = children[sys.argv[1]]()

@@ -10,6 +10,7 @@ backends), :mod:`repro_torch.kernels` (CUDA kernels, their wrappers and
 plain versions), :mod:`repro_torch.models` (the model stack, loss and
 train step), :mod:`repro_torch.serving`, the training path's
 :mod:`repro_torch.optim`, :mod:`repro_torch.data` and
-:mod:`repro_torch.distributed`, :mod:`repro_torch.launch` (``train``,
-``serve``), :mod:`repro_torch.telemetry`.
+:mod:`repro_torch.distributed` (with the sharding rules and logical-axis
+annotations), :mod:`repro_torch.launch` (``train``, ``serve``, the dry
+run ``dryrun`` and ``profile_cell``), :mod:`repro_torch.telemetry`.
 """

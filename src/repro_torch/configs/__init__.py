@@ -1,16 +1,16 @@
 """Assigned architecture configs (exact assignment numbers) + the paper's
 serving config: the port's own copies of ``repro/configs/``.
-``get_config(arch_id)`` returns the full ModelConfig.
-
-The reference's ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins whose
-only caller is its dry run) waits for the dry-run tooling of ``ROADMAP.md``
-queue A item 12; training needs none.
+``get_config(arch_id)`` returns the full ModelConfig;
+``input_specs(cfg, shape)`` returns meta-tensor stand-ins for every model
+input of that (arch x shape) cell: no allocation.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+import torch
+
+from repro_torch.models.config import ModelConfig, ShapeConfig, shape_config
 
 ARCH_IDS = [
     "gemma_7b", "qwen15_110b", "smollm_360m", "nemotron4_340b",
@@ -50,3 +50,38 @@ def shape_cells(cfg: ModelConfig) -> list[str]:
     if cfg.sub_quadratic:
         cells.append("long_500k")
     return cells
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """Meta tensors for every model input of this cell (``shape`` a name of
+    ``SHAPES`` or a ``ShapeConfig``), the reference's
+    shapes and dtypes (token ids int32).  For decode shapes the KV/state
+    cache is included under ``"cache"`` (:meth:`Model.cache_spec`'s
+    shapes; MLA's ``c_kv`` and ``k_rope`` are column views of one row
+    buffer, as :meth:`Model.init_cache` makes them)."""
+    from repro_torch.models.model import Model
+
+    sc: ShapeConfig = shape_config(shape)
+    b, s = sc.global_batch, sc.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    specs: dict = {}
+    if sc.kind == "train":
+        specs["tokens"] = meta((b, s))
+        specs["labels"] = meta((b, s))
+    elif sc.kind == "prefill":
+        specs["tokens"] = meta((b, s))
+    else:  # decode: one new token against a cache of seq_len
+        specs["tokens"] = meta((b, 1))
+        specs["pos"] = meta((b,))
+        specs["cache"] = Model(cfg, "meta").init_cache(b, s)
+    if cfg.frontend == "audio":
+        # decode consumes the encoder's output, computed at prefill
+        key = "enc_out" if sc.kind == "decode" else "audio_embeds"
+        specs[key] = meta((b, cfg.n_frontend_tokens, cfg.d_model),
+                          cfg.cdtype)
+    if cfg.frontend == "vision" and sc.kind != "decode":
+        specs["image_embeds"] = meta((b, cfg.n_frontend_tokens,
+                                      cfg.d_model), cfg.cdtype)
+    return specs

@@ -5,7 +5,8 @@ Public API:
       OASSTConfig
     - Policies:          RACPolicy (+ make_rac, RAC_VARIANTS), the 16
       BASELINES (RNG_BASELINES take a seed), Policy, ArrayPolicy,
-      RadixRACPolicy (the KV prefix-block policy)
+      RadixRACPolicy (the KV prefix-block policy), LEGACY_BASELINES (the
+      frozen host-loop oracle of the baselines)
     - Policy state:      PolicyTable (journaled RAC scoring slabs; device
       backends mirror it for the fused decide_batch path), MutationJournal
     - Simulation:        run_policy, run_policy_batched (exact incremental
@@ -21,6 +22,7 @@ replay traces through that facade.
 """
 from .arena import ArenaStore, run_arena
 from .embeddings import EmbeddingSpace, cosine
+from .legacy_policies import LEGACY_BASELINES
 from .policies import BASELINES, RNG_BASELINES, ArrayPolicy, Policy
 from .policy_table import PolicyTable, SlabTable
 from .rac import RAC_VARIANTS, RACPolicy, make_rac
@@ -34,7 +36,8 @@ from .traces import (OASSTConfig, SynthConfig, measured_long_reuse_ratio,
 from .types import Request, Stats, Trace, summarize
 
 __all__ = [
-    "EmbeddingSpace", "cosine", "BASELINES", "RNG_BASELINES", "Policy",
+    "EmbeddingSpace", "cosine", "BASELINES", "LEGACY_BASELINES",
+    "RNG_BASELINES", "Policy",
     "ArrayPolicy", "ArenaStore", "run_arena", "run_many",
     "default_factories", "PolicyTable", "SlabTable",
     "RAC_VARIANTS", "RACPolicy", "RadixRACPolicy", "make_rac", "hr_full",

@@ -7,6 +7,15 @@ The wrapper launches the CUDA kernel for CUDA tensors and takes the plain
 version (:func:`~repro_torch.kernels.ref.decode_attention_ref`) for CPU
 tensors; anything else raises.  ``pos`` stays on the card: the kernel
 reads it there, so a decode step makes no host sync for it.
+
+On ``meta`` tensors (the dry run) the wrapper is shape-only
+(:func:`_shape_only`): it builds the output and reports the kernel's
+FLOPs and bytes over the whole cache (the reference's jitted step scores
+every slot under a mask) to :func:`repro_torch.costing.charge`.  DTensor
+inputs follow the cache's layout: batch and kv heads split the query as
+they split the cache, and a cache split along its sequence gives each
+rank a partial softmax over its keys, summed across ranks (a ``Partial``
+output), as XLA's sharded softmax does.
 """
 from __future__ import annotations
 
@@ -14,6 +23,8 @@ import ctypes
 import functools
 
 import torch
+
+from repro_torch import costing
 
 from . import _build, ref
 
@@ -96,6 +107,72 @@ def _check(q, k, v, pos) -> tuple[int, int, int, int, int, int]:
     return b, h, d, v.shape[3], s_max, hkv
 
 
+def _shape_only(q, k, v) -> torch.Tensor:
+    """B9 on meta tensors: the output, no arithmetic; charges the kernel's
+    FLOPs (2 (D + Dv) a scored slot, every slot of the cache) and bytes
+    (q, the k and v rows its heads read, once where v is a view of k, the
+    output) for this rank's shards."""
+    b, h, d = q.shape
+    s_max, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (d, dv) not in SHAPES:
+        raise ValueError(f"decode_attention: head dims (D, Dv) = ({d}, "
+                         f"{dv}) not in {SHAPES} on the card")
+    flops = 2.0 * b * h * s_max * (d + dv)
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    if not isinstance(k, DTensor):
+        out = q.new_empty((b, h, dv))
+        costing.charge("decode_attention", flops,
+                       _nbytes(q, out) + _kv_bytes(k, v))
+        return out
+    mesh = k.device_mesh
+    qpl = (q.placements if isinstance(q, DTensor)
+           else [Replicate()] * mesh.ndim)
+    kp, qp, op = [], [], []
+    for i, p in enumerate(k.placements):
+        if p.is_shard() and p.dim in (0, 1, 2):
+            kp.append(p)
+            qp.append({0: Shard(0), 1: Replicate(), 2: Shard(1)}[p.dim])
+            op.append({0: Shard(0), 1: Partial(), 2: Shard(1)}[p.dim])
+            continue
+        # the cache is whole on this mesh dim: follow the query
+        qq = qpl[i]
+        if qq.is_shard() and qq.dim == 0:
+            kp.append(Shard(0))
+        else:
+            kp.append(Replicate())
+        qq = qq if qq.is_shard() and qq.dim in (0, 1) else Replicate()
+        qp.append(qq)
+        op.append(qq)
+    if not isinstance(q, DTensor):
+        q = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    ql = q.redistribute(mesh, qp).to_local()
+    kl = k.redistribute(mesh, kp).to_local()
+    vl = v.redistribute(mesh, kp).to_local()
+    out = ql.new_empty((ql.shape[0], ql.shape[1], dv))
+    g = h // hkv
+    need = min(kl.shape[2], -(-ql.shape[1] // g)) / kl.shape[2]
+    frac = ql.numel() / q.numel() * kl.shape[1] / s_max
+    costing.charge("decode_attention", flops * frac,
+                   _nbytes(ql, out) + need * _kv_bytes(kl, vl))
+    return DTensor.from_local(out, mesh, op, run_check=False)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _kv_bytes(k, v) -> int:
+    """Bytes of the cache rows: k's, plus v's unless v is a column view of
+    k (one storage, same offset and strides: the kernel reads each row
+    once)."""
+    shared = (k.untyped_storage()._cdata == v.untyped_storage()._cdata
+              and k.storage_offset() == v.storage_offset()
+              and k.stride() == v.stride())
+    return _nbytes(k) if shared else _nbytes(k, v)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor,
                      scale: float | None = None) -> torch.Tensor:
@@ -113,6 +190,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, scale)
+    if dev.type == "meta":
+        return _shape_only(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {dev}")
     if (d, dv) not in SHAPES:

@@ -24,12 +24,23 @@ on the saved inputs, a chunk of queries at a time past
 ``NAIVE_MAX_SEQ`` so that only a (…, chunk, T) score tile is live, as
 the reference's ``sdpa`` rematerialises its query chunks.  On a CPU
 tensor autograd runs through ``attention_ref`` directly.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the same
+``Function`` runs with a shape-only forward (:func:`_shape_only`): it
+builds the output, reports the kernel's FLOPs and bytes to the dry run's
+counter (:func:`repro_torch.costing.charge`) and materialises no score
+tensor; its backward is the card's, :func:`attention_grad`.  DTensor
+inputs are laid out so that each rank's shards form a problem of their
+own (batch and heads as q's, the keys whole where q is split along its
+sequence), and the stub sees those local shards.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from repro_torch import costing
 
 from . import _build, ref
 
@@ -150,7 +161,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands also pass :func:`check_tma`.  Differentiable in q, k and v
     (:func:`attention_grad` on the card)."""
     causal = bool(causal)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return _FlashAttention.apply(q, k, v, window, causal)
     _check(q, k, v, causal, window)
     if q.device.type != "cpu":
@@ -163,15 +174,23 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, causal: bool):
-        ctx.save_for_backward(q, k, v)
         ctx.window, ctx.causal = window, causal
-        return _launch(q, k, v, window, causal)
+        if q.device.type == "meta":
+            out, (q, k, v), ctx.layout = _shape_only(q, k, v, window, causal)
+        else:
+            out = _launch(q, k, v, window, causal)
+        ctx.save_for_backward(q, k, v)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        return (*attention_grad(q, k, v, dout, ctx.causal, ctx.window),
-                None, None)
+        if q.device.type == "meta" and ctx.layout is not None:
+            grads = _local_grad(q, k, v, dout, ctx.causal, ctx.window,
+                                *ctx.layout)
+        else:
+            grads = attention_grad(q, k, v, dout, ctx.causal, ctx.window)
+        return (*grads, None, None)
 
 
 def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -202,6 +221,91 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv = gv if dv is None else dv + gv
     return (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head scores: every pair without
+    ``causal``, else keys ``j <= i`` (and ``j > i - window``)."""
+    if not causal:
+        return s * t
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _kv_need(h_local: int, hkv_local: int, g: int) -> int:
+    """The kv heads a rank's ``h_local`` query heads read (of its
+    ``hkv_local``), a divisor of ``h_local``."""
+    need = min(hkv_local, -(-h_local // g))
+    while h_local % need:
+        need += 1
+    return need
+
+
+def _shape_only(q, k, v, window: int, causal: bool):
+    """B8 on meta tensors: the output, no arithmetic; charges the kernel's
+    FLOPs (2 (D + Dv) a scored pair) and bytes (q, the k and v heads its
+    query heads read, the output) for this rank's shards.  Returns (the
+    output, the (redistributed) q, k, v, and for DTensors the layout
+    (q's placements, k's) the backward runs in, else None)."""
+    b, h, s, t, d, hkv, dv = _check(q, k, v, causal, window)
+    if (d, dv) not in SHAPES:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = ({d}, {dv})"
+                         f" not in {SHAPES} on the card")
+    flops = 2.0 * b * h * pairs(s, t, causal, window) * (d + dv)
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(q, DTensor):
+        out = _out_like(q, dv)
+        costing.charge("flash_attention", flops, _nbytes(q, k, v, out))
+        return out, (q, k, v), None
+    mesh = q.device_mesh
+    qp, kp = [], []
+    for i, p in enumerate(q.placements):
+        if p.is_partial() or (p.is_shard() and p.dim == 3):
+            p = Replicate()
+        qp.append(p)
+        # keys sharded with q by batch, and by heads where Hkv divides;
+        # whole where q is split along its sequence
+        keep = p.is_shard() and (p.dim == 0 or (
+            p.dim == 1 and hkv % mesh.size(i) == 0))
+        kp.append(p if keep else Replicate())
+    q, k, v = (q.redistribute(mesh, qp), k.redistribute(mesh, kp),
+               v.redistribute(mesh, kp))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    out = _out_like(ql, dv)
+    need = _kv_need(ql.shape[1], kl.shape[1], h // hkv) / kl.shape[1]
+    costing.charge("flash_attention", flops * ql.numel() / q.numel(),
+                   _nbytes(ql, out) + need * _nbytes(kl, vl))
+    return (DTensor.from_local(out, mesh, qp, run_check=False), (q, k, v),
+            (qp, kp))
+
+
+def _local_grad(q, k, v, dout, causal: bool, window: int, qp, kp):
+    """The meta backward of DTensors laid out as :func:`_shape_only` laid
+    them out: :func:`attention_grad` on each rank's shards (its query
+    heads and the kv heads they read); dk and dv are partial sums over
+    the mesh dims that split q but not k."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = q.device_mesh
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    dl = dout.redistribute(mesh, qp).to_local()
+    need = _kv_need(ql.shape[1], kl.shape[1], q.shape[1] // k.shape[1])
+    dq, dk, dv = attention_grad(ql, kl[:, :need], vl[:, :need], dl, causal,
+                                window)
+    if need < kl.shape[1]:
+        dk = torch.cat([dk, dk.new_zeros((dk.shape[0], kl.shape[1] - need,
+                                          *dk.shape[2:]))], dim=1)
+        dv = torch.cat([dv, dv.new_zeros((dv.shape[0], vl.shape[1] - need,
+                                          *dv.shape[2:]))], dim=1)
+    gp = [p if p.is_shard() else (Partial() if pq.is_shard() else p)
+          for p, pq in zip(kp, qp)]
+    return (DTensor.from_local(dq, mesh, qp, run_check=False),
+            DTensor.from_local(dk, mesh, gp, run_check=False),
+            DTensor.from_local(dv, mesh, gp, run_check=False))
 
 
 def _launch(q, k, v, window: int, causal: bool) -> torch.Tensor:

@@ -151,6 +151,12 @@ class ShapeConfig:
     global_batch: int
 
 
+def shape_config(shape) -> "ShapeConfig":
+    """A cell's :class:`ShapeConfig`: ``shape`` itself, or the one of
+    :data:`SHAPES` it names."""
+    return shape if isinstance(shape, ShapeConfig) else SHAPES[shape]
+
+
 SHAPES: dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
     "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),

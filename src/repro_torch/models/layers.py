@@ -28,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.api import lc
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
@@ -36,7 +38,10 @@ from .config import ModelConfig
 def normal(gen: torch.Generator, shape, dtype: torch.dtype,
            device: torch.device) -> torch.Tensor:
     """The reference's init: standard normal draws from ``gen`` (on its
-    device) times 0.02, in ``dtype`` on ``device``."""
+    device) times 0.02, in ``dtype`` on ``device``; on ``meta`` nothing is
+    drawn (``gen`` may be None)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * 0.02
     return x.to(device=device, dtype=dtype)
@@ -132,6 +137,9 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
+    q = lc(q, "batch", "seq", "heads", None)
+    k = lc(k, "batch", "seq", "kv_heads", None)
+    v = lc(v, "batch", "seq", "kv_heads", None)
     if xattn_kv is None:
         cos, sin = rope if rope is not None else rope_cos_sin(
             positions, cfg.hd, cfg.rope_theta)
@@ -152,10 +160,9 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                       causal=False).transpose(1, 2)
     elif kv_cache is not None:
         idx = cache_positions                      # (B,) int32 write index
-        bidx = torch.arange(b, device=x.device)
         kc, vc = kv_cache["k"], kv_cache["v"]
-        kc[bidx, idx] = k[:, 0].to(kc.dtype)
-        vc[bidx, idx] = v[:, 0].to(vc.dtype)
+        spmd.write_rows(kc, idx, k[:, 0])
+        spmd.write_rows(vc, idx, v[:, 0])
         out = ops.decode_attention(
             q[:, 0].contiguous(), kc, vc,
             idx if attend_pos is None else attend_pos)[:, None]
@@ -163,9 +170,10 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), window=window,
                                   causal=causal).transpose(1, 2)
+    out = lc(out, "batch", "seq", "heads", None)
     h, hd = cfg.n_heads, cfg.hd
     y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
-    return y, kv_cache
+    return lc(y, "batch", "seq", None), kv_cache
 
 
 # ------------------------------------------------------------------- MLA
@@ -190,6 +198,11 @@ def latent_rows(kv: dict) -> torch.Tensor:
     :meth:`repro_torch.models.Model.init_cache` builds); anything else
     raises."""
     c, kr = kv["c_kv"], kv["k_rope"]
+    if spmd.is_dtensor(c):      # the local shards' rows, laid out as c_kv
+        from torch.distributed.tensor import DTensor
+        rows = latent_rows({"c_kv": c.to_local(), "k_rope": kr.to_local()})
+        return DTensor.from_local(rows, c.device_mesh, c.placements,
+                                  run_check=False)
     b, s, r = c.shape
     w = r + kr.shape[-1]
     if (c.stride(-1) != 1 or c.stride(-2) != w or kr.stride() != c.stride()
@@ -216,7 +229,7 @@ def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cd = cfg.cdtype
     hd, h, rh, r = cfg.hd, cfg.n_heads, cfg.rope_head_dim, cfg.kv_lora_rank
     b, s, _ = x.shape
-    q = _heads(x, p["wq"], cd)
+    q = lc(_heads(x, p["wq"], cd), "batch", "seq", "heads", None)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     cos, sin = rope if rope is not None else rope_cos_sin(
         positions, rh, cfg.rope_theta)
@@ -235,9 +248,8 @@ def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                   vv.transpose(1, 2)).transpose(1, 2)
     else:
         rows = latent_rows(kv_cache)
-        bidx = torch.arange(b, device=x.device)
-        rows[bidx, cache_positions, 0] = torch.cat(
-            [c_kv[:, 0], k_rope[:, 0, 0]], dim=-1).to(rows.dtype)
+        spmd.write_rows(rows[:, :, 0], cache_positions,
+                        torch.cat([c_kv[:, 0], k_rope[:, 0, 0]], dim=-1))
         q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wuk"].to(cd))
         q_lat = torch.cat([q_abs, q_rope[:, 0]], dim=-1).contiguous()
         out_c = ops.decode_attention(q_lat, rows, rows[..., :r],
@@ -245,7 +257,7 @@ def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = torch.einsum("bhr,rhk->bhk", out_c,
                            p["wuv"].to(cd))[:, None]
     y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
-    return y, kv_cache
+    return lc(y, "batch", "seq", None), kv_cache
 
 
 # ------------------------------------------------------------------- MLPs
@@ -279,7 +291,8 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.cdtype
     h = x @ p["wi"].to(cd)
     g = x @ p["wg"].to(cd) if "wg" in p else None
-    return _act(h, g, cfg.mlp) @ p["wo"].to(cd)
+    h = lc(_act(h, g, cfg.mlp), "batch", "seq", "ffn")
+    return lc(h @ p["wo"].to(cd), "batch", "seq", None)
 
 
 # -------------------------------------------------------------------- MoE
@@ -336,29 +349,49 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     weighted by the renormalised probabilities, plus the shared experts
     as one MLP of width ``f * n_shared``.  ``cap`` depends on T, so a
     forward pass and a decode step drop different pairs, as in the
-    reference."""
-    cd = cfg.cdtype
+    reference.  On DTensors the routed experts run on each rank's shards
+    (:func:`repro_torch.distributed.spmd.experts`)."""
     b, s_len, d = x.shape
+    if spmd.is_dtensor(x):
+        y = spmd.experts(p, x, lambda p_, xt, e_lo: moe_experts(
+            p_, cfg, xt, e_lo))
+    else:
+        y = moe_experts(p, cfg, x.reshape(-1, d))
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], cfg, x).reshape(-1, d)
+    return lc(y.view(b, s_len, d), "batch", "seq", None)
+
+
+def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
+                e_lo: int = 0) -> torch.Tensor:
+    """The routed experts of :func:`moe_apply` on tokens xt (T,d), of which
+    ``p["wi"]`` holds experts ``[e_lo, e_lo + E_l)`` (all E by default):
+    every token is routed over all E experts, and the pairs sent to
+    experts held elsewhere add nothing here.  Returns (T,d)."""
+    cd = cfg.cdtype
+    d = xt.shape[1]
     e, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(-1, d)
+    e_l = p["wi"].shape[0]
     t = xt.shape[0]
     cap = max(1, -(-int(t * k * cfg.capacity_factor) // e))
     topv, topi = moe_route(p["router"], xt, k)
     e_flat, pos, keep = moe_slots(topi, e, cap)
+    if e_l != e:                   # a part of the experts lives here
+        e_flat = e_flat - e_lo
+        keep = keep & (e_flat >= 0) & (e_flat < e_l)
+        e_flat = torch.where(keep, e_flat, 0)
     # kept pairs fill distinct (expert, slot) rows; dropped ones go to one
     # spare row past the buffers, which nothing reads
-    row = torch.where(keep, e_flat * cap + pos, e * cap)
-    src = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = xt.new_zeros((e * cap + 1, d))
+    row = torch.where(keep, e_flat * cap + pos, e_l * cap)
+    src = torch.arange(t, device=xt.device).repeat_interleave(k)
+    buf = xt.new_zeros((e_l * cap + 1, d))
     buf.index_copy_(0, row, xt[src])
-    xb = buf[:e * cap].view(e, cap, d)
+    xb = lc(buf[:e_l * cap].view(e_l, cap, d), "expert", None, None)
     h = torch.bmm(xb, p["wi"].to(cd))
     g = torch.bmm(xb, p["wg"].to(cd)) if "wg" in p else None
-    out_buf = torch.bmm(_act(h, g, cfg.mlp), p["wo"].to(cd))
-    gathered = out_buf.reshape(e * cap, d)[
+    out_buf = lc(torch.bmm(_act(h, g, cfg.mlp), p["wo"].to(cd)),
+                 "expert", None, None)
+    gathered = out_buf.reshape(e_l * cap, d)[
         e_flat * cap + torch.where(keep, pos, cap - 1)]
     gathered = torch.where(keep[:, None], gathered, 0)
-    y = (gathered.view(t, k, d) * topv.view(t, k, 1).to(cd)).sum(dim=1)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], cfg, xt)
-    return y.view(b, s_len, d)
+    return (gathered.view(t, k, d) * topv.view(t, k, 1).to(cd)).sum(dim=1)

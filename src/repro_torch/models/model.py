@@ -56,6 +56,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import costing
+from repro_torch.distributed import spmd
+from repro_torch.distributed.api import lc
+
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -92,13 +96,15 @@ def init_embeddings(cfg: ModelConfig, gen: torch.Generator,
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"].to(cfg.cdtype))
+    x = spmd.embedding(p["tok"].to(cfg.cdtype), tokens)
+    return lc(x, "batch", "seq", None)
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = lc(x, "batch", "seq", None)     # gather SP residual before the head
     x = L.rmsnorm(p["norm_f"], x, cfg.norm_eps)
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    return x @ w.to(cfg.cdtype)
+    return lc(x @ w.to(cfg.cdtype), "batch", "seq", "vocab")
 
 
 # ------------------------------------------------------------------ blocks
@@ -130,14 +136,28 @@ def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """Returns (x, new_cache).  ``cache`` is this layer's cache (decode
     only), ``cache_pos`` the slot each row writes, ``attend_pos`` the
     newest slot it attends to; ``rope`` the precomputed ``(cos, sin)``;
-    ``slstm`` picks an xLSTM layer's cell."""
-    out, new_cache = mixer_apply(p, cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+    ``slstm`` picks an xLSTM layer's cell.  The residual stream is laid
+    out ``("batch", "seq_sp", "dmodel")`` between the halves, their inputs
+    ``("batch", "seq", "dmodel")`` (:func:`_norm_in`)."""
+    out, new_cache = mixer_apply(p, cfg, _norm_in(p["ln1"], cfg, x),
                                  positions, cache, cache_pos, attend_pos,
                                  rope, slstm)
-    x = x + out
+    x = _residual(x + out)
     if has_ffn(cfg):
-        x = x + ffn_apply(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, new_cache
+        x = x + ffn_apply(p, cfg, _norm_in(p["ln2"], cfg, x))
+    return _residual(x), new_cache
+
+
+def _norm_in(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """A half's normed input, gathered to the full sequence once (the
+    Megatron SP boundary)."""
+    return lc(L.rmsnorm(p, x, cfg.norm_eps), "batch", "seq", "dmodel")
+
+
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream, sequence-sharded between TP regions where the
+    rules say so."""
+    return lc(x, "batch", "seq_sp", "dmodel")
 
 
 def has_ffn(cfg: ModelConfig) -> bool:
@@ -195,21 +215,21 @@ def block_remat(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ``blk_attn_in`` / ``blk_mlp_in``; a block with cross attention names
     none there, and is recomputed whole)."""
     def ckpt(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=costing.remat_contexts)
     if enc_out is not None:
         return ckpt(lambda x_: xattn_block_apply(p, cfg, x_, positions,
                                                   enc_out, rope=rope)[0], x)
     if cfg.remat_policy != "save_boundaries":
         return ckpt(lambda x_: block_apply(p, cfg, x_, positions, rope=rope,
                                            slstm=slstm)[0], x)
-    eps = cfg.norm_eps
-    h = ckpt(lambda x_: L.rmsnorm(p["ln1"], x_, eps), x)
-    x = x + ckpt(lambda h_: mixer_apply(p, cfg, h_, positions, rope=rope,
-                                        slstm=slstm)[0], h)
+    h = ckpt(lambda x_: _norm_in(p["ln1"], cfg, x_), x)
+    x = _residual(x + ckpt(lambda h_: mixer_apply(
+        p, cfg, h_, positions, rope=rope, slstm=slstm)[0], h))
     if has_ffn(cfg):
-        h2 = ckpt(lambda x_: L.rmsnorm(p["ln2"], x_, eps), x)
+        h2 = ckpt(lambda x_: _norm_in(p["ln2"], cfg, x_), x)
         x = x + ckpt(lambda h_: ffn_apply(p, cfg, h_), h2)
-    return x
+    return _residual(x)
 
 
 # ----------------------------------------------------------- encoder blocks
@@ -257,13 +277,13 @@ def xattn_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                               kv_cache=None if cache is None
                               else cache["kv"], cache_positions=cache_pos,
                               rope=rope)
-    x = x + a
+    x = _residual(x + a)
     hx = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
     xa, _ = L.attention_apply(p["xattn"], cfg, hx, positions,
                               xattn_kv=enc_out)
-    x = x + xa
+    x = _residual(x + xa)
     x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, {"kv": kv}
+    return _residual(x), {"kv": kv}
 
 
 # ------------------------------------------------------------------- Model
@@ -282,9 +302,9 @@ class Model:
         :data:`~repro_torch.models.layers.FP32_LEAVES` in fp32) and its
         0.02 normal init (unit norm scales, zero qkv biases, Mamba's
         constant leaves), drawn from ``generator`` (default: seed 0 on the
-        model's device)."""
+        model's device).  On ``meta`` nothing is drawn."""
         cfg = self.cfg
-        if generator is None:
+        if generator is None and self.device.type != "meta":
             generator = torch.Generator(self.device).manual_seed(0)
         block = init_xattn_block if cfg.n_enc_layers else init_block
         params = {"emb": init_embeddings(cfg, generator, self.device),
@@ -294,6 +314,11 @@ class Model:
             params["enc"] = [init_enc_block(cfg, generator, self.device)
                              for _ in range(cfg.n_enc_layers)]
         return params
+
+    def init_shapes(self) -> dict:
+        """Every parameter as a meta tensor of :meth:`init`'s shape and
+        dtype, nothing allocated (the dry run's parameters)."""
+        return Model(self.cfg, "meta").init()
 
     # -- helpers ------------------------------------------------------
     def _tokens(self, x) -> torch.Tensor:

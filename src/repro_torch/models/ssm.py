@@ -24,7 +24,9 @@ exactly.  A token costs 22 elementwise and product launches in an mLSTM
 layer's loop (:func:`_mlstm_step`) and 24 in an sLSTM layer's
 (:func:`_slstm_step`): xlstm-125m's prefill runs ~272 CUDA kernels a
 token over its 12 layers (17,401 for 64 tokens on an H100), host-bound;
-decode adds the projections around one step.
+decode adds the projections around one step.  The chunk and token loops
+run through :func:`repro_torch.costing.scan` (a dry run charges one
+iteration for all of them).
 """
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import costing
+from repro_torch.distributed.api import lc
 
 from .config import ModelConfig
 from .layers import normal
@@ -82,34 +87,49 @@ def _mamba_core(p, cfg, xz, conv_state=None):
     return z, xc, b_ssm, c_ssm, dt, a, new_conv
 
 
+def _chunk(a, h_prev, dt, b_ssm, xc, c_ssm):
+    """One chunk of the scan: its (B,L,...) inputs and the carry h_prev
+    (B,di,N) -> (the state after it, y (B,L,di) fp32)."""
+    dtf = dt.to(torch.float32)[..., None]
+    decay = torch.exp(dtf * a)                                 # (B,L,di,N)
+    hs = (dtf * b_ssm.to(torch.float32)[:, :, None, :]
+          * xc.to(torch.float32)[..., None])
+    # doubling scan of (decay, input): after it, decay[t] is the product of
+    # the chunk's decays up to t and hs[t] the state from a zero carry (new
+    # tensors each round, so autograd can record it)
+    step, n = 1, hs.shape[1]
+    while step < n:
+        hs = torch.cat([hs[:, :step],
+                        decay[:, step:] * hs[:, :-step] + hs[:, step:]],
+                       dim=1)
+        decay = torch.cat([decay[:, :step],
+                           decay[:, step:] * decay[:, :-step]], dim=1)
+        step *= 2
+    hs = hs + decay * h_prev[:, None]
+    y = (hs @ c_ssm.to(torch.float32)[..., None])[..., 0]
+    return hs[:, -1], y
+
+
 def _scan(xc, b_ssm, c_ssm, dt, a):
     """The selective scan over the sequence from a zero state, chunk by
-    chunk: y (B,S,di) fp32 (before the skip) and the last state (B,di,N)."""
+    chunk (the full chunks through :func:`repro_torch.costing.scan`, then
+    the tail): y (B,S,di) fp32 (before the skip) and the last state
+    (B,di,N)."""
     bsz, s_len, di = xc.shape
-    h_prev = xc.new_zeros((bsz, di, a.shape[1]), dtype=torch.float32)
+    h = xc.new_zeros((bsz, di, a.shape[1]), dtype=torch.float32)
+    full = s_len // CHUNK
+    ins = (dt, b_ssm, xc, c_ssm)
     ys = []
-    for s0 in range(0, s_len, CHUNK):
-        sl = slice(s0, s0 + CHUNK)
-        dtf = dt[:, sl].to(torch.float32)[..., None]
-        decay = torch.exp(dtf * a)                             # (B,L,di,N)
-        hs = (dtf * b_ssm[:, sl].to(torch.float32)[:, :, None, :]
-              * xc[:, sl].to(torch.float32)[..., None])
-        # doubling scan of (decay, input): after it, decay[t] is the
-        # product of the chunk's decays up to t and hs[t] the state from a
-        # zero carry (new tensors each round, so autograd can record it)
-        step, n = 1, hs.shape[1]
-        while step < n:
-            hs = torch.cat([hs[:, :step],
-                            decay[:, step:] * hs[:, :-step] + hs[:, step:]],
-                           dim=1)
-            decay = torch.cat([decay[:, :step],
-                               decay[:, step:] * decay[:, :-step]], dim=1)
-            step *= 2
-        hs = hs + decay * h_prev[:, None]
-        ys.append((hs @ c_ssm[:, sl].to(torch.float32)[..., None])[..., 0])
-        h_prev = hs[:, -1]
-        del decay, hs
-    return torch.cat(ys, dim=1), h_prev
+    if full:
+        h, y = costing.scan(
+            full, lambda i, h_, *x: _chunk(a, h_, *x), h,
+            [t[:, :full * CHUNK].unflatten(1, (full, CHUNK)) for t in ins],
+            stack_dim=1)
+        ys.append(y.flatten(1, 2))
+    if s_len % CHUNK:
+        h, y = _chunk(a, h, *(t[:, full * CHUNK:] for t in ins))
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h
 
 
 def mamba_apply(p: dict, cfg: ModelConfig, x_in: torch.Tensor,
@@ -141,7 +161,7 @@ def mamba_apply(p: dict, cfg: ModelConfig, x_in: torch.Tensor,
             state["conv"].copy_(new_conv)
         new_state = state
     y = y.to(cd) * F.silu(z)
-    return y @ p["w_out"].to(cd), new_state
+    return lc(y @ p["w_out"].to(cd), "batch", "seq", None), new_state
 
 
 def mamba_state_shape(cfg: ModelConfig, batch: int) -> dict:
@@ -210,12 +230,13 @@ def mlstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         c = x.new_zeros((b, hh, hd, hd), dtype=torch.float32)
         n = x.new_zeros((b, hh, hd), dtype=torch.float32)
         m = x.new_full((b, hh), -1e30, dtype=torch.float32)
-        hs = []
-        for t in range(s_len):
-            c, n, m, h = _mlstm_step(c, n, m, q[:, t], k[:, t], v[:, t],
-                                     log_i[:, t], log_f[:, t])
-            hs.append(h)
-        h_seq = torch.stack(hs, dim=1)                        # (B,S,H,hd)
+
+        def step(_, cnm, *xt):
+            c_, n_, m_, h = _mlstm_step(*cnm, *xt)
+            return (c_, n_, m_), h
+        (c, n, m), h_seq = costing.scan(s_len, step, (c, n, m),
+                                        (q, k, v, log_i, log_f),
+                                        stack_dim=1)          # (B,S,H,hd)
         new_state = {"c": c, "n": n, "m": m}
     else:
         c, n, m, h = _mlstm_step(state["c"], state["n"], state["m"],
@@ -230,7 +251,8 @@ def mlstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h_flat = h_flat * torch.rsqrt(
         (h_flat.to(torch.float32) ** 2).mean(-1, keepdim=True) + 1e-6
     ).to(cd) * p["gn_scale"].to(cd)
-    return (h_flat * F.silu(z)) @ p["w_down"].to(cd), new_state
+    out = (h_flat * F.silu(z)) @ p["w_down"].to(cd)
+    return lc(out, "batch", "seq", None), new_state
 
 
 def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
@@ -294,11 +316,13 @@ def slstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         c = torch.zeros_like(h)
         n = torch.ones_like(h)
         m = torch.full_like(h, -1e30)
-        hs = []
-        for t in range(s_len):
-            h, c, n, m = _slstm_step(r_h, h, c, n, m, xg[:, t])
-            hs.append(h)
-        h_seq = torch.stack(hs, dim=1).reshape(b, s_len, d)
+
+        def step(_, hcnm, x_t):
+            new = _slstm_step(r_h, *hcnm, x_t)
+            return new, new[0]
+        (h, c, n, m), h_seq = costing.scan(s_len, step, (h, c, n, m), (xg,),
+                                           stack_dim=1)
+        h_seq = h_seq.reshape(b, s_len, d)
         new_state = {"h": h, "c": c, "n": n, "m": m}
     else:
         new = _slstm_step(r_h, state["h"], state["c"], state["n"],
@@ -310,7 +334,8 @@ def slstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     up = h_seq.to(cd) @ p["w_up"].to(cd)
     di = cfg.xlstm_expand * d
     u, z = up[..., :di], up[..., di:]
-    return (u * F.silu(z)) @ p["w_down"].to(cd), new_state
+    out = (u * F.silu(z)) @ p["w_down"].to(cd)
+    return lc(out, "batch", "seq", None), new_state
 
 
 def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:

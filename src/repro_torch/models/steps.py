@@ -9,6 +9,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import costing
+from repro_torch.distributed import spmd
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -25,13 +27,13 @@ def make_loss_fn(model: Model) -> Callable:
         logits = model.forward(params, batch)           # (B,S,V)
         labels = torch.as_tensor(batch["labels"], device=model.device)
         logits = logits.to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
+        logz = spmd.logsumexp(logits)
         # a masked label may be negative: gather any row there, it is
         # multiplied by 0
-        gold = torch.gather(logits, -1,
-                            labels.clamp_min(0)[..., None].long())[..., 0]
+        gold = spmd.take_last(logits, labels.clamp_min(0).long()
+                              .unsqueeze(-1))               # (B,S,1)
         mask = (labels >= 0).to(torch.float32)
-        nll = (logz - gold) * mask
+        nll = (logz.unsqueeze(-1) - gold).squeeze(-1) * mask
         # small z-loss stabilizes big-vocab training
         zloss = 1e-4 * torch.square(logz) * mask
         denom = torch.clamp(mask.sum(), min=1.0)
@@ -67,7 +69,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     into ``accum_steps`` microbatches along its first axis, run one after
     another, their gradients summed in fp32, then loss and gradients
     divided by ``accum_steps``, so peak activation memory scales with the
-    microbatch.  ``metrics``: ``loss``, ``grad_norm``, ``lr`` (fp32 device
+    microbatch (the loop is :func:`repro_torch.costing.scan`'s).
+    ``metrics``: ``loss``, ``grad_norm``, ``lr`` (fp32 device
     scalars)."""
     grad_fn = value_and_grad(make_loss_fn(model))
 
@@ -77,17 +80,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         if accum_steps <= 1:
             loss, grads = grad_fn(params, batch)
         else:
-            micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                                  *v.shape[1:]) for k, v in batch.items()}
+            micro = {k: costing.split(v, accum_steps)
+                     for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(accum_steps):
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
+
+            def step(i, acc):
                 l_i, g_i = grad_fn(params, {k: v[i] for k, v in
                                             micro.items()})
-                loss = loss + l_i
-                grads = tree_map(lambda a, b: a + b.to(torch.float32),
-                                 grads, g_i)
+                return (acc[0] + l_i, tree_map(
+                    lambda a, b: a + b.to(torch.float32), acc[1], g_i)), None
+            (loss, grads), _ = costing.scan(accum_steps, step, (loss, grads))
             loss = loss / accum_steps
             grads = tree_map(lambda g: g / accum_steps, grads)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,

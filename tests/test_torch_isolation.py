@@ -52,11 +52,18 @@ def test_sources_name_no_jax_and_no_reference_module():
     "repro_torch.distributed.checkpoint",
     "repro_torch.distributed.fault_tolerance",
     "repro_torch.distributed.compression", "repro_torch.launch.train",
-    "repro_torch.models.steps", "repro_torch.tree"])
+    "repro_torch.models.steps", "repro_torch.tree",
+    "repro_torch.core.legacy_policies", "repro_torch.costing",
+    "repro_torch.configs", "repro_torch.distributed.api",
+    "repro_torch.distributed.sharding", "repro_torch.distributed.spmd",
+    "repro_torch.launch.mesh", "repro_torch.launch.op_cost",
+    "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+    "repro_torch.launch.profile_cell"])
 def test_approximate_lookup_modules_stand_alone(module):
-    """The modules of the approximate lookups, the baselines, the arena
-    and the training path import alone, with neither JAX nor the
-    reference package (whose numpy-only twins they copy)."""
+    """The modules of the approximate lookups, the baselines, the arena,
+    the training path and the dry-run and sharding tooling import alone,
+    with neither JAX nor the reference package (whose numpy-only twins
+    they copy)."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -102,3 +109,43 @@ def test_kernel_backend_cpu_keeps_its_mirrors_on_the_cpu():
     cache.decide_batch(np.eye(16, dtype=np.float32)[:3])
     mirror = cache.backend._store_mirror.arrays["emb"]
     assert mirror.device.type == "cpu" and mirror.shape == (9, 16)
+
+
+#: the reference's modules and exports the port names otherwise (the HLO
+#: cost walk and its roofline become a dispatch-mode counter and its
+#: roofline; the JAX power iteration a PyTorch one)
+RENAMED_MODULES = {"launch.hlo_cost": "launch.op_cost",
+                   "launch.hlo_analysis": "launch.roofline"}
+RENAMED_EXPORTS = {"pagerank_power_jax": "pagerank_power"}
+
+
+def test_the_port_covers_the_reference_module_tree_and_exports():
+    """Every module of the reference package has its counterpart in the
+    port, and every subpackage's ``__all__`` covers the reference's."""
+    code = (
+        "import importlib, pkgutil, sys, json\n"
+        "out = {}\n"
+        "for pkg in ('repro', 'repro_torch'):\n"
+        "    root = importlib.import_module(pkg)\n"
+        "    mods = [m.name[len(pkg) + 1:] for m in\n"
+        "            pkgutil.walk_packages(root.__path__, pkg + '.')]\n"
+        "    alls = {m: list(getattr(importlib.import_module(\n"
+        "        pkg + '.' + m), '__all__', [])) for m in mods\n"
+        "        if '.' not in m}\n"
+        "    out[pkg] = [mods, alls]\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    import json
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    (ref_mods, ref_all), (port_mods, port_all) = got["repro"], \
+        got["repro_torch"]
+    missing = sorted(RENAMED_MODULES.get(m, m) for m in ref_mods
+                     if RENAMED_MODULES.get(m, m) not in port_mods)
+    assert not missing, missing
+    for pkg, names in ref_all.items():
+        gap = sorted(set(RENAMED_EXPORTS.get(n, n) for n in names)
+                     - set(port_all[pkg]))
+        assert not gap, (pkg, gap)
