@@ -1,0 +1,8 @@
+"""Prompt tokens prefilled in the window over the window's seconds (host
+clock, the device synchronised at both ends)."""
+
+
+def read(rec):
+    if rec["kind"] != "prefill":
+        return None
+    return rec["units"] / rec["window_s"]
