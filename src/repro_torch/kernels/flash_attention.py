@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from repro_torch import costing
+from repro_torch.telemetry.tracing import annotate
 
 from . import _build, ref
 
@@ -201,10 +202,11 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shape: autograd of the plain version, recomputed on the inputs.  Past
     :data:`NAIVE_MAX_SEQ` queries, one chunk of :data:`Q_CHUNK` queries at
     a time (their scores over all T keys, then freed), dk and dv summed
-    over the chunks in fp32."""
+    over the chunks in fp32.  Inside the profiler span
+    ``attention/grad``."""
     s = q.shape[2]
     step = s if s <= NAIVE_MAX_SEQ else Q_CHUNK
-    with torch.enable_grad():
+    with annotate("attention/grad"), torch.enable_grad():
         kf = k.detach().to(torch.float32).requires_grad_()
         vf = v.detach().to(torch.float32).requires_grad_()
         dq, dk, dv = [], None, None
@@ -219,8 +221,8 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dq.append(gq)
             dk = gk if dk is None else dk + gk
             dv = gv if dv is None else dv + gv
-    return (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+        return (torch.cat(dq, dim=2).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype))
 
 
 def pairs(s: int, t: int, causal: bool, window: int) -> int:

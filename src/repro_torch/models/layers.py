@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import spmd
 from repro_torch.distributed.api import lc
 from repro_torch.kernels import ops
+from repro_torch.telemetry.tracing import annotate
 
 from .config import ModelConfig
 
@@ -333,11 +334,13 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
 def moe_slots(topi: torch.Tensor, e: int, cap: int):
     """Capacity slots of the (token, k) pairs in token-major order: each
     pair takes its expert's running count, and a pair at or past ``cap``
-    is dropped.  Returns (experts (T*K,), slots (T*K,), kept (T*K,))."""
-    e_flat = topi.reshape(-1)
-    onehot = F.one_hot(e_flat, e)
-    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
-    return e_flat, pos, pos < cap
+    is dropped.  Returns (experts (T*K,), slots (T*K,), kept (T*K,)).
+    In the profiler span ``moe/slots``."""
+    with annotate("moe/slots"):
+        e_flat = topi.reshape(-1)
+        onehot = F.one_hot(e_flat, e)
+        pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+        return e_flat, pos, pos < cap
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -367,31 +370,34 @@ def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
     """The routed experts of :func:`moe_apply` on tokens xt (T,d), of which
     ``p["wi"]`` holds experts ``[e_lo, e_lo + E_l)`` (all E by default):
     every token is routed over all E experts, and the pairs sent to
-    experts held elsewhere add nothing here.  Returns (T,d)."""
-    cd = cfg.cdtype
-    d = xt.shape[1]
-    e, k = cfg.n_experts, cfg.top_k
-    e_l = p["wi"].shape[0]
-    t = xt.shape[0]
-    cap = max(1, -(-int(t * k * cfg.capacity_factor) // e))
-    topv, topi = moe_route(p["router"], xt, k)
-    e_flat, pos, keep = moe_slots(topi, e, cap)
-    if e_l != e:                   # a part of the experts lives here
-        e_flat = e_flat - e_lo
-        keep = keep & (e_flat >= 0) & (e_flat < e_l)
-        e_flat = torch.where(keep, e_flat, 0)
-    # kept pairs fill distinct (expert, slot) rows; dropped ones go to one
-    # spare row past the buffers, which nothing reads
-    row = torch.where(keep, e_flat * cap + pos, e_l * cap)
-    src = torch.arange(t, device=xt.device).repeat_interleave(k)
-    buf = xt.new_zeros((e_l * cap + 1, d))
-    buf.index_copy_(0, row, xt[src])
-    xb = lc(buf[:e_l * cap].view(e_l, cap, d), "expert", None, None)
-    h = torch.bmm(xb, p["wi"].to(cd))
-    g = torch.bmm(xb, p["wg"].to(cd)) if "wg" in p else None
-    out_buf = lc(torch.bmm(_act(h, g, cfg.mlp), p["wo"].to(cd)),
-                 "expert", None, None)
-    gathered = out_buf.reshape(e_l * cap, d)[
-        e_flat * cap + torch.where(keep, pos, cap - 1)]
-    gathered = torch.where(keep[:, None], gathered, 0)
-    return (gathered.view(t, k, d) * topv.view(t, k, 1).to(cd)).sum(dim=1)
+    experts held elsewhere add nothing here.  Returns (T,d).  Routing,
+    slots, dispatch, the expert products and the combine run in the
+    profiler span ``moe/experts``."""
+    with annotate("moe/experts"):
+        cd = cfg.cdtype
+        d = xt.shape[1]
+        e, k = cfg.n_experts, cfg.top_k
+        e_l = p["wi"].shape[0]
+        t = xt.shape[0]
+        cap = max(1, -(-int(t * k * cfg.capacity_factor) // e))
+        topv, topi = moe_route(p["router"], xt, k)
+        e_flat, pos, keep = moe_slots(topi, e, cap)
+        if e_l != e:                   # a part of the experts lives here
+            e_flat = e_flat - e_lo
+            keep = keep & (e_flat >= 0) & (e_flat < e_l)
+            e_flat = torch.where(keep, e_flat, 0)
+        # kept pairs fill distinct (expert, slot) rows; dropped ones go to one
+        # spare row past the buffers, which nothing reads
+        row = torch.where(keep, e_flat * cap + pos, e_l * cap)
+        src = torch.arange(t, device=xt.device).repeat_interleave(k)
+        buf = xt.new_zeros((e_l * cap + 1, d))
+        buf.index_copy_(0, row, xt[src])
+        xb = lc(buf[:e_l * cap].view(e_l, cap, d), "expert", None, None)
+        h = torch.bmm(xb, p["wi"].to(cd))
+        g = torch.bmm(xb, p["wg"].to(cd)) if "wg" in p else None
+        out_buf = lc(torch.bmm(_act(h, g, cfg.mlp), p["wo"].to(cd)),
+                     "expert", None, None)
+        gathered = out_buf.reshape(e_l * cap, d)[
+            e_flat * cap + torch.where(keep, pos, cap - 1)]
+        gathered = torch.where(keep[:, None], gathered, 0)
+        return (gathered.view(t, k, d) * topv.view(t, k, 1).to(cd)).sum(dim=1)

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import costing
 from repro_torch.distributed import spmd
 from repro_torch.distributed.api import lc
+from repro_torch.telemetry.tracing import annotate
 
 from . import layers as L
 from . import ssm as S
@@ -101,10 +102,13 @@ def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = lc(x, "batch", "seq", None)     # gather SP residual before the head
-    x = L.rmsnorm(p["norm_f"], x, cfg.norm_eps)
-    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    return lc(x @ w.to(cfg.cdtype), "batch", "seq", "vocab")
+    """The final norm and the vocabulary product, in the profiler span
+    ``model/unembed``."""
+    with annotate("model/unembed"):
+        x = lc(x, "batch", "seq", None)  # gather SP residual before the head
+        x = L.rmsnorm(p["norm_f"], x, cfg.norm_eps)
+        w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+        return lc(x @ w.to(cfg.cdtype), "batch", "seq", "vocab")
 
 
 # ------------------------------------------------------------------ blocks

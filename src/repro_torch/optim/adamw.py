@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.telemetry.tracing import annotate
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -64,34 +65,35 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
                  state: dict) -> tuple[Any, dict, dict]:
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``, the
     metrics as fp32 scalars on the device (nothing is read on the
-    host)."""
-    step = state["step"] + 1
-    g_leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in g_leaves))
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    lr = cosine_lr(cfg, step)
-    step_f = step.to(torch.float32)
-    corr1 = 1 - cfg.b1 ** step_f
-    corr2 = 1 - cfg.b2 ** step_f
+    host).  The whole update is one profiler span, ``optim/adamw``."""
+    with annotate("optim/adamw"):
+        step = state["step"] + 1
+        g_leaves = tree_leaves(grads)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in g_leaves))
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        lr = cosine_lr(cfg, step)
+        step_f = step.to(torch.float32)
+        corr1 = 1 - cfg.b1 ** step_f
+        corr2 = 1 - cfg.b2 ** step_f
 
-    def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
-        m_new = cfg.b1 * m + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m_new / corr1
-        vhat = v_new / corr2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p_new = p.to(torch.float32) - lr * delta
-        return p_new.to(p.dtype), m_new, v_new
+        def upd(p, g, m, v):
+            g = g.to(torch.float32) * scale
+            m_new = cfg.b1 * m + (1 - cfg.b1) * g
+            v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
+            mhat = m_new / corr1
+            vhat = v_new / corr2
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+            p_new = p.to(torch.float32) - lr * delta
+            return p_new.to(p.dtype), m_new, v_new
 
-    out = [upd(*x) for x in zip(tree_leaves(params), g_leaves,
-                                tree_leaves(state["m"]),
-                                tree_leaves(state["v"]))]
-    new_state = {"m": tree_unflatten(state["m"], [o[1] for o in out]),
-                 "v": tree_unflatten(state["v"], [o[2] for o in out]),
-                 "step": step}
-    return (tree_unflatten(params, [o[0] for o in out]), new_state,
-            {"grad_norm": gnorm, "lr": lr})
+        out = [upd(*x) for x in zip(tree_leaves(params), g_leaves,
+                                    tree_leaves(state["m"]),
+                                    tree_leaves(state["v"]))]
+        new_state = {"m": tree_unflatten(state["m"], [o[1] for o in out]),
+                     "v": tree_unflatten(state["v"], [o[2] for o in out]),
+                     "step": step}
+        return (tree_unflatten(params, [o[0] for o in out]), new_state,
+                {"grad_norm": gnorm, "lr": lr})
