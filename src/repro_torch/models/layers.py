@@ -332,14 +332,19 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
 
 
 def moe_slots(topi: torch.Tensor, e: int, cap: int):
-    """Capacity slots of the (token, k) pairs in token-major order: each
-    pair takes its expert's running count, and a pair at or past ``cap``
-    is dropped.  Returns (experts (T*K,), slots (T*K,), kept (T*K,)).
-    In the profiler span ``moe/slots``."""
+    """Capacity slots of the (token, k) pairs: a pair's slot is its rank
+    among its expert's pairs under a stable sort of the pairs by expert
+    id, which equals the reference's running count over the pairs in
+    token-major order; a pair at or past ``cap`` is dropped.  O(T*K) work
+    and no host synchronisation.  Returns (experts (T*K,), slots (T*K,),
+    kept (T*K,)).  In the profiler span ``moe/slots``."""
     with annotate("moe/slots"):
         e_flat = topi.reshape(-1)
-        onehot = F.one_hot(e_flat, e)
-        pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+        srt, order = torch.sort(e_flat, stable=True)
+        first = torch.searchsorted(srt, torch.arange(
+            e, device=srt.device, dtype=srt.dtype))
+        rank = torch.arange(srt.shape[0], device=srt.device) - first[srt]
+        pos = torch.empty_like(rank).scatter_(0, order, rank)
         return e_flat, pos, pos < cap
 
 

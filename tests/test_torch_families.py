@@ -96,6 +96,66 @@ def test_moe_apply_matches_the_reference(rng, arch, cf, drops):
     assert (not keep.all()) == drops
 
 
+def _running_count_slots(topi, e, cap):
+    """The slots as the reference writes them: each (token, k) pair takes
+    its expert's running count over the pairs in token-major order."""
+    e_flat = topi.reshape(-1)
+    onehot = torch.nn.functional.one_hot(e_flat, e)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    return e_flat, pos, pos < cap
+
+
+_SLOT_SHAPES = [(1, 1, 4), (7, 2, 8), (48, 6, 64), (4096, 6, 64)]
+_SLOT_CAPS = ["one", "below_load", "cf_1.25", "t"]
+
+
+def _slot_cap(name, t, k, e):
+    return {"one": 1,
+            "below_load": max(1, t * k // (2 * e)),
+            "cf_1.25": -(-int(t * k * 1.25) // e),
+            "t": t}[name]
+
+
+def _routed(rng, t, k, e):
+    """Top-k expert ids (T,K) as the router gives them: k distinct experts
+    a token, in a random order."""
+    return torch.from_numpy(
+        np.argsort(rng.random((t, e)), axis=-1)[:, :k].astype(np.int64))
+
+
+def _assert_slots_bit_equal(topi, e, cap):
+    got = L.moe_slots(topi, e, cap)
+    want = _running_count_slots(topi, e, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cap_name", _SLOT_CAPS)
+@pytest.mark.parametrize("t,k,e", _SLOT_SHAPES)
+def test_moe_slots_equal_the_running_count(rng, t, k, e, cap_name):
+    """Slots by a stable sort on expert id are the running count's
+    integers, the same pairs kept at every capacity."""
+    _assert_slots_bit_equal(_routed(rng, t, k, e), e,
+                            _slot_cap(cap_name, t, k, e))
+
+
+@pytest.mark.parametrize("case", ["an_expert_unpicked", "all_on_one_expert"])
+@pytest.mark.parametrize("t,k,e", _SLOT_SHAPES)
+def test_moe_slots_edge_cases_equal_the_running_count(rng, t, k, e, case):
+    """An expert no pair picks (the first, a middle one and the last where
+    E allows), and every pair on one expert."""
+    if case == "an_expert_unpicked":
+        unpicked = {0, e // 2, e - 1} if e > k + 3 else {e // 2}
+        ids = np.array([i for i in range(e) if i not in unpicked])
+        topi = torch.from_numpy(ids[np.argsort(
+            rng.random((t, len(ids))), axis=-1)[:, :k]])
+    else:
+        topi = torch.full((t, k), e // 2, dtype=torch.int64)
+    for cap_name in _SLOT_CAPS:
+        _assert_slots_bit_equal(topi, e, _slot_cap(cap_name, t, k, e))
+
+
 def test_moe_router_ties_go_to_the_lower_expert(rng):
     """Equal router columns give equal probabilities: the port's Top-k
     keeps ``jax.lax.top_k``'s order (the lower expert first)."""

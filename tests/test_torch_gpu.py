@@ -1829,6 +1829,32 @@ def test_flash_attention_gradient_windows_and_chunks(cuda, rng, s, t,
                      window) == 1
 
 
+@pytest.mark.parametrize("t,k,e,cf", [
+    (32_768, 6, 64, 10.7),    # deepseek's prefill of 32 x 1,024, dropless
+    (32_768, 6, 64, 0.5),     # the same pairs at a capacity below the load
+    (32, 6, 64, 10.7),        # a decode step of 32 sequences
+    (4_096, 2, 8, 0.75)])     # grok's routing, pairs dropped
+def test_moe_slots_on_the_card_match_the_running_count_without_a_sync(
+        cuda, rng, t, k, e, cf):
+    """The MoE's capacity slots on the card: no host synchronisation (the
+    sync debug mode raises on one), and the running count's integers."""
+    from repro_torch.models import layers
+    topi = torch.from_numpy(np.argsort(rng.random((t, e)), axis=-1)[:, :k]
+                            .astype(np.int64)).to(cuda)
+    cap = max(1, -(-int(t * k * cf) // e))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = layers.moe_slots(topi, e, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    e_flat = topi.reshape(-1)
+    onehot = torch.nn.functional.one_hot(e_flat, e)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    for g, w in zip(got, (e_flat, pos, pos < cap)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 def test_train_step_on_the_card_matches_the_host(cuda):
     """One train step of the card model (fp32, B8 forward and its remat
     recompute) against the same step on the host: loss within 1e-5
