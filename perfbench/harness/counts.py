@@ -2,13 +2,15 @@
 card's published peaks.  Frozen with the benchmark: a change to the
 program cannot change what its time is divided by.
 
-Conventions: a multiply-add is 2 FLOPs; a causal pass scores ``S (S+1) /
-2`` (query, key) pairs a head; a kernel's bytes are each input read once
-and each output written once.
+What depends on a model's family (its heads, the weights a token
+multiplies through) is the family's (``families/<reference>.py``); the
+rest is here.  Conventions: a multiply-add is 2 FLOPs; a causal pass
+scores ``S (S+1) / 2`` (query, key) pairs a head; a kernel's bytes are
+each input read once and each output written once.
 """
 from __future__ import annotations
 
-from . import weights
+from . import spec, weights
 
 #: NVIDIA H100 SXM5 (80 GB HBM3) data sheet: dense bf16 tensor-core rate
 #: and HBM bandwidth, at the full 700 W
@@ -21,15 +23,9 @@ def causal_pairs(s: int) -> int:
 
 
 def attention_shape(cfg: dict) -> dict:
-    """B8's heads for a configuration: query heads, kv heads, the Q/K
-    head dim and V's."""
-    h = cfg["num_attention_heads"]
-    if cfg["model_type"] == "deepseek_v2":
-        return {"h": h, "hkv": h,
-                "d": cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"],
-                "dv": cfg["v_head_dim"]}
-    hd = cfg.get("head_dim") or cfg["hidden_size"] // h
-    return {"h": h, "hkv": cfg["num_key_value_heads"], "d": hd, "dv": hd}
+    """B8's heads for a configuration, from its family: query heads, kv
+    heads, the Q/K head dim and V's (``h``, ``hkv``, ``d``, ``dv``)."""
+    return spec.family(cfg).attention_shape(cfg)
 
 
 def b8_flops(b: int, h: int, s: int, d: int, dv: int) -> float:
@@ -54,22 +50,8 @@ def b8_bound_s(b: int, h: int, hkv: int, s: int, d: int, dv: int,
 def active_params_per_token(cfg: dict) -> int:
     """Weights a token multiplies through in the decoder stack (MoE: the
     top-k routed experts, the shared ones and the router), embedding and
-    unembedding excluded."""
-    d, h = cfg["hidden_size"], cfg["num_attention_heads"]
-    if cfg["model_type"] == "llama":
-        hd = cfg.get("head_dim") or d // h
-        hkv = cfg["num_key_value_heads"]
-        attn = d * h * hd * 2 + d * hkv * hd * 2
-        mlp = 3 * d * cfg["intermediate_size"]
-        return cfg["num_hidden_layers"] * (attn + mlp)
-    hd, rh = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"]
-    r, dv = cfg["kv_lora_rank"], cfg["v_head_dim"]
-    attn = (d * h * (hd + rh) + d * r + r * h * hd + r * h * dv + d * rh
-            + h * dv * d)
-    f = cfg["moe_intermediate_size"]
-    moe = (3 * d * f * (cfg["num_experts_per_tok"] + cfg["n_shared_experts"])
-           + d * cfg["n_routed_experts"])
-    return cfg["num_hidden_layers"] * (attn + moe)
+    unembedding excluded, from the configuration's family."""
+    return spec.family(cfg).active_params_per_token(cfg)
 
 
 def attention_flops(cfg: dict, b: int, s: int) -> float:

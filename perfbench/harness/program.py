@@ -12,17 +12,13 @@ from __future__ import annotations
 
 import torch
 
-from . import weights
-from reference.common import plain_rope
+from . import spec, weights
 
 
-def model_config(cfg: dict, remat: bool = True):
-    """The port's ``ModelConfig`` for a configuration file.  The port
-    rotates at ``rope_theta`` alone, so a scaling that would change that
-    is refused rather than run unscaled."""
-    from repro_torch.models.config import ModelConfig
-    plain_rope(cfg)
-    common = dict(
+def port_kwargs(cfg: dict, remat: bool) -> dict:
+    """The ``ModelConfig`` keywords every family takes from a
+    configuration file."""
+    return dict(
         name=cfg["name"], n_layers=cfg["num_hidden_layers"],
         d_model=cfg["hidden_size"], n_heads=cfg["num_attention_heads"],
         n_kv_heads=cfg["num_key_value_heads"], vocab_size=cfg["vocab_size"],
@@ -30,24 +26,13 @@ def model_config(cfg: dict, remat: bool = True):
         rope_theta=float(cfg["rope_theta"]), norm_eps=cfg["rms_norm_eps"],
         tie_embeddings=cfg["tie_word_embeddings"],
         param_dtype=cfg["dtype"], compute_dtype=cfg["dtype"], remat=remat)
-    if cfg["model_type"] == "llama":
-        return ModelConfig(
-            family="dense", head_dim=cfg.get("head_dim") or 0,
-            d_ff=cfg["intermediate_size"], **common)
-    if cfg["model_type"] == "deepseek_v2":
-        if cfg["v_head_dim"] != cfg["qk_nope_head_dim"] or cfg["q_lora_rank"]:
-            raise ValueError("the port's MLA takes V at the nope head dim "
-                             "and no query latent")
-        f = cfg["moe_intermediate_size"]
-        return ModelConfig(
-            family="moe", attention="mla", head_dim=cfg["qk_nope_head_dim"],
-            rope_head_dim=cfg["qk_rope_head_dim"],
-            kv_lora_rank=cfg["kv_lora_rank"], d_ff=f, expert_d_ff=f,
-            n_experts=cfg["n_routed_experts"],
-            n_shared_experts=cfg["n_shared_experts"],
-            top_k=cfg["num_experts_per_tok"],
-            capacity_factor=cfg["capacity_factor"], **common)
-    raise ValueError(f"no port model for model_type {cfg['model_type']!r}")
+
+
+def model_config(cfg: dict, remat: bool = True):
+    """The port's ``ModelConfig`` for a configuration file, built by its
+    family (``families/<reference>.py``), which refuses what the port
+    cannot run as the file states."""
+    return spec.family(cfg).model_config(cfg, port_kwargs(cfg, remat))
 
 
 def check_layout(model, cfg: dict) -> None:

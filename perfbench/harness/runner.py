@@ -36,9 +36,10 @@ def context(name: str, seed: int, seconds: float, trace: bool,
             t_start: float, **kw) -> Context:
     bench = spec.benchmark()
     cell = spec.cell(bench, name)
+    config = spec.load_json(spec.config_file(bench, cell["config"]))
+    spec.family(config)         # refused here without its family file
     return Context(
-        cell=cell,
-        config=spec.load_json(spec.config_file(bench, cell["config"])),
+        cell=cell, config=config,
         traffic=spec.load_json(spec.traffic_file(cell["traffic"])),
         workload=spec.load_json(spec.workload_file(name)),
         seed=seed, seconds=seconds, trace=trace, t_start=t_start, **kw)

@@ -1,9 +1,17 @@
 """Reading the program's own profiler spans (``repro_torch.telemetry.
 tracing.annotate``) in a traced stretch, beside :mod:`harness.trace`'s
-timeline: for each span of :data:`PROGRAM_SPANS`, how often it opened, the
-device seconds and launches of the kernels launched inside it, and the
+timeline: for each span that opened, how often it opened, the device
+seconds and launches of the kernels launched inside it, and the
 device-idle seconds while the host was inside it; and how many of the
 benchmark's own ``bench.`` spans (steps or calls) the stretch holds.
+
+A program span is any host range named by the program's convention,
+``<layer>/<part>``: lower-case words of letters, digits and ``_`` joined
+by ``/`` and nothing else (:data:`CONVENTION`).  No profiler op of
+PyTorch's (``aten::``), runtime call (``cuda``), autograd node
+(``autograd::engine::``) or span of the benchmark's (``bench.``) is named
+so.  Nothing here names a span: a metric file names the one it reads
+(:func:`per_call`).
 
 A kernel counts toward every span open on the host when the call that
 launched it was made (the profiler's correlation: the launch call, a
@@ -16,20 +24,24 @@ program span open at the gap's midpoint, the rule ``idle_gaps`` uses."""
 from __future__ import annotations
 
 import bisect
+import re
 
 import torch
 
 from . import trace
 
-#: the program's spans, at its layer boundaries
-PROGRAM_SPANS = ("attention/grad", "optim/adamw", "model/unembed",
-                 "moe/experts", "moe/slots")
+#: the program's span names: ``layer/part``, lower-case, no spaces or colons
+CONVENTION = re.compile(r"[a-z][a-z0-9_]*(/[a-z0-9_]+)+")
+
+
+def is_program_span(name: str) -> bool:
+    return CONVENTION.fullmatch(name) is not None
 
 
 def read(events) -> dict:
     """``events``: the profiler's FunctionEvents (times in microseconds).
     Returns ``spans`` {name: {calls, device_s, launches, idle_s}} for
-    every name of :data:`PROGRAM_SPANS`, and ``bench_calls``."""
+    every program span that opened, and ``bench_calls``."""
     cuda = torch.autograd.DeviceType.CUDA
     host = [e for e in events if e.device_type != cuda]
     host_names = {e.name for e in host}
@@ -41,15 +53,15 @@ def read(events) -> dict:
     calls = sorted((e.time_range.start, ran[e.id]) for e in host
                    if e.name.startswith("cu") and e.id in ran)
     starts = [t for t, _ in calls]
-    spans = {n: {"calls": 0, "device_s": 0.0, "launches": 0, "idle_s": 0.0}
-             for n in PROGRAM_SPANS}
+    spans: dict = {}
     opened = []
     for e in host:
-        if e.name not in spans:
+        if not is_program_span(e.name):
             continue
         a, b = e.time_range.start, e.time_range.end
         lo, hi = bisect.bisect_left(starts, a), bisect.bisect_right(starts, b)
-        s = spans[e.name]
+        s = spans.setdefault(e.name, {"calls": 0, "device_s": 0.0,
+                                      "launches": 0, "idle_s": 0.0})
         s["calls"] += 1
         s["launches"] += hi - lo
         s["device_s"] += sum(d for _, d in calls[lo:hi]) / 1e6
@@ -64,3 +76,18 @@ def read(events) -> dict:
     return {"spans": spans,
             "bench_calls": sum(e.name.startswith(trace.BENCH_SPAN)
                                for e in host)}
+
+
+def per_call(rec: dict, kind: str, span: str, field: str,
+             scale: float = 1.0):
+    """``span``'s ``field`` (``device_s``, ``launches`` or ``idle_s``) a
+    traced step or call of a ``kind`` run, times ``scale``; None where the
+    run is of another kind, was not traced, or the span launched nothing
+    on the device there."""
+    tr = rec.get("trace")
+    if rec["kind"] != kind or not tr or not tr.get("bench_calls"):
+        return None
+    s = tr["spans"].get(span)
+    if not s or not s["launches"]:
+        return None
+    return s[field] * scale / tr["bench_calls"]

@@ -3,11 +3,14 @@ the checkout, and the files it names: a cell (``workloads`` entry) joins a
 configuration (``configs/<config>.json``), a traffic mix
 (``traffic/<traffic>.json``, whose ``driver`` names ``drivers/<driver>.py``)
 and the cell's own settings (``workloads/<cell>.json``: the limits of its
-correctness check).  Each metric is read by ``metrics/<name>.py``.  A later
-cell, configuration or metric adds files and entries; nothing here names
-one."""
+correctness check).  A configuration's ``reference`` key names its family:
+``families/<reference>.py`` (weight layout, the port's model, the counts)
+and ``reference/<reference>.py`` (the plain block).  Each metric is read by
+``metrics/<name>.py``.  A later cell, configuration, family or metric adds
+files and entries; nothing here names one."""
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -55,6 +58,26 @@ def metric_file(name: str) -> Path:
 
 def driver_file(driver: str) -> Path:
     return HERE / "drivers" / f"{driver}.py"
+
+
+def family_file(reference: str) -> Path:
+    return HERE / "families" / f"{reference}.py"
+
+
+def family(cfg: dict):
+    """The family module of a configuration, ``families/<reference>.py``,
+    loaded once; a configuration whose file is missing is refused."""
+    path = family_file(cfg["reference"])
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {cfg.get('name')!r} names the family "
+            f"{cfg['reference']!r}, but there is no {path}")
+    return _load_family(path)
+
+
+@functools.cache
+def _load_family(path: Path):
+    return load_module(path, "perfbench_family_" + path.stem)
 
 
 def load_module(path: Path, name: str):

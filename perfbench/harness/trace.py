@@ -1,9 +1,9 @@
 """Reading the device timeline of a traced stretch of a run from
 ``torch.profiler`` (CUPTI activity on the card): the seconds in which an
 operation ran on the device (the union of their intervals), the traced
-window's wall, the device time of each kernel by name, and the idle gaps
-between operations, named by what the host was doing then.  Nothing is
-written to disk."""
+window's wall, the device time of each kernel by name, the idle gaps
+between operations, named by what the host was doing then, and the
+program's spans (:mod:`harness.spans`).  Nothing is written to disk."""
 from __future__ import annotations
 
 import bisect
@@ -43,8 +43,8 @@ def _merge(intervals):
 
 
 def _outermost(spans):
-    """The host ops not nested in another (the benchmark's own spans
-    left out), as disjoint sorted (start, end, name) intervals."""
+    """The host ops not nested in another, as disjoint sorted (start,
+    end, name) intervals."""
     out = []
     for a, b, name in sorted(spans, key=lambda x: (x[0], -x[1])):
         if out and a < out[-1][1]:
@@ -57,7 +57,12 @@ def read(events, wall_s: float) -> dict:
     """``events``: the profiler's FunctionEvents; times in microseconds.
     Returns ``busy_s``, ``window_s``, ``kernels`` {name: seconds},
     ``launches`` {name: count}, ``device_ops`` and ``idle_gaps`` (the ten
-    largest, as [name, seconds] pairs)."""
+    largest, as [name, seconds] pairs), and :func:`harness.spans.read`'s
+    ``spans`` and ``bench_calls``.  A gap is named by the outermost host
+    op open at its midpoint, the benchmark's and the program's spans left
+    out, so that the op under a span names it."""
+    from . import spans
+    events = list(events)
     cuda = torch.autograd.DeviceType.CUDA
     host_names = {e.name for e in events if e.device_type != cuda}
     dev, host = [], []
@@ -68,7 +73,8 @@ def read(events, wall_s: float) -> dict:
             # kernels, copies and sets ran on the device
             if e.name not in host_names:
                 dev.append((tr.start, tr.end, e.name))
-        elif not e.name.startswith(BENCH_SPAN):
+        elif not (e.name.startswith(BENCH_SPAN)
+                  or spans.is_program_span(e.name)):
             host.append((tr.start, tr.end, e.name))
     kernels, launches = defaultdict(float), defaultdict(int)
     for a, b, name in dev:
@@ -90,4 +96,4 @@ def read(events, wall_s: float) -> dict:
                 sorted(d.items(), key=lambda kv: -kv[1])[:10]]
     return {"busy_s": busy_s, "window_s": wall_s, "kernels": dict(kernels),
             "launches": dict(launches), "device_ops": top10(kernels),
-            "idle_gaps": top10(gaps)}
+            "idle_gaps": top10(gaps), **spans.read(events)}

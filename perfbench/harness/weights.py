@@ -3,7 +3,8 @@ the seed and handed to the program and, drawn again, to the reference.
 
 :func:`layout` gives every leaf's path, shape and dtype in the nested tree
 the port's models take (dicts and lists: ``emb``, then ``blocks[i]``),
-from the configuration's own keys.  :func:`draw` fills the tree in a few
+from the configuration's own keys: each block's leaves are its family's
+(``families/<reference>.py``).  :func:`draw` fills the tree in a few
 large calls: one flat buffer a dtype, normal(0, 0.02) in slices of at most
 2^30 elements, then the norm scales set to one; each leaf is a view of
 its buffer."""
@@ -12,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import spec
 
 VOCAB_PAD = 2048      # the embedding table is padded to a multiple of this
 _ALIGN = 64           # elements between leaf offsets (128 bytes in bf16)
@@ -35,45 +38,10 @@ def layout(cfg: dict) -> list[tuple[tuple, tuple, torch.dtype, str]]:
            (("emb", "norm_f", "scale"), (d,), pd, "ones")]
     if not cfg["tie_word_embeddings"]:
         out.append((("emb", "unembed"), (d, vp), pd, "normal"))
-    h, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    fam = spec.family(cfg)
     for i in range(cfg["num_hidden_layers"]):
-        b = ("blocks", i)
-        out += [(b + ("ln1", "scale"), (d,), pd, "ones"),
-                (b + ("ln2", "scale"), (d,), pd, "ones")]
-        if cfg["model_type"] == "llama":
-            hd = cfg.get("head_dim") or d // h
-            f = cfg["intermediate_size"]
-            out += [(b + ("attn", "wq"), (d, h, hd), pd, "normal"),
-                    (b + ("attn", "wk"), (d, hkv, hd), pd, "normal"),
-                    (b + ("attn", "wv"), (d, hkv, hd), pd, "normal"),
-                    (b + ("attn", "wo"), (h, hd, d), pd, "normal"),
-                    (b + ("mlp", "wi"), (d, f), pd, "normal"),
-                    (b + ("mlp", "wg"), (d, f), pd, "normal"),
-                    (b + ("mlp", "wo"), (f, d), pd, "normal")]
-        elif cfg["model_type"] == "deepseek_v2":
-            hd, rh = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"]
-            r, e = cfg["kv_lora_rank"], cfg["n_routed_experts"]
-            f = cfg["moe_intermediate_size"]
-            fs = f * cfg["n_shared_experts"]
-            out += [(b + ("attn", "wq"), (d, h, hd + rh), pd, "normal"),
-                    (b + ("attn", "wdkv"), (d, r), pd, "normal"),
-                    (b + ("attn", "wuk"), (r, h, hd), pd, "normal"),
-                    (b + ("attn", "wuv"), (r, h, cfg["v_head_dim"]), pd,
-                     "normal"),
-                    (b + ("attn", "wkr"), (d, rh), pd, "normal"),
-                    (b + ("attn", "wo"), (h, cfg["v_head_dim"], d), pd,
-                     "normal"),
-                    # the router is held in fp32, whatever the model's dtype
-                    (b + ("moe", "router"), (d, e), torch.float32, "normal"),
-                    (b + ("moe", "wi"), (e, d, f), pd, "normal"),
-                    (b + ("moe", "wg"), (e, d, f), pd, "normal"),
-                    (b + ("moe", "wo"), (e, f, d), pd, "normal"),
-                    (b + ("moe", "shared", "wi"), (d, fs), pd, "normal"),
-                    (b + ("moe", "shared", "wg"), (d, fs), pd, "normal"),
-                    (b + ("moe", "shared", "wo"), (fs, d), pd, "normal")]
-        else:
-            raise ValueError(f"no weight layout for model_type "
-                             f"{cfg['model_type']!r}")
+        out += [(("blocks", i) + path, shape, dt, init)
+                for path, shape, dt, init in fam.block_layout(cfg, i, pd)]
     return out
 
 

@@ -10,8 +10,9 @@ the nearest precision below the bf16 that the configurations state.  In
 a gradient the rounding passes the gradient straight through.
 
 The model: token embedding, the decoder blocks of the configuration's
-family (``llama.py``, ``deepseek_v2.py``), a final RMSNorm and the
-unembedding; logits over the padded vocabulary.
+family (``reference/<reference>.py``, named by the configuration's
+``reference`` key), a final RMSNorm and the unembedding; logits over the
+padded vocabulary.
 """
 from __future__ import annotations
 

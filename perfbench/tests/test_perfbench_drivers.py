@@ -22,13 +22,17 @@ def kind(cell):
         spec.cell(BENCH, cell)["traffic"]))["driver"]
 
 
-@pytest.mark.parametrize("cell,config", [(c, None) for c in CELLS] + [
-    (c, "deepseek-v2-lite-16b") for c in CELLS])
+#: each cell on its own configuration (None) and on every configuration
+CELL_CONFIGS = [(c, None) for c in CELLS] + [
+    (c, k["name"]) for c in CELLS for k in BENCH["configs"]]
+
+
+@pytest.mark.parametrize("cell,config", CELL_CONFIGS)
 def test_reference_is_the_program_in_fp32(cell, config):
     """The plain reference and the port agree to round-off when both
     compute in float32: the reference follows the configuration as the
-    program runs it (deepseek-v2-lite-16b's MLA and MoE on every cell's
-    traffic included)."""
+    program runs it (every configuration's family on every cell's traffic
+    included)."""
     rec = runner.drive(tiny.context(cell, "float32", config_name=config))
     assert rec["numbers"], rec
     for name, value in rec["numbers"].items():
@@ -66,9 +70,9 @@ def test_control_is_not_correct(cell):
     """The reference in the program's place, in fp8: at this size it reads
     three times the bf16 program or more on one of the cell's compared
     numbers, and is not correct under the cell's limits where they hold at
-    this size.  (The MoE's routing flips, which set its limit at the full
-    size, hardly happen in two tiny layers: its control is held to the
-    cell's limit on the card, ``tools/readings.py``.)"""
+    this size (the family's ``TINY_CONTROL_REFUSED``; where they do not,
+    the control is held to the cell's limit on the card,
+    ``tools/readings.py``)."""
     program = runner.drive(tiny.context(cell))["numbers"]
     ctx = tiny.context(cell, "float32")
     ctx.system = (control.ControlTrain(ctx.config, ctx.traffic, "cpu")
@@ -78,7 +82,7 @@ def test_control_is_not_correct(cell):
     limits = ctx.workload["limits"]
     assert any(numbers[n] >= 3 * program[n] for n in limits), (numbers,
                                                                program)
-    if ctx.config["model_type"] != "deepseek_v2":
+    if spec.family(ctx.config).TINY_CONTROL_REFUSED:
         assert not check.judge(numbers, limits)[0], numbers
 
 

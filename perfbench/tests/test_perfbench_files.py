@@ -28,6 +28,11 @@ WIDTHS = ("hidden_size", "intermediate_size", "moe_intermediate_size",
           "num_experts_per_tok", "head_dim")
 
 
+#: what a family file (``families/<reference>.py``) exposes
+FAMILY_FUNCTIONS = ("block_layout", "model_config", "attention_shape",
+                    "active_params_per_token")
+
+
 def _width(key: str) -> bool:
     return key in WIDTHS or key.endswith(("_dim", "_rank"))
 
@@ -124,6 +129,14 @@ def test_configuration_files(c):
                 if _width(k):
                     assert cfg[key].get(k) == v, (key, k)
     assert (spec.HERE / "reference" / f"{cfg['reference']}.py").is_file()
+    # its family: the weight layout, the port's model, the counts, the
+    # tiny test sizes
+    assert spec.family_file(cfg["reference"]).is_file()
+    fam = spec.family(cfg)
+    for fn in FAMILY_FUNCTIONS:
+        assert callable(getattr(fam, fn)), fn
+    assert isinstance(fam.TINY, dict) and fam.TINY
+    assert isinstance(fam.TINY_CONTROL_REFUSED, bool)
 
 
 @pytest.mark.parametrize("scaling, runs", [
@@ -168,7 +181,8 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 
 def test_nothing_the_benchmark_loads_is_jax():
     """Import every module a run loads (harness, drivers, metrics, the
-    reference, the program's entry points) in a fresh interpreter and look
+    reference and the families, the program's entry points) in a fresh
+    interpreter and look
     at ``sys.modules``, top-level names compared whole."""
     code = f"""
 import sys
@@ -178,7 +192,11 @@ for f in sorted((spec.HERE / "drivers").glob("*.py")):
     spec.load_module(f, "d_" + f.stem)
 for f in sorted((spec.HERE / "metrics").glob("*.py")):
     spec.load_module(f, "m_" + f.stem)
-import reference.llama, reference.deepseek_v2
+import importlib
+for f in sorted((spec.HERE / "reference").glob("[!_]*.py")):
+    importlib.import_module("reference." + f.stem)
+for f in sorted((spec.HERE / "families").glob("*.py")):
+    spec.load_module(f, "f_" + f.stem)
 import repro_torch.models, repro_torch.optim
 print(runner.forbidden_modules())
 """

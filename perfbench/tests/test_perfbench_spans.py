@@ -1,10 +1,11 @@
-"""Reading the program's spans (``harness.spans``) and the span tool
-(``tools/spans.py``): on synthetic event lists, a kernel inside nested
-spans counts toward both, a gap toward the innermost span open at its
-midpoint, and with the spans left out the timeline reads as it did
-without them; on the CPU, a tiny cell's traced run counts each span's
-calls; on the card, each reading is positive and nested as its spans
-are."""
+"""Reading the program's spans (``harness.spans``), the metrics that read
+them and the span tool (``tools/spans.py``): on synthetic event lists,
+every span named by the program's convention is read and nothing else, a
+kernel inside nested spans counts toward both, a gap toward the innermost
+span open at its midpoint, and the timeline reads as it does without the
+spans, a gap under a span named by the op beneath it; on the CPU, a tiny
+cell's traced run counts each span's calls; on the card, each reading is
+positive and nested as its spans are."""
 from __future__ import annotations
 
 import json
@@ -81,7 +82,8 @@ def test_nested_spans_count_their_kernels_and_the_innermost_gaps():
     # midpoint lies inside moe/slots
     assert s["moe/experts"]["idle_s"] == pytest.approx(9e-6)
     assert s["moe/slots"]["idle_s"] == 0
-    assert s["attention/grad"]["calls"] == 0
+    # a span that never opened is not in the record
+    assert set(s) == {"optim/adamw", "moe/slots", "moe/experts"}
 
 
 def test_gap_at_a_nested_midpoint_goes_to_the_inner_span():
@@ -95,22 +97,102 @@ def test_gap_at_a_nested_midpoint_goes_to_the_inner_span():
 
 
 def test_the_timeline_reads_as_without_spans():
-    """With the program's spans left out, ``busy_s``, ``kernels``,
-    ``device_ops`` and ``idle_gaps`` read as the same ops unwrapped."""
+    """The program's spans left out of the timeline, ``busy_s``,
+    ``kernels``, ``device_ops`` and ``idle_gaps`` read as the same ops
+    unwrapped; the record carries the spans beside them."""
     plain = trace.read(timeline(False), 1e-4)
-    got = TOOL._read_with_spans(trace.read)(timeline(True), 1e-4)
+    got = trace.read(timeline(True), 1e-4)
     for key in ("busy_s", "window_s", "kernels", "launches", "device_ops",
                 "idle_gaps"):
         assert got[key] == plain[key], key
-    assert got["bench_calls"] == 1 and "spans" in got
+    assert got["bench_calls"] == 1
+    assert got["spans"] == spans.read(timeline(True))["spans"]
+    assert plain["spans"] == {}
+
+
+#: the spans of the synthetic prefill call below: the five the program
+#: opened first and one added later
+SIX = ("attention/grad", "optim/adamw", "model/unembed", "moe/experts",
+       "moe/slots", "moe/route")
+
+
+def mixed_timeline():
+    """A call holding the six program spans, each over one ``aten::mm``
+    whose ``cudaLaunchKernel`` launches a kernel, beside an autograd node
+    and a runtime call of their own, all inside ``bench.prefill``.  Each
+    span's kernel runs t + 4 to t + 7, the next one's t + 24: the gap's
+    midpoint t + 15.5 lies inside the span's ``aten::mm`` (t + 1 to
+    t + 17)."""
+    inner, dev, t = [], [], 10
+    for corr, name in enumerate(SIX, start=1):
+        inner.append(ev(name, t, t + 18, [op("aten::mm", t + 1, t + 17,
+                                             corr)]))
+        dev.append(kernel(f"gemm{corr}", t + 4, t + 7, corr))
+        t += 20
+    inner.append(ev("autograd::engine::evaluate_function: MmBackward0",
+                    t, t + 8, [op("aten::mm", t + 1, t + 6, 99)]))
+    inner.append(ev("cudaDeviceSynchronize", t + 10, t + 12))
+    dev.append(kernel("gemm99", t + 4, t + 7, 99))
+    return list(_walk(ev("bench.prefill", 0, t + 20, inner))) + dev
+
+
+def test_every_span_of_the_convention_and_nothing_else():
+    """``moe/route``, which no list names, is read beside the five; no
+    ``aten::`` op, runtime call, autograd node or ``bench.`` span is."""
+    out = spans.read(mixed_timeline())
+    assert sorted(out["spans"]) == sorted(SIX)
+    assert out["bench_calls"] == 1
+    for name, s in out["spans"].items():
+        assert s["calls"] == 1 and s["launches"] == 1, name
+        assert s["device_s"] == pytest.approx(3e-6), name
+    for name in ("aten::mm", "cudaLaunchKernel", "cudaDeviceSynchronize",
+                 "autograd::engine::evaluate_function: MmBackward0",
+                 "bench.prefill", "bench.train_step", "ProfilerStep#1",
+                 "Memcpy HtoD (Pageable -> Device)", "rac/sim_top1"):
+        assert spans.is_program_span(name) == (name == "rac/sim_top1")
+
+
+def test_a_gap_under_a_span_is_named_by_the_op_beneath():
+    """Each of the six gaps of 17 us lies under a span's ``aten::mm``:
+    the op names it in ``idle_gaps``, not the span nor ``bench.prefill``;
+    the span's own idle counts it."""
+    evs = mixed_timeline()
+    tr = trace.read(evs, 1e-3)
+    assert [n for n, _ in tr["idle_gaps"]] == ["aten::mm"]
+    assert tr["idle_gaps"][0][1] == pytest.approx(6 * 17e-6)
+    assert tr["spans"] == spans.read(evs)["spans"]
+    for name in SIX:
+        assert tr["spans"][name]["idle_s"] == pytest.approx(17e-6), name
+
+
+def test_metrics_read_as_the_span_tool():
+    """Each span metric a cell lists reads what ``tools/spans.py``'s
+    ``READINGS`` work out from the same record."""
+    rec_spans = spans.read(timeline(True))
+    for kind, readings in TOOL.READINGS.items():
+        tr = {**rec_spans, "busy_s": 1e-5, "window_s": 1e-4,
+              "spans": {**rec_spans["spans"],
+                        "attention/grad": {"calls": 4, "device_s": 0.7,
+                                           "launches": 9, "idle_s": 0.01},
+                        "model/unembed": {"calls": 1, "device_s": 0.009,
+                                          "launches": 11, "idle_s": 0.0}}}
+        tr["bench_calls"] = 2
+        rec = {"kind": kind, "trace": tr}
+        want = TOOL.per_step(tr, kind)["readings"]
+        assert set(want) == {m for m, *_ in readings}
+        for name, value in want.items():
+            reader = spec.load_module(spec.metric_file(name), "m_" + name)
+            assert reader.read(rec) == pytest.approx(value), name
+            other = "prefill" if kind == "train" else "train"
+            assert reader.read({**rec, "kind": other}) is None, name
+            assert reader.read({"kind": kind}) is None, name
 
 
 @pytest.mark.parametrize("cell", ["smollm-360m.train-b16-s2k",
                                   "deepseek-v2-lite-16b.prefill-b32-s1k"])
-def test_tiny_traced_run_counts_each_span(cell, monkeypatch):
+def test_tiny_traced_run_counts_each_span(cell):
     """On the CPU no kernel runs on a card: the spans' calls are counted,
-    their device time is none."""
-    monkeypatch.setattr(trace, "read", TOOL._read_with_spans(trace.read))
+    their device time is none, and no metric of theirs is read."""
     ctx = tiny.context(cell)
     ctx.trace = True
     rec = runner.drive(ctx)
@@ -123,6 +205,7 @@ def test_tiny_traced_run_counts_each_span(cell, monkeypatch):
     else:
         want = {"model/unembed": steps, "moe/experts": steps * layers,
                 "moe/slots": steps * layers}
+    assert set(tr["spans"]) == set(want)
     for name, s in tr["spans"].items():
         assert s["calls"] == want.get(name, 0), name
         assert s["device_s"] == 0 and s["launches"] == 0
@@ -130,6 +213,10 @@ def test_tiny_traced_run_counts_each_span(cell, monkeypatch):
     assert table["steps_or_calls"] == steps
     assert set(table["readings"]) <= {m for m, *_ in TOOL.READINGS[
         rec["kind"]]}
+    out = runner.result(ctx, rec, 1)
+    read = [m["name"] for m in spec.benchmark()["per_layer"]
+            if m["source"] == "program_span"]
+    assert read and not set(read) & set(out["metrics"])
 
 
 def test_span_cost_is_timed_with_the_profiler_off_and_on():

@@ -1,5 +1,5 @@
-"""Tiny configurations of the benchmark's two families and a context on
-the CPU, for the tests."""
+"""Tiny configurations of the benchmark's families and a context on the
+CPU, for the tests."""
 from __future__ import annotations
 
 import time
@@ -8,21 +8,10 @@ from harness import runner, spec
 
 
 def config(name: str, dtype: str = "bfloat16") -> dict:
-    """``configs/<name>.json`` cut to a tiny size of its family."""
+    """``configs/<name>.json`` cut to its family's tiny size
+    (``families/<reference>.py``'s ``TINY``)."""
     cfg = spec.load_json(spec.HERE / "configs" / f"{name}.json")
-    if cfg["model_type"] == "llama":
-        # wide and deep enough that fp8 products (the control) show
-        small = dict(hidden_size=256, intermediate_size=512,
-                     num_attention_heads=4, num_key_value_heads=2,
-                     head_dim=64, num_hidden_layers=4, vocab_size=512)
-    else:
-        small = dict(hidden_size=64, moe_intermediate_size=32,
-                     num_attention_heads=4, num_key_value_heads=4,
-                     qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
-                     kv_lora_rank=32, n_routed_experts=8,
-                     num_experts_per_tok=2, n_shared_experts=1,
-                     num_hidden_layers=2, vocab_size=512)
-    return dict(cfg, dtype=dtype, **small)
+    return dict(cfg, dtype=dtype, **spec.family(cfg).TINY)
 
 
 def context(cell: str, dtype: str = "bfloat16", seed: int = 2 ** 31 + 5,

@@ -1,7 +1,8 @@
 """The program's spans in a cell's traced run, on the card: one run of the
-cell as ``run.py --trace 1`` makes it, with the traced stretch also read
-for the program's spans (``harness.spans``), and what each span took a
-step or call; or the cost of one span's enter and exit.
+cell as ``run.py --trace 1`` makes it, and what each program span in the
+traced stretch (``harness.spans``, read into the run's record by
+``harness.trace``) took a step or call; or the cost of one span's enter
+and exit.
 
     python3 perfbench/tools/spans.py --workload <cell> --seed <n> \
         [--seconds 10] [--out spans.jsonl]
@@ -9,14 +10,11 @@ step or call; or the cost of one span's enter and exit.
 
 A cell's run prints its result line as ``run.py`` would, then one JSON
 line: for each span, the calls, device ms, kernel launches and idle ms a
-traced step or call, and the readings of the per-layer metrics that
-would read the spans (``attention_grad_ms.train``, ``optimizer_idle_ms.train``,
-``optimizer_launches.train``, ``unembed_ms.prefill``, ``moe_ms.prefill``,
-``moe_slots_ms.prefill``).  In this process the run's ``breakdown``
-names idle gaps with the program's spans left out, as the benchmark's did
-before the program had spans.  ``--cost`` times ``annotate``'s enter and
-exit with the profiler off and on (CPU and CUDA activity), in
-microseconds a span."""
+traced step or call, and the readings of :data:`READINGS`, worked out
+here apart from the metric files that report them
+(``metrics/attention_grad_ms.train.py``, ...), as a check on those.
+``--cost`` times ``annotate``'s enter and exit with the profiler off and
+on (CPU and CUDA activity), in microseconds a span."""
 from __future__ import annotations
 
 import time
@@ -32,7 +30,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 
-from harness import runner, spans, trace  # noqa: E402
+from harness import runner  # noqa: E402
 
 #: the per-layer readings: (name, span, field, scale a step or call)
 READINGS = {
@@ -43,16 +41,6 @@ READINGS = {
                 ("moe_ms.prefill", "moe/experts", "device_s", 1e3),
                 ("moe_slots_ms.prefill", "moe/slots", "device_s", 1e3)],
 }
-
-
-def _read_with_spans(base):
-    def read(events, wall_s):
-        events = list(events)
-        out = base([e for e in events if e.name not in spans.PROGRAM_SPANS],
-                   wall_s)
-        out.update(spans.read(events))
-        return out
-    return read
 
 
 def per_step(tr: dict, kind: str) -> dict:
@@ -66,7 +54,7 @@ def per_step(tr: dict, kind: str) -> dict:
              for name, s in tr["spans"].items()}
     readings = {m: tr["spans"][span][field] * scale / n
                 for m, span, field, scale in READINGS[kind]
-                if tr["spans"][span]["calls"]}
+                if span in tr["spans"]}
     return {"steps_or_calls": tr["bench_calls"], "spans": table,
             "readings": readings,
             "wall_ms": 1e3 * tr["window_s"] / n,
@@ -106,7 +94,6 @@ def main(argv=None) -> int:
     if args.cost:
         line = span_cost(args.cost)
     else:
-        trace.read = _read_with_spans(trace.read)
         ctx = runner.context(args.workload, args.seed, args.seconds, True,
                              T_START)
         rec = runner.drive(ctx)
