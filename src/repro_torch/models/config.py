@@ -18,6 +18,23 @@ VOCAB_PAD = 2048      # the reference's embedding-table rounding
 
 
 @dataclasses.dataclass(frozen=True)
+class YaRN:
+    """DeepSeek's YaRN rotary scaling (``rope_scaling`` of type ``yarn``):
+    the rotary frequencies blended between ``theta``'s and theirs over
+    ``factor``, by a ramp over the pairs whose wavelength lies between
+    ``beta_fast`` and ``beta_slow`` turns of ``original_max_position``;
+    cos/sin times ``m(mscale) / m(mscale_all_dim)`` and the softmax scale
+    times ``m(mscale_all_dim)**2``, where ``m(a) = 1 + 0.1 a ln(factor)``
+    (:mod:`repro_torch.models.layers`, ``yarn_*``)."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | hybrid | ssm | encdec | vlm
@@ -45,9 +62,26 @@ class ModelConfig:
     expert_d_ff: int = 0
     capacity_factor: float = 1.25
 
+    # MoE routing: "softmax" (top-k of the softmax, renormalised) or
+    # "sigmoid_group" (DeepSeek-V3's noaux_tc: sigmoid scores, a
+    # selection-only bias, the best ``topk_group`` of ``n_group`` groups,
+    # the chosen scores renormalised times ``routed_scale``)
+    router: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    # expert parallelism: a layer holds n_experts // ep_size of the experts
+    # it routes over (rank 0's share on one device)
+    ep_size: int = 1
+    # the first layers of an MoE model that are dense MLPs of d_ff
+    first_dense_layers: int = 0
+
     # MLA (deepseek)
     kv_lora_rank: int = 0
     rope_head_dim: int = 64
+    q_lora_rank: int = 0         # > 0: queries through a normed latent
+    kv_latent_norm: bool = False  # RMSNorm on the KV latent (kv_a_layernorm)
+    rope_scaling: Optional[YaRN] = None   # MLA only
 
     # SSM (mamba-style; hymba parallel heads)
     ssm_state: int = 0
@@ -75,6 +109,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
 
+    def __post_init__(self):
+        if self.rope_scaling is not None and self.attention != "mla":
+            raise ValueError("YaRN rotary scaling is taken by MLA only")
+        if self.router not in ("softmax", "sigmoid_group"):
+            raise ValueError(f"unknown router {self.router!r}")
+
     # ---------------------------------------------------------------- utils
     @property
     def hd(self) -> int:
@@ -97,6 +137,16 @@ class ModelConfig:
         return self.n_experts > 0
 
     @property
+    def experts_held(self) -> int:
+        """Routed experts a layer holds: its share of ``n_experts``."""
+        return self.n_experts // self.ep_size
+
+    def moe_layer(self, i: int) -> bool:
+        """Whether decoder layer ``i`` is an MoE layer (the first
+        ``first_dense_layers`` of an MoE model are dense)."""
+        return self.is_moe and i >= self.first_dense_layers
+
+    @property
     def sub_quadratic(self) -> bool:
         """Can this arch hold a 500k context (long_500k shape)?"""
         return self.family in ("ssm",) or (
@@ -106,34 +156,42 @@ class ModelConfig:
         """Analytic parameter count (embedding + blocks + head), unpadded."""
         d, hd, v = self.d_model, self.hd, self.vocab_size
         emb = v * d * (1 if self.tie_embeddings else 2)
-        per_layer = 0
+        per_layer = dense_extra = 0
         if self.family == "ssm":
             di = self.xlstm_expand * d
             per_layer = 2 * d * di + di * (3 * di) + 2 * d   # rough xLSTM block
         else:
             if self.attention == "mla":
-                qk = d * (self.n_heads * (hd + self.rope_head_dim))
-                kv = d * self.kv_lora_rank + self.kv_lora_rank * self.n_heads * (hd + hd)
+                qk = self.n_heads * (hd + self.rope_head_dim)
+                ql, r = self.q_lora_rank, self.kv_lora_rank
+                qk = d * ql + ql + ql * qk if ql else d * qk  # latent, norm
+                kv = d * r + r * self.n_heads * (hd + hd)
+                kv += r if self.kv_latent_norm else 0
                 o = self.n_heads * hd * d
                 per_layer += qk + kv + o + d * self.rope_head_dim
             elif self.attention != "none":
                 per_layer += d * self.n_heads * hd            # q
                 per_layer += 2 * d * self.n_kv_heads * hd     # k, v
                 per_layer += self.n_heads * hd * d            # o
+            n_in = 2 if self.mlp in ("swiglu", "geglu") else 1
+            mlp = (n_in + 1) * d * self.d_ff
             if self.is_moe:
                 e_ff = self.expert_d_ff or self.d_ff
-                n_in = 2 if self.mlp in ("swiglu", "geglu") else 1
-                per_layer += self.n_experts * (n_in + 1) * d * e_ff
-                per_layer += self.n_shared_experts * (n_in + 1) * d * e_ff
-                per_layer += d * self.n_experts                # router
+                moe = (self.experts_held + self.n_shared_experts) * (
+                    n_in + 1) * d * e_ff + d * self.n_experts  # + router
+                if self.router == "sigmoid_group":
+                    moe += self.n_experts                      # its bias
+                per_layer += moe
+                # the leading dense layers hold an MLP in place of the MoE
+                dense_extra = min(self.first_dense_layers,
+                                  self.n_layers) * (mlp - moe)
             elif self.d_ff > 0:
-                n_in = 2 if self.mlp in ("swiglu", "geglu") else 1
-                per_layer += (n_in + 1) * d * self.d_ff
+                per_layer += mlp
             if self.family == "hybrid" and self.ssm_state > 0:
                 di = self.ssm_expand * d
                 per_layer += 2 * d * di + di * d + di * (2 * self.ssm_state + 1)
             per_layer += 2 * d                                 # norms
-        total = emb + self.n_layers * per_layer
+        total = emb + self.n_layers * per_layer + dense_extra
         if self.n_enc_layers:
             enc_layer = 4 * d * self.n_heads * hd + 3 * d * self.d_ff + 2 * d
             total += self.n_enc_layers * enc_layer

@@ -1,7 +1,8 @@
 """Transformer layers of the port: RMSNorm, RoPE, GQA attention (causal,
 optionally over a sliding window; an encoder's non-causal self-attention;
 cross attention over encoder states), multi-head latent attention (MLA,
-DeepSeek-V2), the four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU) and
+DeepSeek-V2 and -V3: a query latent, the KV latent's norm, YaRN), the
+four MLPs (SwiGLU / GeGLU / squared-ReLU / GELU) and
 the capacity-factor MoE with token dispatch, after
 ``repro/models/layers.py``.
 
@@ -23,6 +24,7 @@ PyTorch, as they are XLA in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,7 +35,7 @@ from repro_torch.distributed.api import lc
 from repro_torch.kernels import ops
 from repro_torch.telemetry.tracing import annotate
 
-from .config import ModelConfig
+from .config import ModelConfig, YaRN
 
 
 def normal(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -60,12 +62,54 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- RoPE
-def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
-    """positions: (...,) integer -> cos/sin of shape (..., dim//2)."""
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                 yarn: Optional[YaRN] = None):
+    """positions: (...,) integer -> cos/sin of shape (..., dim//2); with
+    ``yarn``, at its frequencies and times its cos/sin factor."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                         device=positions.device) / dim))
+    if yarn is not None:
+        ramp = yarn_ramp(yarn, dim, theta).to(positions.device)
+        inv = inv / yarn.factor * ramp + inv * (1 - ramp)
     ang = positions.to(torch.float32)[..., None] * inv
-    return torch.cos(ang), torch.sin(ang)
+    if yarn is None:
+        return torch.cos(ang), torch.sin(ang)
+    m = yarn_m(yarn, yarn.mscale) / yarn_m(yarn, yarn.mscale_all_dim)
+    return torch.cos(ang) * m, torch.sin(ang) * m
+
+
+def yarn_ramp(yarn: YaRN, dim: int, theta: float) -> torch.Tensor:
+    """(dim//2,) fp32: each rotary pair's share of the interpolated
+    frequency (theta's over ``factor``), 0 for the pairs that turn more
+    than ``beta_fast`` times over ``original_max_position`` (kept as they
+    are), 1 for those that turn fewer than ``beta_slow`` times, linear
+    between; DeepSeek's ``yarn_find_correction_range`` and
+    ``yarn_linear_ramp_mask``."""
+    def pair(turns):
+        return dim * math.log(yarn.original_max_position
+                              / (turns * 2 * math.pi)) / (2 * math.log(theta))
+    lo = max(math.floor(pair(yarn.beta_fast)), 0)
+    hi = min(math.ceil(pair(yarn.beta_slow)), dim - 1)
+    i = torch.arange(dim // 2, dtype=torch.float32)
+    return torch.clamp((i - lo) / max(hi - lo, 1e-3), 0, 1)
+
+
+def yarn_m(yarn: YaRN, mscale: float) -> float:
+    """DeepSeek's ``yarn_get_mscale``: 1 + 0.1 mscale ln(factor) (1 at a
+    factor of 1 or below)."""
+    if yarn.factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(yarn.factor) + 1.0
+
+
+def yarn_attention_factor(cfg: ModelConfig) -> float:
+    """YaRN's factor on the softmax scale, ``m(mscale_all_dim)**2``, where
+    the configuration scales its rotary embedding and names that key; 1
+    otherwise."""
+    y = cfg.rope_scaling
+    if y is None or not y.mscale_all_dim:
+        return 1.0
+    return yarn_m(y, y.mscale_all_dim) ** 2
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -180,17 +224,26 @@ def attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # ------------------------------------------------------------------- MLA
 def init_mla(cfg: ModelConfig, gen: torch.Generator,
              device: torch.device) -> dict:
+    """MLA's leaves; with ``q_lora_rank`` the query latent ``wq_a``, its
+    norm ``q_norm`` and ``wq_b`` in place of ``wq``, with
+    ``kv_latent_norm`` the latent's norm ``kv_norm``."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
-    r, rh = cfg.kv_lora_rank, cfg.rope_head_dim
+    r, rh, ql = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
     pd = cfg.pdtype
-    return {
-        "wq": normal(gen, (d, h, hd + rh), pd, device),
-        "wdkv": normal(gen, (d, r), pd, device),
-        "wuk": normal(gen, (r, h, hd), pd, device),
-        "wuv": normal(gen, (r, h, hd), pd, device),
-        "wkr": normal(gen, (d, rh), pd, device),
-        "wo": normal(gen, (h, hd, d), pd, device),
-    }
+    if ql:
+        p = {"wq_a": normal(gen, (d, ql), pd, device),
+             "q_norm": _norm_init(ql, pd, device),
+             "wq_b": normal(gen, (ql, h, hd + rh), pd, device)}
+    else:
+        p = {"wq": normal(gen, (d, h, hd + rh), pd, device)}
+    p["wdkv"] = normal(gen, (d, r), pd, device)
+    if cfg.kv_latent_norm:
+        p["kv_norm"] = _norm_init(r, pd, device)
+    p.update(wuk=normal(gen, (r, h, hd), pd, device),
+             wuv=normal(gen, (r, h, hd), pd, device),
+             wkr=normal(gen, (d, rh), pd, device),
+             wo=normal(gen, (h, hd, d), pd, device))
+    return p
 
 
 def latent_rows(kv: dict) -> torch.Tensor:
@@ -216,49 +269,69 @@ def latent_rows(kv: dict) -> torch.Tensor:
 def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, kv_cache: Optional[dict] = None,
               cache_positions: Optional[torch.Tensor] = None, rope=None):
-    """Multi-head latent attention (DeepSeek-V2).
+    """Multi-head latent attention (DeepSeek-V2 and -V3), in the profiler
+    span ``attention/mla``.
 
+    Queries from ``x`` through ``wq``, or (``q_lora_rank``) through the
+    latent ``wq_a``, its RMSNorm and ``wq_b``; the KV latent ``c_kv =
+    x wdkv``, RMS-normed where ``kv_latent_norm``.
     Prefill/train: decompress K/V per head and run B8 on the head-dim
     concat of the nope and rope terms (Q/K at hd + rh, V at hd, Hkv = H).
+    B8 scales by 1/sqrt(hd + rh); YaRN's factor on the softmax scale
+    (:func:`yarn_attention_factor`) is folded into the query first, one
+    more rounding of it in the compute dtype.
     Decode: the *absorbed* path.  ``wuk`` folds into the query, whose
     ``r`` latent columns plus its rope part score each cache row
     ``[c_kv | k_rope]`` through B9 (one kv head, G = H), with V the row's
     first ``r`` columns (a view: the row is read once) and the scale
-    1/sqrt(hd + rh); ``wuv`` then maps the latent output to the heads.
-    The new row is written IN PLACE at ``cache_positions``.  ``rope`` may
-    carry the precomputed ``(cos, sin)`` of ``positions`` at dim rh."""
-    cd = cfg.cdtype
-    hd, h, rh, r = cfg.hd, cfg.n_heads, cfg.rope_head_dim, cfg.kv_lora_rank
-    b, s, _ = x.shape
-    q = lc(_heads(x, p["wq"], cd), "batch", "seq", "heads", None)
-    q_nope, q_rope = q[..., :hd], q[..., hd:]
-    cos, sin = rope if rope is not None else rope_cos_sin(
-        positions, rh, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    c_kv = x @ p["wdkv"].to(cd)                                  # (B,S,r)
-    k_rope = apply_rope((x @ p["wkr"].to(cd))[:, :, None, :], cos, sin)
-    scale = 1.0 / float(hd + rh) ** 0.5
-    if kv_cache is None:
-        k_nope = _heads(c_kv, p["wuk"], cd)
-        vv = _heads(c_kv, p["wuv"], cd)
-        q_cat = torch.cat([q_nope, q_rope], dim=-1)
-        k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, rh)], dim=-1)
-        # B8's scale is 1/sqrt(hd + rh), the head dim of q_cat
-        out = ops.flash_attention(q_cat.transpose(1, 2),
-                                  k_cat.transpose(1, 2),
-                                  vv.transpose(1, 2)).transpose(1, 2)
-    else:
-        rows = latent_rows(kv_cache)
-        spmd.write_rows(rows[:, :, 0], cache_positions,
-                        torch.cat([c_kv[:, 0], k_rope[:, 0, 0]], dim=-1))
-        q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wuk"].to(cd))
-        q_lat = torch.cat([q_abs, q_rope[:, 0]], dim=-1).contiguous()
-        out_c = ops.decode_attention(q_lat, rows, rows[..., :r],
-                                     cache_positions, scale)     # (B,H,r)
-        out = torch.einsum("bhr,rhk->bhk", out_c,
-                           p["wuv"].to(cd))[:, None]
-    y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
-    return lc(y, "batch", "seq", None), kv_cache
+    1/sqrt(hd + rh) times YaRN's factor; ``wuv`` then maps the latent
+    output to the heads.  The new row (the normed latent) is written IN
+    PLACE at ``cache_positions``.  ``rope`` may carry the precomputed ``(cos,
+    sin)`` of ``positions`` at dim rh."""
+    with annotate("attention/mla"):
+        cd = cfg.cdtype
+        hd, h, rh, r = cfg.hd, cfg.n_heads, cfg.rope_head_dim, cfg.kv_lora_rank
+        b, s, _ = x.shape
+        if cfg.q_lora_rank:
+            ql = rmsnorm(p["q_norm"], x @ p["wq_a"].to(cd), cfg.norm_eps)
+            q = _heads(ql, p["wq_b"], cd)
+        else:
+            q = _heads(x, p["wq"], cd)
+        q = lc(q, "batch", "seq", "heads", None)
+        q_nope, q_rope = q[..., :hd], q[..., hd:]
+        cos, sin = rope if rope is not None else rope_cos_sin(
+            positions, rh, cfg.rope_theta, cfg.rope_scaling)
+        q_rope = apply_rope(q_rope, cos, sin)
+        c_kv = x @ p["wdkv"].to(cd)                              # (B,S,r)
+        if cfg.kv_latent_norm:
+            c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.norm_eps)
+        k_rope = apply_rope((x @ p["wkr"].to(cd))[:, :, None, :], cos, sin)
+        m2 = yarn_attention_factor(cfg)
+        if kv_cache is None:
+            k_nope = _heads(c_kv, p["wuk"], cd)
+            vv = _heads(c_kv, p["wuv"], cd)
+            q_cat = torch.cat([q_nope, q_rope], dim=-1)
+            # B8's scale is 1/sqrt(hd + rh), the head dim of q_cat
+            if m2 != 1.0:
+                q_cat = q_cat * m2
+            k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, rh)], dim=-1)
+            out = ops.flash_attention(q_cat.transpose(1, 2),
+                                      k_cat.transpose(1, 2),
+                                      vv.transpose(1, 2)).transpose(1, 2)
+        else:
+            rows = latent_rows(kv_cache)
+            spmd.write_rows(rows[:, :, 0], cache_positions,
+                            torch.cat([c_kv[:, 0], k_rope[:, 0, 0]], dim=-1))
+            q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0],
+                                 p["wuk"].to(cd))
+            q_lat = torch.cat([q_abs, q_rope[:, 0]], dim=-1).contiguous()
+            scale = m2 / float(hd + rh) ** 0.5
+            out_c = ops.decode_attention(q_lat, rows, rows[..., :r],
+                                         cache_positions, scale)  # (B,H,r)
+            out = torch.einsum("bhr,rhk->bhk", out_c,
+                               p["wuv"].to(cd))[:, None]
+        y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(cd)
+        return lc(y, "batch", "seq", None), kv_cache
 
 
 # ------------------------------------------------------------------- MLPs
@@ -305,11 +378,19 @@ FP32_LEAVES = ("router", "a_log", "d_skip")
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator,
              device: torch.device) -> dict:
+    """The fp32 router over all ``n_experts`` (d, E), the layer's share of
+    the routed experts (``experts_held``: the first of them) and the
+    shared experts.  The ``sigmoid_group`` router's selection bias
+    (DeepSeek-V3's ``e_score_correction_bias``) is the router's last row,
+    (d + 1, E): one fp32 leaf that the loss reaches, though the bias row's
+    gradient is zero (it only selects)."""
     d, e = cfg.d_model, cfg.n_experts
     f = cfg.expert_d_ff or cfg.d_ff
     pd = cfg.pdtype
-    p = {"router": normal(gen, (d, e), torch.float32, device),
-         "wi": normal(gen, (e, d, f), pd, device)}
+    rows = d + 1 if cfg.router == "sigmoid_group" else d
+    p = {"router": normal(gen, (rows, e), torch.float32, device)}
+    e = cfg.experts_held
+    p["wi"] = normal(gen, (e, d, f), pd, device)
     if _n_in(cfg.mlp) == 2:
         p["wg"] = normal(gen, (e, d, f), pd, device)
     p["wo"] = normal(gen, (e, f, d), pd, device)
@@ -319,16 +400,48 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
-def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
-    """Top-k routing of tokens xt (T,d): fp32 logits against the fp32
-    router, softmax, the k best experts in descending probability (a
-    stable sort: ties go to the lower expert, as the reference's top_k),
-    their probabilities renormalised.  Returns (weights (T,K) fp32,
-    experts (T,K) int64)."""
-    probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
-    return topv / topv.sum(-1, keepdim=True).clamp_min(1e-9), topi
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int,
+              cfg: Optional[ModelConfig] = None):
+    """Top-k routing of tokens xt (T,d) over all E experts, from fp32
+    logits against the fp32 router's first d rows, in the profiler span
+    ``moe/route``.  ``cfg.router`` (``"softmax"`` where ``cfg`` is None):
+
+    - ``"softmax"``: the k best experts by softmax probability, their
+      probabilities renormalised;
+    - ``"sigmoid_group"`` (DeepSeek-V3's ``noaux_tc``): sigmoid scores;
+      for the choice alone, the bias (the router's row d) added; each of
+      ``cfg.n_group`` groups of experts scored by the sum of its two best
+      biased scores, the best ``cfg.topk_group`` groups kept and the
+      others' experts masked to -inf; the k best of what is left; their
+      unbiased scores renormalised to sum 1, times ``cfg.routed_scale``.
+
+    Every choice is a stable descending sort: ties go to the lower expert
+    (and group), as the reference's top_k.  Returns (weights (T,K) fp32,
+    experts (T,K) int64), the experts in descending order."""
+    with annotate("moe/route"):
+        d = xt.shape[-1]
+        logits = xt.to(torch.float32) @ router[:d]
+        if cfg is None or cfg.router == "softmax":
+            probs = torch.softmax(logits, dim=-1)
+            topv, topi = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+            topv, topi = topv[:, :k], topi[:, :k]
+            return topv / topv.sum(-1, keepdim=True).clamp_min(1e-9), topi
+        scores = torch.sigmoid(logits)
+        choice = scores + router[d]
+        t, e = choice.shape
+        grouped = choice.view(t, cfg.n_group, e // cfg.n_group)
+        best2 = torch.sort(grouped, dim=-1, descending=True).values[..., :2]
+        groups = torch.sort(best2.sum(-1), dim=-1, descending=True,
+                            stable=True).indices[:, :cfg.topk_group]
+        keep = torch.zeros_like(grouped[..., 0], dtype=torch.bool)
+        keep.scatter_(1, groups, True)
+        choice = grouped.masked_fill(~keep[..., None], float("-inf"))
+        topi = torch.sort(choice.view(t, e), dim=-1, descending=True,
+                          stable=True).indices[:, :k]
+        topv = scores.gather(1, topi)
+        topv = topv / (topv.sum(-1, keepdim=True) + 1e-20)
+        return topv * cfg.routed_scale, topi
 
 
 def moe_slots(topi: torch.Tensor, e: int, cap: int):
@@ -385,7 +498,7 @@ def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
         e_l = p["wi"].shape[0]
         t = xt.shape[0]
         cap = max(1, -(-int(t * k * cfg.capacity_factor) // e))
-        topv, topi = moe_route(p["router"], xt, k)
+        topv, topi = moe_route(p["router"], xt, k, cfg)
         e_flat, pos, keep = moe_slots(topi, e, cap)
         if e_l != e:                   # a part of the experts lives here
             e_flat = e_flat - e_lo

@@ -113,8 +113,10 @@ def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ blocks
 def init_block(cfg: ModelConfig, gen: torch.Generator,
-               device: torch.device) -> dict:
-    """One decoder block's params (family-dependent)."""
+               device: torch.device, i: int = 0) -> dict:
+    """Decoder block ``i``'s params (family-dependent; an MoE model's
+    first ``cfg.first_dense_layers`` blocks hold an MLP of ``d_ff`` in
+    place of the MoE)."""
     p: dict[str, Any] = {"ln1": L._norm_init(cfg.d_model, cfg.pdtype, device),
                          "ln2": L._norm_init(cfg.d_model, cfg.pdtype, device)}
     if cfg.family == "ssm":     # xLSTM: both cells, a layer runs one
@@ -127,7 +129,7 @@ def init_block(cfg: ModelConfig, gen: torch.Generator,
         p["attn"] = L.init_attention(cfg, gen, device)
     if cfg.family == "hybrid" and cfg.ssm_state > 0:
         p["mamba"] = S.init_mamba(cfg, gen, device)
-    if cfg.is_moe:
+    if cfg.moe_layer(i):
         p["moe"] = L.init_moe(cfg, gen, device)
     elif cfg.d_ff > 0:
         p["mlp"] = L.init_mlp(cfg, gen, device)
@@ -171,8 +173,8 @@ def has_ffn(cfg: ModelConfig) -> bool:
 
 def ffn_apply(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """A block's second half on its normed input ``h``: the MoE or the
-    MLP."""
-    if cfg.is_moe:
+    MLP, whichever the block holds."""
+    if "moe" in p:
         return L.moe_apply(p["moe"], cfg, h)
     return L.mlp_apply(p["mlp"], cfg, h)
 
@@ -310,10 +312,11 @@ class Model:
         cfg = self.cfg
         if generator is None and self.device.type != "meta":
             generator = torch.Generator(self.device).manual_seed(0)
-        block = init_xattn_block if cfg.n_enc_layers else init_block
         params = {"emb": init_embeddings(cfg, generator, self.device),
-                  "blocks": [block(cfg, generator, self.device)
-                             for _ in range(cfg.n_layers)]}
+                  "blocks": [init_xattn_block(cfg, generator, self.device)
+                             if cfg.n_enc_layers else
+                             init_block(cfg, generator, self.device, i)
+                             for i in range(cfg.n_layers)]}
         if cfg.n_enc_layers:
             params["enc"] = [init_enc_block(cfg, generator, self.device)
                              for _ in range(cfg.n_enc_layers)]
@@ -333,7 +336,8 @@ class Model:
         if cfg.family == "ssm":
             return None
         dim = cfg.rope_head_dim if cfg.attention == "mla" else cfg.hd
-        return L.rope_cos_sin(positions, dim, cfg.rope_theta)
+        return L.rope_cos_sin(positions, dim, cfg.rope_theta,
+                              cfg.rope_scaling)
 
     def _run_stack(self, params, x, positions, cache=None, cache_pos=None,
                    attend_pos=None, enc_out=None):

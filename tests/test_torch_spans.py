@@ -1,7 +1,8 @@
 """The port's profiler spans on the train and prefill path, on the CPU:
 ``attention/grad`` (B8's backward), ``optim/adamw`` (the whole update),
 ``model/unembed`` (the final norm and the vocabulary product),
-``moe/experts`` and, nested in it, ``moe/slots``.  Each opens once a call
+``attention/mla`` (the whole of MLA), ``moe/experts`` and, nested in it,
+``moe/route`` and ``moe/slots``.  Each opens once a call
 at its layer's boundary (never per chunk, leaf or expert), and a profiler
 that records them changes no result: losses, gradients, updated
 parameters and prefill logits are bit-equal with and without one.
@@ -22,7 +23,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 SPANS = ("attention/grad", "optim/adamw", "model/unembed", "moe/experts",
-         "moe/slots")
+         "moe/slots", "moe/route", "attention/mla")
 ARCHS = ["smollm-360m", "deepseek-v2-lite-16b"]
 
 
@@ -80,8 +81,8 @@ def test_attention_grad_span_from_the_autograd_function():
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_spans(arch, accum):
     """A train step opens ``optim/adamw`` once, ``model/unembed`` once a
-    microbatch's forward, and the MoE spans once an MoE layer a
-    forward."""
+    microbatch's forward, and the MoE and MLA spans once an MoE or MLA
+    layer a forward."""
     model, params = _model(arch)
     step = make_train_step(model, AdamWConfig(warmup_steps=1), accum)
     opt = adamw_init(params)
@@ -98,6 +99,9 @@ def test_train_step_spans(arch, accum):
     n_moe = model.cfg.n_layers if model.cfg.is_moe else 0
     assert _count(evs, "moe/experts") == 2 * accum * n_moe
     assert _count(evs, "moe/slots") == 2 * accum * n_moe
+    assert _count(evs, "moe/route") == 2 * accum * n_moe
+    n_mla = model.cfg.n_layers if model.cfg.attention == "mla" else 0
+    assert _count(evs, "attention/mla") == 2 * accum * n_mla
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -113,11 +117,13 @@ def test_prefill_and_decode_open_one_unembed_span(arch):
     assert _count(evs, "model/unembed") == 1
 
 
-def test_moe_slots_nest_in_moe_experts_once_a_layer():
+def _nested_in_experts(inner):
+    """A 3-layer prefill's ``moe/experts`` spans and its ``inner`` spans,
+    each of which opened inside one of them."""
     model, params = _model("deepseek-v2-lite-16b", n_layers=3)
     _, evs = _profiled(lambda: model.prefill(params, _batch(model.cfg)))
     experts = [e for e in evs if e.name == "moe/experts"]
-    slots = [e for e in evs if e.name == "moe/slots"]
+    slots = [e for e in evs if e.name == inner]
     assert len(experts) == len(slots) == 3
     for s in slots:
         parent = s.cpu_parent
@@ -126,6 +132,35 @@ def test_moe_slots_nest_in_moe_experts_once_a_layer():
         assert parent is not None
         assert parent.time_range.start <= s.time_range.start
         assert s.time_range.end <= parent.time_range.end
+    return evs, experts
+
+
+def test_moe_slots_nest_in_moe_experts_once_a_layer():
+    _nested_in_experts("moe/slots")
+
+
+def test_moe_route_nests_in_moe_experts_and_mla_stands_apart():
+    """``moe/route`` opens once inside each ``moe/experts``;
+    ``attention/mla`` once a layer, outside them."""
+    evs, experts = _nested_in_experts("moe/route")
+    mla = [e for e in evs if e.name == "attention/mla"]
+    assert len(mla) == 3
+    for e in mla:
+        assert all(e.time_range.end <= x.time_range.start
+                   or x.time_range.end <= e.time_range.start
+                   for x in experts)
+
+
+def test_mla_and_route_spans_in_decode():
+    """A decode step opens ``attention/mla`` and ``moe/route`` once a
+    layer too (the absorbed path, the router over one row a sequence)."""
+    model, params = _model("deepseek-v2-lite-16b", n_layers=3)
+    cache = model.init_cache(2, 8)
+    _, evs = _profiled(lambda: model.decode_step(
+        params, cache, {"tokens": torch.zeros(2, 1, dtype=torch.long),
+                        "pos": torch.zeros(2, dtype=torch.int32)}))
+    assert _count(evs, "attention/mla") == 3
+    assert _count(evs, "moe/route") == 3
 
 
 def _train_and_prefill(model, params, batch):
